@@ -1,0 +1,160 @@
+"""ModelConfig and the reference presets, the port's own copy of
+ccvpe_tpu/core/config.py (no import of the JAX package).
+
+Every field of the JAX ModelConfig is kept so that a config describes the
+same model in both packages; the port's CVM raises NotImplementedError for
+the fields it does not run yet (models/cvm.py::check_supported).
+TrainConfig belongs to the training slice and is not here yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+CORR_IMPLS = ("auto", "plain", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Configuration of one CVM variant (reference models.py:49 VIGOR,
+    :346 VIGOR ori-prior, :655 KITTI, :954 Oxford)."""
+
+    name: str = "vigor"
+
+    # --- input geometry ---
+    grd_size: Tuple[int, int] = (320, 640)   # ground image H, W
+    sat_size: Tuple[int, int] = (512, 512)   # aerial image H, W
+
+    # --- backbone ---
+    circular: bool = True        # horizontal circular padding, ground encoder
+    circular_impl: str = "wrap"  # 'edgefix' not ported
+    backbone_features: int = 1280
+
+    # --- ground descriptor heads: 1x1 compress channels per scale ---
+    grd_desc_channels: Sequence[int] = (64, 32, 16, 8, 4, 2)
+
+    # --- aerial descriptor head ---
+    sat_desc_dim: int = 1280     # D; 2048 for KITTI
+    sat_grid: int = 8            # chunk grid over the bottleneck feature map
+
+    # --- orientation-rolled matching ---
+    num_bins: int = 20                                  # K; 16 for KITTI
+    roll_shifts: Sequence[int] = (64, 32, 16, 8, 4, 2)  # channel shift per scale
+    center_window: bool = False  # Oxford centre-window matching
+
+    # --- decoders (stage order coarse -> fine) ---
+    loc_deconv_out: Sequence[int] = (1024, 320, 160, 80, 40, 16)
+    loc_conv_out: Sequence[int] = (640, 320, 160, 80, 40)
+    ori_deconv_out: Sequence[int] = (1024, 256, 128, 64, 32, 16)
+    ori_conv_out: Sequence[int] = (640, 256, 128, 64, 32)
+    head_hidden: int = 16
+
+    # correlation implementation: 'auto' (the CUDA kernel for CUDA tensors,
+    # the plain version for CPU tensors, at every D), 'plain' (two einsums,
+    # the JAX 'xla' counterpart) or 'cuda' (the kernel; raises on a CPU
+    # tensor, the JAX 'pallas' counterpart)
+    corr_impl: str = "auto"
+
+    # --- options of the JAX package the port does not run yet ---
+    corr_bf16: bool = False
+    deconv_impl: str = "einsum"
+    compute_dtype: str = "float32"
+    remat_backbone: bool = False
+    remat_skip_blocks: int = 0
+    remat_policy: str = "none"
+    remat_decoder: bool = False
+    spatial_axis: Optional[str] = None
+    ori_axis: Optional[str] = None
+    lmu_fused_min_res: int = 0
+    phase_space_min_res: int = 0
+    ori_window: int = 0
+
+    # --- ori-prior restricted search: degrees of orientation noise ---
+    ori_noise: Optional[float] = None
+
+    @property
+    def bin_degrees(self) -> float:
+        return 360.0 / self.num_bins
+
+    @property
+    def grd_feat_hw(self) -> Tuple[int, int]:
+        """Backbone output H, W of the ground branch (static-224 SAME)."""
+        from ccvpe_tpu_torch.ops.padding import b0_output_size
+        return b0_output_size(self.grd_size)
+
+    @property
+    def sat_feat_hw(self) -> Tuple[int, int]:
+        from ccvpe_tpu_torch.ops.padding import b0_output_size
+        return b0_output_size(self.sat_size)
+
+    @property
+    def grd_desc_lens(self) -> Tuple[int, ...]:
+        w = self.grd_feat_hw[1]
+        return tuple(w * c for c in self.grd_desc_channels)
+
+    @property
+    def num_scales(self) -> int:
+        return len(self.roll_shifts)
+
+    @property
+    def restricted_bins(self) -> Optional[Tuple[int, ...]]:
+        """Bin offsets of the localization search under an orientation
+        prior: range(-n, n+1), n = int(ori_noise / bin_degrees)."""
+        if self.ori_noise is None:
+            return None
+        n = int(self.ori_noise / self.bin_degrees)
+        return tuple(range(-n, n + 1))
+
+
+def vigor(ori_noise: Optional[float] = None, circular: bool = True) -> ModelConfig:
+    """CVM_VIGOR / CVM_VIGOR_ori_prior."""
+    return ModelConfig(name="vigor", circular=circular, ori_noise=ori_noise)
+
+
+def kitti() -> ModelConfig:
+    """CVM_KITTI: 16 bins, D=2048, level-6 roll shift 8."""
+    return ModelConfig(
+        name="kitti",
+        grd_size=(256, 1024),
+        circular=False,
+        grd_desc_channels=(16, 8, 4, 2, 1, 1),
+        sat_desc_dim=2048,
+        num_bins=16,
+        roll_shifts=(128, 64, 32, 16, 8, 8),
+        loc_deconv_out=(1024, 256, 128, 64, 32, 16),
+        loc_conv_out=(512, 256, 128, 128, 32),
+        ori_deconv_out=(1024, 256, 128, 64, 32, 16),
+        ori_conv_out=(512, 256, 128, 64, 32),
+    )
+
+
+def oxford() -> ModelConfig:
+    """CVM_OxfordRobotCar: centre-window matching, ground 154x231."""
+    return ModelConfig(
+        name="oxford",
+        grd_size=(154, 231),
+        circular=False,
+        grd_desc_channels=(32, 16, 8, 4, 2, 1),
+        center_window=True,
+    )
+
+
+def tiny(sat: int = 128, grd: Tuple[int, int] = (64, 128)) -> ModelConfig:
+    """Miniature config with the same topology, for tests: grid * 2^6 = sat,
+    scale-i descriptor length equals the scale-i sat channel count."""
+    return ModelConfig(
+        name="tiny",
+        grd_size=grd,
+        sat_size=(sat, sat),
+        circular=True,
+        grd_desc_channels=(64, 32, 16, 8, 4, 2),
+        sat_desc_dim=256,
+        sat_grid=max(1, sat // 64),
+        num_bins=4,
+        roll_shifts=(64, 32, 16, 8, 4, 2),
+        loc_deconv_out=(128, 64, 32, 16, 8, 16),
+        loc_conv_out=(128, 64, 32, 16, 8),
+        ori_deconv_out=(128, 64, 32, 16, 8, 16),
+        ori_conv_out=(128, 64, 32, 16, 8),
+    )

@@ -1,0 +1,219 @@
+"""The CVM model family, eval-mode forward (the port of
+ccvpe_tpu/models/cvm.py:30-259).
+
+Forward contract as in the JAX package (NHWC at the boundary):
+  logits [B, H*W], heatmap [B, H, W, 1] (softmax over all sat pixels),
+  ori [B, H, W, 2] (per-pixel L2-normalized (cos, sin)),
+  matching_scores[s] [B, h_s, w_s, K].
+Inside, activations are NCHW in channels_last memory, so the NHWC view the
+correlation kernel reads is contiguous without a copy.
+
+Module names are the reference CCVPE state-dict names (grd_efficientnet,
+sat_efficientnet, grd_feature_to_descriptorN, sat_feature_to_descriptors,
+deconvN / convN and deconvN_ori / convN_ori, N = 6 coarse .. 1 fine, conv1
+and conv1_ori being the heads), so `load_state_dict(strict=True)` takes a
+reference .pt or `utils.convert.state_dict_from_jax` output as it is.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ccvpe_tpu_torch.core.config import CORR_IMPLS, ModelConfig
+from ccvpe_tpu_torch.nn.decoder import Deconv2x2, DoubleConv, HeadConv, decoder_stage
+from ccvpe_tpu_torch.nn.efficientnet import B0_BLOCK_SPECS, EfficientNetB0
+from ccvpe_tpu_torch.nn.heads import GroundDescriptorHead, SatDescriptorHead, l2_normalize
+from ccvpe_tpu_torch.ops.corr import rolled_corr_dispatch
+from ccvpe_tpu_torch.ops.padding import b0_layer_sizes
+
+
+class CVMOutput(NamedTuple):
+    logits: torch.Tensor                          # [B, H*W]
+    heatmap: torch.Tensor                         # [B, H, W, 1]
+    ori: torch.Tensor                             # [B, H, W, 2]
+    matching_scores: Tuple[torch.Tensor, ...]     # per scale [B, h_s, w_s, K]
+
+
+# ModelConfig fields the port does not run yet: (field, default, the slice
+# of ROADMAP.md "Next slices" that brings it)
+_NOT_PORTED = (
+    ("remat_backbone", False, "remaining ModelConfig options"),
+    ("remat_skip_blocks", 0, "remaining ModelConfig options"),
+    ("remat_policy", "none", "remaining ModelConfig options"),
+    ("remat_decoder", False, "remaining ModelConfig options"),
+    ("spatial_axis", None, "remaining ModelConfig options"),
+    ("ori_axis", None, "remaining ModelConfig options"),
+    ("lmu_fused_min_res", 0, "B2/B3 with their fused paths"),
+    ("phase_space_min_res", 0, "remaining ModelConfig options"),
+    ("circular_impl", "wrap", "remaining ModelConfig options"),
+    ("deconv_impl", "einsum", "remaining ModelConfig options"),
+    ("compute_dtype", "float32", "remaining ModelConfig options"),
+    ("corr_bf16", False, "remaining ModelConfig options"),
+    ("ori_window", 0, "training step"),
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config option the port does not run."""
+    for field, default, item in _NOT_PORTED:
+        value = getattr(cfg, field)
+        if value != default:
+            raise NotImplementedError(
+                f"ModelConfig.{field}={value!r} is not ported yet "
+                f"(ROADMAP.md, next slice: {item})")
+    if cfg.corr_impl not in CORR_IMPLS:
+        raise ValueError(f"corr_impl must be one of {CORR_IMPLS}, got {cfg.corr_impl!r}")
+
+
+class CVM(nn.Module):
+    """Convolutional cross-view pose estimator. Built on the meta device
+    (no memory, no RNG); use `build_cvm` to place and fill it."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        check_supported(config)
+        self.config = cfg = config
+        n = cfg.num_scales
+        with torch.device("meta"):
+            self.grd_efficientnet = EfficientNetB0(cfg.circular, cfg.backbone_features)
+            self.sat_efficientnet = EfficientNetB0(False, cfg.backbone_features)
+            grd_h = cfg.grd_feat_hw[0]
+            for s, c in enumerate(cfg.grd_desc_channels):
+                self.add_module(f"grd_feature_to_descriptor{s + 1}",
+                                GroundDescriptorHead(cfg.backbone_features, c, grd_h))
+            gh, gw = cfg.sat_feat_hw
+            chunk = (gh // cfg.sat_grid) * (gw // cfg.sat_grid)
+            self.sat_feature_to_descriptors = SatDescriptorHead(
+                cfg.backbone_features, chunk, cfg.sat_desc_dim, cfg.sat_grid)
+
+            # Skip channels by resolution: the last backbone block at each
+            # size (for 512^2 blocks 15, 10, 4, 2, 0 -> 320, 112, 40, 24, 16).
+            skip_ch = {hw[0]: spec[2] for hw, spec in
+                       zip(b0_layer_sizes(cfg.sat_size)[1:], B0_BLOCK_SPECS)}
+
+            for branch, suffix, k_in, deconv_out, conv_out, head_out in (
+                    ("loc", "", 1, cfg.loc_deconv_out, cfg.loc_conv_out, 1),
+                    ("ori", "_ori", cfg.num_bins, cfg.ori_deconv_out,
+                     cfg.ori_conv_out, 2)):
+                cin = k_in + cfg.sat_desc_dim
+                res = cfg.sat_grid
+                for s in range(n):
+                    ref_n = n - s
+                    self.add_module(f"deconv{ref_n}{suffix}",
+                                    Deconv2x2(cin, deconv_out[s]))
+                    res *= 2
+                    if s < n - 1:
+                        c_cat = deconv_out[s] + skip_ch.get(res, 0)
+                        self.add_module(f"conv{ref_n}{suffix}",
+                                        DoubleConv(c_cat, conv_out[s]))
+                        cin = conv_out[s] + (1 if branch == "loc" else 0)
+                self.add_module(f"conv1{suffix}",
+                                HeadConv(deconv_out[-1], cfg.head_hidden, head_out))
+
+    def _stage(self, branch_suffix: str, s: int):
+        ref_n = self.config.num_scales - s
+        deconv = getattr(self, f"deconv{ref_n}{branch_suffix}")
+        conv = getattr(self, f"conv{ref_n}{branch_suffix}") if ref_n > 1 else None
+        return deconv, conv
+
+    def forward(self, grd: torch.Tensor, sat: torch.Tensor) -> CVMOutput:
+        """grd [B, Hg, Wg, 3], sat [B, Hs, Ws, 3], normalized float32 NHWC."""
+        cfg = self.config
+        n = cfg.num_scales
+        grd = grd.permute(0, 3, 1, 2)   # NCHW views of NHWC = channels_last
+        sat = sat.permute(0, 3, 1, 2)
+        grd_feat, _ = self.grd_efficientnet(grd)
+        sat_feat, sat_multiscale = self.sat_efficientnet(sat)
+        skip_by_size = {m.shape[2]: m for m in sat_multiscale}
+
+        grd_descs = [getattr(self, f"grd_feature_to_descriptor{s + 1}")(grd_feat)
+                     for s in range(n)]
+        sat_desc = self.sat_feature_to_descriptors(sat_feat)       # [B,g,g,D]
+        sat_desc = sat_desc.permute(0, 3, 1, 2)                      # NCHW view
+
+        def match(x, s, bins=None):
+            return rolled_corr_dispatch(
+                x.permute(0, 2, 3, 1), grd_descs[s], cfg.roll_shifts[s],
+                cfg.num_bins, cfg.center_window, bins, cfg.corr_impl)
+
+        # Under an orientation prior the bottleneck RETURNS the full K-bin
+        # stack (the restricted one only feeds the max), while scales 2..6
+        # return restricted stacks (reference models.py:489-511).
+        restricted = cfg.restricted_bins
+        scores_full = match(sat_desc, 0)
+        scores_loc = match(sat_desc, 0, restricted) if restricted else scores_full
+        all_scores = [scores_full]
+
+        x = sat_desc
+        for s in range(n):
+            if s > 0:
+                scores_s = match(x, s, restricted)
+                all_scores.append(scores_s)
+            else:
+                scores_s = scores_loc
+            score_max = scores_s.amax(dim=-1, keepdim=True).permute(0, 3, 1, 2)
+            x = torch.cat([score_max, l2_normalize(x, dim=1)], dim=1)
+            skip = skip_by_size.get(x.shape[2] * 2) if s < n - 1 else None
+            x = decoder_stage(*self._stage("", s), x, skip)
+        logits_map = self.conv1(x)                                   # [B,1,H,W]
+        b, _, h, w = logits_map.shape
+        logits = logits_map.reshape(b, h * w)
+        heatmap = torch.softmax(logits, dim=-1).reshape(b, h, w, 1)
+
+        y = torch.cat([scores_full.permute(0, 3, 1, 2),
+                       l2_normalize(sat_desc, dim=1)], dim=1)
+        for s in range(n):
+            skip = skip_by_size.get(y.shape[2] * 2) if s < n - 1 else None
+            y = decoder_stage(*self._stage("_ori", s), y, skip)
+        ori_raw = self.conv1_ori(y)                                  # [B,2,H,W]
+        ori = l2_normalize(ori_raw, dim=1).permute(0, 2, 3, 1)
+        return CVMOutput(logits, heatmap, ori, tuple(all_scores))
+
+
+@torch.no_grad()
+def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter and BN buffer from `generator` (CPU), in
+    named order: conv/linear weights ~ N(0, 1/fan_in), biases ~ N(0, 0.01),
+    BN scale ~ U(0.5, 1.5), shift ~ N(0, 0.1), mean ~ N(0, 0.1),
+    var ~ U(0.5, 1.5). For smoke runs at full width without weights."""
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator) * std
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=generator) * (hi - lo) + lo
+
+    for mod in model.modules():
+        if isinstance(mod, nn.BatchNorm2d):
+            c = mod.num_features
+            mod.weight.copy_(uniform(c, 0.5, 1.5))
+            mod.bias.copy_(normal(c, 0.1))
+            mod.running_mean.copy_(normal(c, 0.1))
+            mod.running_var.copy_(uniform(c, 0.5, 1.5))
+            mod.num_batches_tracked.zero_()
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = mod.weight
+            if isinstance(mod, nn.ConvTranspose2d):
+                fan_in = w.shape[0]     # one tap per output pixel
+            else:
+                fan_in = w[0].numel()
+            w.copy_(normal(w.shape, fan_in ** -0.5))
+            if mod.bias is not None:
+                mod.bias.copy_(normal(mod.bias.shape, 0.01))
+    return model
+
+
+def build_cvm(config: ModelConfig, device, state_dict=None,
+              generator: Optional[torch.Generator] = None) -> CVM:
+    """A CVM on `device` in eval mode and channels_last memory, with weights
+    from `state_dict` (strict) or, failing that, drawn from `generator`."""
+    if state_dict is None and generator is None:
+        raise ValueError("build_cvm needs a state_dict or a torch.Generator")
+    model = CVM(config).to_empty(device=device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        random_init_(model, generator)
+    return model.to(memory_format=torch.channels_last).eval()

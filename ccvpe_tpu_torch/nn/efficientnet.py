@@ -1,0 +1,118 @@
+"""EfficientNet-B0 feature extractor, eval mode (the port of
+ccvpe_tpu/nn/efficientnet.py:32-256).
+
+stem conv s2 -> 16 MBConv blocks -> 1x1 head conv to 1280 channels; each
+MBConv = [expand 1x1 + BN + swish] -> depthwise conv + BN + swish -> SE ->
+project 1x1 + BN -> residual. Every spatial conv uses the static-224 SAME
+pads (ops/padding.py); the ground branch wraps W for 360-degree panoramas.
+
+Module and parameter names are the reference's efficientnet_pytorch names
+(_conv_stem, _bn0, _blocks.N._{expand,depthwise,project}_conv, _se_reduce,
+_se_expand, _conv_head, _bn1), so a reference state dict loads as it is.
+Drop-connect is train-only and belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ccvpe_tpu_torch.ops.padding import Pad, pad_same, traced_same_pads
+
+# Per-block (expand_ratio, input_filters, output_filters, kernel, stride).
+B0_BLOCK_SPECS: Tuple[Tuple[int, int, int, int, int], ...] = (
+    (1, 32, 16, 3, 1),
+    (6, 16, 24, 3, 2), (6, 24, 24, 3, 1),
+    (6, 24, 40, 5, 2), (6, 40, 40, 5, 1),
+    (6, 40, 80, 3, 2), (6, 80, 80, 3, 1), (6, 80, 80, 3, 1),
+    (6, 80, 112, 5, 1), (6, 112, 112, 5, 1), (6, 112, 112, 5, 1),
+    (6, 112, 192, 5, 2), (6, 192, 192, 5, 1), (6, 192, 192, 5, 1), (6, 192, 192, 5, 1),
+    (6, 192, 320, 3, 1),
+)
+SE_RATIO = 0.25
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.01   # torch convention; flax's 0.99
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class StaticSameConv2d(nn.Conv2d):
+    """Bias-free conv with the fixed static-224 SAME pads applied by F.pad
+    (asymmetric for stride 2), W wrapped when circular."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 pad_h: Pad, pad_w: Pad, circular: bool, groups: int = 1):
+        super().__init__(cin, cout, kernel, stride, padding=0, groups=groups,
+                         bias=False)
+        self.pad_h, self.pad_w, self.circular = pad_h, pad_w, circular
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(pad_same(x, self.pad_h, self.pad_w, self.circular))
+
+
+class MBConv(nn.Module):
+    """Mobile inverted bottleneck block, eval mode."""
+
+    def __init__(self, expand_ratio: int, in_filters: int, out_filters: int,
+                 kernel: int, stride: int, pad_h: Pad, pad_w: Pad,
+                 circular: bool):
+        super().__init__()
+        mid = in_filters * expand_ratio
+        self.has_expand = expand_ratio != 1
+        if self.has_expand:
+            self._expand_conv = nn.Conv2d(in_filters, mid, 1, bias=False)
+            self._bn0 = batch_norm(mid)
+        self._depthwise_conv = StaticSameConv2d(
+            mid, mid, kernel, stride, pad_h, pad_w, circular, groups=mid)
+        self._bn1 = batch_norm(mid)
+        # SE width comes from in_filters, not the expanded width
+        reduced = max(1, int(in_filters * SE_RATIO))
+        self._se_reduce = nn.Conv2d(mid, reduced, 1)
+        self._se_expand = nn.Conv2d(reduced, mid, 1)
+        self._project_conv = nn.Conv2d(mid, out_filters, 1, bias=False)
+        self._bn2 = batch_norm(out_filters)
+        self.residual = stride == 1 and in_filters == out_filters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inputs = x
+        if self.has_expand:
+            x = F.silu(self._bn0(self._expand_conv(x)))
+        x = F.silu(self._bn1(self._depthwise_conv(x)))
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self._se_expand(F.silu(self._se_reduce(s)))
+        x = torch.sigmoid(s) * x
+        x = self._bn2(self._project_conv(x))
+        if self.residual:
+            x = x + inputs
+        return x
+
+
+class EfficientNetB0(nn.Module):
+    """B0 feature extractor: NCHW image -> (head features, [16 block outputs])."""
+
+    def __init__(self, circular: bool = False, head_features: int = 1280):
+        super().__init__()
+        pads = traced_same_pads()
+        (ph, pw) = pads[0]
+        self._conv_stem = StaticSameConv2d(3, 32, 3, 2, ph, pw, circular)
+        self._bn0 = batch_norm(32)
+        self._blocks = nn.ModuleList(
+            MBConv(e, cin, cout, k, s, *pads[1 + i], circular)
+            for i, (e, cin, cout, k, s) in enumerate(B0_BLOCK_SPECS))
+        self._conv_head = nn.Conv2d(B0_BLOCK_SPECS[-1][2], head_features, 1,
+                                    bias=False)
+        self._bn1 = batch_norm(head_features)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        x = F.silu(self._bn0(self._conv_stem(x)))
+        multiscale = []
+        for block in self._blocks:
+            x = block(x)
+            multiscale.append(x)
+        x = F.silu(self._bn1(self._conv_head(x)))
+        return x, multiscale

@@ -1,0 +1,102 @@
+"""Port vs JAX: the rolled correlation. The JAX side is the Pallas kernel
+run in CPU interpret mode (as tests/test_corr_pallas.py runs it); the port
+side is the plain `rolled_corr`, `corr_core_plain` (through
+`rolled_corr_cuda`, which takes it for a CPU tensor) and the loop
+transcription `rolled_corr_reference`."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from _torch_helpers import CORR_TOL
+from ccvpe_tpu.ops.corr_pallas import rolled_corr_pallas
+from ccvpe_tpu_torch.ops import corr as tcorr
+from ccvpe_tpu_torch.ops.corr_cuda import corr_core, corr_core_plain, rolled_corr_cuda
+
+# (b, h, w, D, L, shift, K, center, bins): the eight CASES of
+# tests/test_corr_pallas.py, a restricted ori-prior case with negative bins
+# and KITTI's level-6 shift of 8.
+CASES = [
+    (2, 8, 8, 1280, 1280, 64, 20, False, None),
+    (1, 16, 16, 640, 640, 32, 20, False, None),
+    (1, 8, 8, 2048, 512, 128, 16, False, None),
+    (2, 8, 8, 1280, 224, 64, 20, True, None),
+    (2, 16, 16, 40, 40, 2, 20, False, None),
+    (1, 16, 16, 80, 80, 4, 20, False, None),
+    (1, 8, 8, 64, 32, 8, 16, False, None),
+    (1, 8, 8, 40, 20, 2, 20, True, None),
+    (2, 8, 8, 320, 320, 16, 20, False, tuple(range(-2, 3))),
+    (1, 16, 16, 32, 32, 8, 16, False, None),
+]
+IDS = [f"D{c[3]}_L{c[4]}_s{c[5]}_K{c[6]}{'_center' if c[7] else ''}"
+       f"{'_bins' if c[8] else ''}" for c in CASES]
+
+
+@pytest.fixture(scope="module", params=CASES, ids=IDS)
+def case(request):
+    b, h, w, d, length, shift, k, center, bins = request.param
+    rng = np.random.default_rng(request.param_index)
+    sat = rng.normal(size=(b, h, w, d)).astype(np.float32)
+    grd = rng.normal(size=(b, length)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(rolled_corr_pallas(jnp.asarray(sat), jnp.asarray(grd),
+                                            shift, k, center, bins))
+    return sat, grd, shift, k, center, bins, ref
+
+
+def test_plain_matches_pallas(case):
+    sat, grd, shift, k, center, bins, ref = case
+    out = tcorr.rolled_corr(torch.from_numpy(sat), torch.from_numpy(grd),
+                            shift, k, center, bins)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, **CORR_TOL)
+
+
+def test_corr_core_plain_matches_pallas(case):
+    sat, grd, shift, k, center, bins, ref = case
+    before = corr_core.launches
+    out = rolled_corr_cuda(torch.from_numpy(sat), torch.from_numpy(grd),
+                           shift, k, center, bins)
+    assert corr_core.launches == before      # CPU tensors launch no kernel
+    np.testing.assert_allclose(out.numpy(), ref, **CORR_TOL)
+
+
+def test_reference_loop_agrees(case):
+    sat, grd, shift, k, center, bins, ref = case
+    loop = tcorr.rolled_corr_reference(torch.from_numpy(sat), torch.from_numpy(grd),
+                                       shift, k, center, bins)
+    np.testing.assert_allclose(loop.numpy(), ref, **CORR_TOL)
+    for impl in ("auto", "plain"):
+        out = tcorr.rolled_corr_dispatch(torch.from_numpy(sat), torch.from_numpy(grd),
+                                         shift, k, center, bins, impl)
+        np.testing.assert_allclose(out.numpy(), loop.numpy(), **CORR_TOL)
+
+
+def test_need_r_is_rsqrt_of_den2(rng):
+    b, n, d, k = 2, 48, 96, 20
+    s = torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32))
+    grd = torch.from_numpy(rng.normal(size=(b, 64)).astype(np.float32))
+    g_mat, m_mat = tcorr.build_roll_matrices(grd, d, 4, tuple(range(k)), center=True)
+    out, r = corr_core(s, g_mat, m_mat, need_r=True)
+    den2 = np.einsum("bnd,kd->bnk", s.numpy().astype(np.float64) ** 2,
+                     m_mat.numpy().astype(np.float64))
+    np.testing.assert_allclose(r.numpy(), 1.0 / np.sqrt(den2), rtol=1e-5)
+    np.testing.assert_allclose(out.numpy(), corr_core_plain(s, g_mat, m_mat).numpy())
+    assert out.shape == r.shape == (b, n, k)
+
+
+def test_window_offset_float_expression():
+    # int(D/2 - L/2) with float division, as the reference writes it
+    assert tcorr._window_offset(1280, 224, True) == 528
+    assert tcorr._window_offset(41, 20, True) == 10
+    assert tcorr._window_offset(1280, 224, False) == 0
+
+
+def test_dispatch_rejects_bad_impl_and_cuda_on_cpu():
+    sat, grd = torch.zeros(1, 2, 2, 8), torch.ones(1, 8)
+    with pytest.raises(ValueError, match="corr_impl"):
+        tcorr.rolled_corr_dispatch(sat, grd, 1, 4, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tcorr.rolled_corr_dispatch(sat, grd, 1, 4, impl="cuda")

@@ -1,0 +1,133 @@
+"""Port vs JAX: the whole CVM forward (eval mode) on tiny(), tiny with an
+orientation prior (bins -1..1) and tiny with centre-window matching, with
+JAX weights carried across by state_dict_from_jax and loaded strictly.
+A slow case runs the real VIGOR geometry at batch 1."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _helpers import assert_ori_close
+from _torch_helpers import HEATMAP_ATOL, OUT_TOL, jax_variables
+from ccvpe_tpu.core import config as jcfg
+from ccvpe_tpu.models.cvm import CVM as JaxCVM
+from ccvpe_tpu_torch.core import config as tcfg
+from ccvpe_tpu_torch.models.cvm import CVM, build_cvm, check_supported
+from ccvpe_tpu_torch.utils.convert import state_dict_from_jax
+
+VARIANTS = {
+    "tiny": {},
+    "ori_prior": {"ori_noise": 90.0},
+    "center_window": {"center_window": True},
+}
+
+
+def run_both(preset, overrides, batch, seed):
+    jax_cfg = dataclasses.replace(getattr(jcfg, preset)(), **overrides)
+    port_cfg = dataclasses.replace(getattr(tcfg, preset)(), **overrides)
+    rng = np.random.default_rng(seed)
+    hg, wg = jax_cfg.grd_size
+    hs, ws = jax_cfg.sat_size
+    grd = rng.normal(size=(batch, hg, wg, 3)).astype(np.float32)
+    sat = rng.normal(size=(batch, hs, ws, 3)).astype(np.float32)
+    model = JaxCVM(jax_cfg)
+    variables = jax_variables(model, grd[:1], sat[:1], False, seed=seed)
+    ref = jax.jit(lambda v, g, s: model.apply(v, g, s, False))(variables, grd, sat)
+    ref = jax.tree.map(np.asarray, ref)
+
+    port = build_cvm(port_cfg, "cpu", state_dict=state_dict_from_jax(
+        variables["params"], variables["batch_stats"], port_cfg.num_scales))
+    raw = {}
+    port.conv1_ori.register_forward_hook(lambda m, i, o: raw.update(ori=o))
+    with torch.inference_mode():
+        out = port(torch.from_numpy(grd), torch.from_numpy(sat))
+    raw_norm = torch.linalg.vector_norm(raw["ori"], dim=1)[..., None].numpy()
+    return ref, out, raw_norm
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def outputs(request):
+    return run_both("tiny", VARIANTS[request.param], batch=2, seed=11)
+
+
+def test_logits_match_jax(outputs):
+    ref, out, _ = outputs
+    assert tuple(out.logits.shape) == ref.logits.shape
+    np.testing.assert_allclose(out.logits.numpy(), ref.logits, **OUT_TOL)
+
+
+def test_heatmap_matches_jax(outputs):
+    ref, out, _ = outputs
+    assert tuple(out.heatmap.shape) == ref.heatmap.shape
+    np.testing.assert_allclose(out.heatmap.numpy(), ref.heatmap, atol=HEATMAP_ATOL)
+
+
+def test_ori_matches_jax(outputs):
+    ref, out, raw_norm = outputs
+    assert tuple(out.ori.shape) == ref.ori.shape
+    assert_ori_close(out.ori.numpy(), ref.ori, raw_norm)
+
+
+def test_matching_scores_match_jax(outputs):
+    ref, out, _ = outputs
+    assert len(out.matching_scores) == len(ref.matching_scores) == 6
+    for i, (a, b) in enumerate(zip(out.matching_scores, ref.matching_scores)):
+        assert tuple(a.shape) == b.shape, i
+        np.testing.assert_allclose(a.numpy(), b, err_msg=f"scale {i + 1}", **OUT_TOL)
+
+
+def test_ori_prior_returns_full_bottleneck_stack():
+    cfg = dataclasses.replace(tcfg.tiny(), ori_noise=90.0)
+    assert cfg.restricted_bins == (-1, 0, 1)
+    model = build_cvm(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+    hg, wg = cfg.grd_size
+    hs, ws = cfg.sat_size
+    with torch.inference_mode():
+        out = model(torch.zeros(1, hg, wg, 3), torch.ones(1, hs, ws, 3))
+    ks = [s.shape[-1] for s in out.matching_scores]
+    assert ks == [4, 3, 3, 3, 3, 3]
+
+
+UNPORTED = [("remat_backbone", True), ("remat_skip_blocks", 2),
+            ("remat_policy", "save_dw"), ("remat_decoder", True),
+            ("spatial_axis", "model"), ("ori_axis", "model"),
+            ("lmu_fused_min_res", 256), ("phase_space_min_res", 256),
+            ("circular_impl", "edgefix"), ("deconv_impl", "conv"),
+            ("compute_dtype", "bfloat16"), ("corr_bf16", True), ("ori_window", 224)]
+
+
+@pytest.mark.parametrize("field,value", UNPORTED, ids=[f for f, _ in UNPORTED])
+def test_unported_options_raise(field, value):
+    cfg = dataclasses.replace(tcfg.tiny(), **{field: value})
+    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
+        CVM(cfg)
+
+
+def test_bad_corr_impl_raises():
+    with pytest.raises(ValueError, match="corr_impl"):
+        check_supported(dataclasses.replace(tcfg.tiny(), corr_impl="pallas"))
+
+
+def test_state_dict_names_are_the_references():
+    names = set(CVM(tcfg.tiny()).state_dict())
+    for key in ("grd_efficientnet._blocks.3._depthwise_conv.weight",
+                "grd_efficientnet._bn1.running_var",
+                "grd_feature_to_descriptor2.2.weight",
+                "sat_feature_to_descriptors.1.weight",
+                "deconv6.weight", "conv6.0.weight", "deconv1_ori.bias",
+                "conv1_ori.2.weight", "conv1.2.bias"):
+        assert key in names, key
+    assert "conv1.0.bias" in names and "conv2_ori.2.weight" in names
+
+
+@pytest.mark.slow
+def test_vigor_geometry_matches_jax():
+    ref, out, raw_norm = run_both("vigor", {}, batch=1, seed=12)
+    np.testing.assert_allclose(out.logits.numpy(), ref.logits, **OUT_TOL)
+    np.testing.assert_allclose(out.heatmap.numpy(), ref.heatmap, atol=HEATMAP_ATOL)
+    assert_ori_close(out.ori.numpy(), ref.ori, raw_norm)
+    for a, b in zip(out.matching_scores, ref.matching_scores):
+        np.testing.assert_allclose(a.numpy(), b, **OUT_TOL)
