@@ -1,10 +1,10 @@
-"""ModelConfig and the reference presets, the port's own copy of
-ccvpe_tpu/core/config.py (no import of the JAX package).
+"""ModelConfig, TrainConfig and the reference presets, the port's own copy
+of ccvpe_tpu/core/config.py (no import of the JAX package).
 
-Every field of the JAX ModelConfig is kept so that a config describes the
-same model in both packages; the port's CVM raises NotImplementedError for
-the fields it does not run yet (models/cvm.py::check_supported).
-TrainConfig belongs to the training slice and is not here yet.
+Every field of the JAX ModelConfig and TrainConfig is kept so that a config
+describes the same model and run in both packages; the port's CVM raises
+NotImplementedError for the fields it does not run yet
+(models/cvm.py::check_supported).
 """
 
 from __future__ import annotations
@@ -56,6 +56,12 @@ class ModelConfig:
     # tensor, the JAX 'pallas' counterpart)
     corr_impl: str = "auto"
 
+    # fused LMU decoder stages (ops/lmu_cuda.py, csrc/lmu.cu): 0 = off;
+    # otherwise stages whose output resolution is >= this value, and the
+    # final stage with its head, run as one fused kernel forward and one
+    # backward (256 fuses the two finest stages of both decoders)
+    lmu_fused_min_res: int = 0
+
     # --- options of the JAX package the port does not run yet ---
     corr_bf16: bool = False
     deconv_impl: str = "einsum"
@@ -66,7 +72,6 @@ class ModelConfig:
     remat_decoder: bool = False
     spatial_axis: Optional[str] = None
     ori_axis: Optional[str] = None
-    lmu_fused_min_res: int = 0
     phase_space_min_res: int = 0
     ori_window: int = 0
 
@@ -105,6 +110,49 @@ class ModelConfig:
             return None
         n = int(self.ori_noise / self.bin_degrees)
         return tuple(range(-n, n + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the port's copy of ccvpe_tpu/core/config.py
+    TrainConfig, :206-261, every field kept; reference train_VIGOR.py:25-34,
+    104-109).
+
+    `flatten_optimizer` raveled the parameters into one vector for optax in
+    the JAX package, which changes no numbers; the port accepts it and
+    ignores it. The run-management fields (checkpoints, logging, sharding axes,
+    fault injection) belong to the Trainer, which is not ported yet."""
+
+    learning_rate: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    optimizer: str = "adam"          # 'adam' | 'adamw'
+    weight_decay: float = 0.0
+    schedule: str = "constant"       # 'constant' | 'warmup_cosine' (needs total_steps)
+    warmup_steps: int = 0
+    total_steps: Optional[int] = None
+    grad_clip_norm: Optional[float] = None
+    flatten_optimizer: bool = True   # accepted, ignored (see above)
+    batch_size: int = 8              # global batch
+    # sequential microbatches per step, gradients averaged before one
+    # update; BN batch statistics are per microbatch and the running stats
+    # are threaded from one microbatch to the next
+    grad_accum_steps: int = 1
+    epochs: int = 15                 # VIGOR 15, KITTI 6, Oxford 50
+    weight_infonce: float = 1e4
+    weight_ori: float = 1e1
+    temperature: float = 0.1         # infoNCE temperature (losses.py:4)
+    infonce_global_negatives: bool = False
+    seed: int = 17
+    pretrained_backbone: Optional[str] = None
+    warm_start: Optional[str] = None
+    data_axis: str = "data"
+    model_axis: str = "model"
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
+    log_every: int = 200
+    checkpoint_every_steps: Optional[int] = None
+    fake_fail_at_step: Optional[int] = None
 
 
 def vigor(ori_noise: Optional[float] = None, circular: bool = True) -> ModelConfig:

@@ -22,7 +22,7 @@ from typing import List, Sequence
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "_build"
-KERNELS = ("corr",)
+KERNELS = ("corr", "lmu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,4 +1,4 @@
-"""The CVM model family, eval-mode forward (the port of
+"""The CVM model family, eval- and train-mode forward (the port of
 ccvpe_tpu/models/cvm.py:30-259).
 
 Forward contract as in the JAX package (NHWC at the boundary):
@@ -13,6 +13,11 @@ sat_efficientnet, grd_feature_to_descriptorN, sat_feature_to_descriptors,
 deconvN / convN and deconvN_ori / convN_ori, N = 6 coarse .. 1 fine, conv1
 and conv1_ori being the heads), so `load_state_dict(strict=True)` takes a
 reference .pt or `utils.convert.state_dict_from_jax` output as it is.
+
+With ModelConfig.lmu_fused_min_res set, decoder stages whose output
+resolution reaches it run as fused stages (nn/decoder.py::fused_stage_nchw),
+and a fused final stage takes the head's two convs with it (reference
+models.py:125-127: deconv1 -> conv1 is one chain), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch
 import torch.nn as nn
 
 from ccvpe_tpu_torch.core.config import CORR_IMPLS, ModelConfig
-from ccvpe_tpu_torch.nn.decoder import Deconv2x2, DoubleConv, HeadConv, decoder_stage
+from ccvpe_tpu_torch.nn.decoder import (Deconv2x2, DoubleConv, HeadConv, decoder_stage,
+                                        fused_stage_nchw)
 from ccvpe_tpu_torch.nn.efficientnet import B0_BLOCK_SPECS, EfficientNetB0
 from ccvpe_tpu_torch.nn.heads import GroundDescriptorHead, SatDescriptorHead, l2_normalize
 from ccvpe_tpu_torch.ops.corr import rolled_corr_dispatch
@@ -46,13 +52,12 @@ _NOT_PORTED = (
     ("remat_decoder", False, "remaining ModelConfig options"),
     ("spatial_axis", None, "remaining ModelConfig options"),
     ("ori_axis", None, "remaining ModelConfig options"),
-    ("lmu_fused_min_res", 0, "B2/B3 with their fused paths"),
     ("phase_space_min_res", 0, "remaining ModelConfig options"),
     ("circular_impl", "wrap", "remaining ModelConfig options"),
     ("deconv_impl", "einsum", "remaining ModelConfig options"),
     ("compute_dtype", "float32", "remaining ModelConfig options"),
     ("corr_bf16", False, "remaining ModelConfig options"),
-    ("ori_window", 0, "training step"),
+    ("ori_window", 0, "remaining ModelConfig options"),
 )
 
 
@@ -119,14 +124,17 @@ class CVM(nn.Module):
         conv = getattr(self, f"conv{ref_n}{branch_suffix}") if ref_n > 1 else None
         return deconv, conv
 
-    def forward(self, grd: torch.Tensor, sat: torch.Tensor) -> CVMOutput:
-        """grd [B, Hg, Wg, 3], sat [B, Hs, Ws, 3], normalized float32 NHWC."""
+    def forward(self, grd: torch.Tensor, sat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> CVMOutput:
+        """grd [B, Hg, Wg, 3], sat [B, Hs, Ws, 3], normalized float32 NHWC.
+        In train mode `generator` (on the inputs' device) draws the
+        encoders' drop-connect masks."""
         cfg = self.config
         n = cfg.num_scales
         grd = grd.permute(0, 3, 1, 2)   # NCHW views of NHWC = channels_last
         sat = sat.permute(0, 3, 1, 2)
-        grd_feat, _ = self.grd_efficientnet(grd)
-        sat_feat, sat_multiscale = self.sat_efficientnet(sat)
+        grd_feat, _ = self.grd_efficientnet(grd, generator)
+        sat_feat, sat_multiscale = self.sat_efficientnet(sat, generator)
         skip_by_size = {m.shape[2]: m for m in sat_multiscale}
 
         grd_descs = [getattr(self, f"grd_feature_to_descriptor{s + 1}")(grd_feat)
@@ -138,6 +146,9 @@ class CVM(nn.Module):
             return rolled_corr_dispatch(
                 x.permute(0, 2, 3, 1), grd_descs[s], cfg.roll_shifts[s],
                 cfg.num_bins, cfg.center_window, bins, cfg.corr_impl)
+
+        def fused(res_out: int) -> bool:
+            return bool(cfg.lmu_fused_min_res) and res_out >= cfg.lmu_fused_min_res
 
         # Under an orientation prior the bottleneck RETURNS the full K-bin
         # stack (the restricted one only feeds the max), while scales 2..6
@@ -157,8 +168,13 @@ class CVM(nn.Module):
             score_max = scores_s.amax(dim=-1, keepdim=True).permute(0, 3, 1, 2)
             x = torch.cat([score_max, l2_normalize(x, dim=1)], dim=1)
             skip = skip_by_size.get(x.shape[2] * 2) if s < n - 1 else None
-            x = decoder_stage(*self._stage("", s), x, skip)
-        logits_map = self.conv1(x)                                   # [B,1,H,W]
+            last = s == n - 1
+            if last and fused(2 * x.shape[2]):
+                logits_map = fused_stage_nchw(self.deconv1, self.conv1, x, None)
+            else:
+                x = decoder_stage(*self._stage("", s), x, skip, fused(2 * x.shape[2]))
+                if last:
+                    logits_map = self.conv1(x)                       # [B,1,H,W]
         b, _, h, w = logits_map.shape
         logits = logits_map.reshape(b, h * w)
         heatmap = torch.softmax(logits, dim=-1).reshape(b, h, w, 1)
@@ -167,8 +183,13 @@ class CVM(nn.Module):
                        l2_normalize(sat_desc, dim=1)], dim=1)
         for s in range(n):
             skip = skip_by_size.get(y.shape[2] * 2) if s < n - 1 else None
-            y = decoder_stage(*self._stage("_ori", s), y, skip)
-        ori_raw = self.conv1_ori(y)                                  # [B,2,H,W]
+            last = s == n - 1
+            if last and fused(2 * y.shape[2]):
+                ori_raw = fused_stage_nchw(self.deconv1_ori, self.conv1_ori, y, None)
+            else:
+                y = decoder_stage(*self._stage("_ori", s), y, skip, fused(2 * y.shape[2]))
+                if last:
+                    ori_raw = self.conv1_ori(y)                      # [B,2,H,W]
         ori = l2_normalize(ori_raw, dim=1).permute(0, 2, 3, 1)
         return CVMOutput(logits, heatmap, ori, tuple(all_scores))
 
@@ -203,6 +224,15 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if mod.bias is not None:
                 mod.bias.copy_(normal(mod.bias.shape, 0.01))
     return model
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the card; without one it raises rather than run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def build_cvm(config: ModelConfig, device, state_dict=None,

@@ -1,11 +1,14 @@
 """Localization / orientation decoder stages (the port of
-ccvpe_tpu/nn/decoder.py:28-116, 137-204, plain path).
+ccvpe_tpu/nn/decoder.py:28-116, 137-204, plain and fused paths).
 
 One LMU stage (reference models.py:204-341): ConvTranspose2d(k=2, s=2),
 concat the aerial skip features (stages 1-5), then Conv3x3 -> ReLU ->
 Conv3x3. The final stage's deconv feeds a head of the same shape with 1
-(localization) or 2 (orientation) output channels. These stay PyTorch /
-cuDNN ops, as they are XLA ops in the JAX package. Tensors are NCHW.
+(localization) or 2 (orientation) output channels. The plain path stays
+PyTorch / cuDNN ops, as it is XLA ops in the JAX package; the fused path
+(`fused_stage_nchw`, ModelConfig.lmu_fused_min_res) runs the stage as one
+autograd.Function over the hand-written kernels of ops/lmu_cuda.py, with
+the modules' own weights, so state dicts load either way. Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from ccvpe_tpu_torch.ops.lmu_cuda import FusedStage
 
 
 class Deconv2x2(nn.ConvTranspose2d):
@@ -43,10 +48,26 @@ class HeadConv(DoubleConv):
         return super().forward(x).float()
 
 
+def fused_stage_nchw(deconv: Deconv2x2, conv: DoubleConv, x: torch.Tensor,
+                     skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """deconv -> [| skip] -> conv (a DoubleConv, or the HeadConv of the final
+    stage) as one fused stage; NCHW in and out, channels_last memory, f32."""
+    cl = torch.channels_last
+    xn = x.float().contiguous(memory_format=cl).permute(0, 2, 3, 1)
+    sn = None if skip is None else skip.float().contiguous(memory_format=cl).permute(0, 2, 3, 1)
+    y = FusedStage.apply(xn, sn, deconv.weight, deconv.bias, conv[0].weight, conv[0].bias,
+                         conv[2].weight, conv[2].bias)
+    return y.permute(0, 3, 1, 2)
+
+
 def decoder_stage(deconv: Deconv2x2, conv: Optional[DoubleConv],
-                  x: torch.Tensor, skip: Optional[torch.Tensor]) -> torch.Tensor:
+                  x: torch.Tensor, skip: Optional[torch.Tensor],
+                  fused: bool = False) -> torch.Tensor:
     """DecoderStage: deconv -> optional [deconv | skip] concat -> optional
-    double conv (None for the final stage, whose head is applied outside)."""
+    double conv (None for the final stage, whose head is applied outside).
+    fused=True runs a stage with its double conv through fused_stage_nchw."""
+    if fused and conv is not None:
+        return fused_stage_nchw(deconv, conv, x, skip)
     x = deconv(x)
     if skip is not None:
         x = torch.cat([x, skip.to(x.dtype)], dim=1)

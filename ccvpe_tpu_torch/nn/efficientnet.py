@@ -1,20 +1,27 @@
-"""EfficientNet-B0 feature extractor, eval mode (the port of
-ccvpe_tpu/nn/efficientnet.py:32-256).
+"""EfficientNet-B0 feature extractor (the port of
+ccvpe_tpu/nn/efficientnet.py:32-256), eval and train mode.
 
 stem conv s2 -> 16 MBConv blocks -> 1x1 head conv to 1280 channels; each
 MBConv = [expand 1x1 + BN + swish] -> depthwise conv + BN + swish -> SE ->
-project 1x1 + BN -> residual. Every spatial conv uses the static-224 SAME
-pads (ops/padding.py); the ground branch wraps W for 360-degree panoramas.
+project 1x1 + BN -> drop-connect + residual. Every spatial conv uses the
+static-224 SAME pads (ops/padding.py); the ground branch wraps W for
+360-degree panoramas.
 
 Module and parameter names are the reference's efficientnet_pytorch names
 (_conv_stem, _bn0, _blocks.N._{expand,depthwise,project}_conv, _se_reduce,
 _se_expand, _conv_head, _bn1), so a reference state dict loads as it is.
-Drop-connect is train-only and belongs to the training slice.
+
+Train mode follows flax, the reference of the port: BatchNorm normalises
+with the batch statistics and updates its running stats as
+0.99 * old + 0.01 * batch with the BIASED batch variance (torch's own
+update takes the unbiased one). Drop-connect (stochastic depth) at rate
+DROP_CONNECT_RATE * i / 16 for block i draws its per-sample masks from
+the torch.Generator the caller passes.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,10 +42,41 @@ B0_BLOCK_SPECS: Tuple[Tuple[int, int, int, int, int], ...] = (
 SE_RATIO = 0.25
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01   # torch convention; flax's 0.99
+DROP_CONNECT_RATE = 0.2
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode running-stat update uses the biased
+    batch variance, as flax's BatchNorm does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # normalisation with batch statistics (biased variance, as torch
+        # and flax both normalise); running stats left to the update below
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm:
+    return BatchNorm(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (reference utils.py:129-154):
+    x / keep * floor(keep + U[0, 1)), the uniforms from `generator`."""
+    if generator is None:
+        raise ValueError("train-mode drop-connect needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                   device=x.device, dtype=x.dtype)
+    return x / keep * torch.floor(keep + u)
 
 
 class StaticSameConv2d(nn.Conv2d):
@@ -56,11 +94,11 @@ class StaticSameConv2d(nn.Conv2d):
 
 
 class MBConv(nn.Module):
-    """Mobile inverted bottleneck block, eval mode."""
+    """Mobile inverted bottleneck block."""
 
     def __init__(self, expand_ratio: int, in_filters: int, out_filters: int,
                  kernel: int, stride: int, pad_h: Pad, pad_w: Pad,
-                 circular: bool):
+                 circular: bool, drop_rate: float = 0.0):
         super().__init__()
         mid = in_filters * expand_ratio
         self.has_expand = expand_ratio != 1
@@ -77,8 +115,10 @@ class MBConv(nn.Module):
         self._project_conv = nn.Conv2d(mid, out_filters, 1, bias=False)
         self._bn2 = batch_norm(out_filters)
         self.residual = stride == 1 and in_filters == out_filters
+        self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         inputs = x
         if self.has_expand:
             x = F.silu(self._bn0(self._expand_conv(x)))
@@ -88,6 +128,8 @@ class MBConv(nn.Module):
         x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if self.residual:
+            if self.training and self.drop_rate > 0:
+                x = drop_connect(x, self.drop_rate, generator)
             x = x + inputs
         return x
 
@@ -101,18 +143,22 @@ class EfficientNetB0(nn.Module):
         (ph, pw) = pads[0]
         self._conv_stem = StaticSameConv2d(3, 32, 3, 2, ph, pw, circular)
         self._bn0 = batch_norm(32)
+        n = len(B0_BLOCK_SPECS)
         self._blocks = nn.ModuleList(
-            MBConv(e, cin, cout, k, s, *pads[1 + i], circular)
+            MBConv(e, cin, cout, k, s, *pads[1 + i], circular,
+                   drop_rate=DROP_CONNECT_RATE * i / n)      # model.py:262-264
             for i, (e, cin, cout, k, s) in enumerate(B0_BLOCK_SPECS))
         self._conv_head = nn.Conv2d(B0_BLOCK_SPECS[-1][2], head_features, 1,
                                     bias=False)
         self._bn1 = batch_norm(head_features)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """`generator` feeds drop-connect in train mode; eval mode ignores it."""
         x = F.silu(self._bn0(self._conv_stem(x)))
         multiscale = []
         for block in self._blocks:
-            x = block(x)
+            x = block(x, generator)
             multiscale.append(x)
         x = F.silu(self._bn1(self._conv_head(x)))
         return x, multiscale

@@ -13,6 +13,11 @@ reading S once. The CUDA route is a plain C interface built with nvcc
 (csrc/build.py) and loaded with ctypes; nothing here touches nvcc or the
 card until a CUDA tensor arrives, so the module imports on a CPU-only host.
 On a CPU tensor `corr_core` runs `corr_core_plain`.
+
+The kernel writes through raw pointers, so its output carries no autograd
+graph of its own: `CorrCore` (an autograd.Function whose backward is the
+plain products of corr_pallas.py:124-135) gives it one, and
+`rolled_corr_cuda` goes through it whenever a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -94,6 +99,46 @@ def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
 corr_core.launches = 0
 
 
+def corr_core_bwd(grad_out: torch.Tensor, s_flat: torch.Tensor, g_mat: torch.Tensor,
+                  m_mat: torch.Tensor, out: torch.Tensor, r: torch.Tensor):
+    """Gradients of corr_core w.r.t. S and G' from the saved out and r (the
+    port of ccvpe_tpu/ops/corr_pallas.py::_corr_core_bwd, :124-135; plain
+    products there too). d out / d S = r*G' - S * (out * r^2 * M)."""
+    a = grad_out * r                                   # [B,N,K]
+    c = grad_out * out * (r * r)                       # [B,N,K]
+    grad_s = torch.bmm(a, g_mat) - s_flat * torch.matmul(c, m_mat)
+    grad_g = torch.bmm(a.transpose(1, 2), s_flat)
+    return grad_s, grad_g
+
+
+class CorrCore(torch.autograd.Function):
+    """Differentiable corr_core (the counterpart of the jax.custom_vjp
+    corr_core, corr_pallas.py:113-138): the forward is the kernel with
+    need_r on a CUDA tensor and corr_core_plain on a CPU one; the backward
+    is corr_core_bwd. M gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, s_flat, g_mat, m_mat):
+        out, r = corr_core(s_flat, g_mat, m_mat, need_r=True)
+        ctx.save_for_backward(s_flat, g_mat, m_mat, out, r)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        s_flat, g_mat, m_mat, out, r = ctx.saved_tensors
+        grad_s, grad_g = corr_core_bwd(grad_out, s_flat, g_mat, m_mat, out, r)
+        return grad_s, grad_g, None
+
+
+def corr_core_diff(s_flat: torch.Tensor, g_mat: torch.Tensor,
+                   m_mat: torch.Tensor) -> torch.Tensor:
+    """corr_core's out with gradients to S and G' when either needs them;
+    a forward without a graph launches the kernel without r."""
+    if torch.is_grad_enabled() and (s_flat.requires_grad or g_mat.requires_grad):
+        return CorrCore.apply(s_flat, g_mat, m_mat)
+    return corr_core(s_flat, g_mat, m_mat)
+
+
 def rolled_corr_cuda(sat: torch.Tensor, grd: torch.Tensor, shift: int,
                      num_bins: int, center: bool = False,
                      bins: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -108,5 +153,5 @@ def rolled_corr_cuda(sat: torch.Tensor, grd: torch.Tensor, shift: int,
     g_mat = g_mat / torch.linalg.vector_norm(grd, dim=-1)[:, None, None]
     # a view for channels_last activations, one copy otherwise
     s_flat = sat.reshape(b, h * w, d).contiguous()
-    out = corr_core(s_flat, g_mat.contiguous(), m_mat.contiguous())
+    out = corr_core_diff(s_flat, g_mat.contiguous(), m_mat.contiguous())
     return out.reshape(b, h, w, len(bins))

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ccvpe_tpu_torch.core.config import ModelConfig
-from ccvpe_tpu_torch.models.cvm import build_cvm
+from ccvpe_tpu_torch.models.cvm import build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.train.step import device_normalize
 
@@ -31,15 +31,6 @@ class PoseResult:
     col: int
     angle_deg: float         # decoded orientation
     probability: float       # heatmap peak value
-
-
-def resolve_device(device=None) -> torch.device:
-    """None means the card; without one it raises rather than run on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class InferenceEngine:

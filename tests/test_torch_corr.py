@@ -100,3 +100,83 @@ def test_dispatch_rejects_bad_impl_and_cuda_on_cpu():
         tcorr.rolled_corr_dispatch(sat, grd, 1, 4, impl="pallas")
     with pytest.raises(ValueError, match="CUDA tensor"):
         tcorr.rolled_corr_dispatch(sat, grd, 1, 4, impl="cuda")
+
+
+# --- the backward (CorrCore, the counterpart of the custom VJP) ---
+
+def test_corr_core_bwd_matches_jax_bwd(rng):
+    """corr_core_bwd against JAX's _corr_core_bwd (plain jnp) on the same
+    residuals (S, G', M, out, r) and cotangent."""
+    from ccvpe_tpu.ops.corr_pallas import _corr_core_bwd
+    from ccvpe_tpu_torch.ops.corr_cuda import corr_core_bwd
+
+    b, n, d, k = 2, 40, 96, 20
+    s = torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32))
+    grd = torch.from_numpy(rng.normal(size=(b, 64)).astype(np.float32))
+    g_mat, m_mat = tcorr.build_roll_matrices(grd, d, 4, tuple(range(k)), center=True)
+    g_mat = g_mat / torch.linalg.vector_norm(grd, dim=-1)[:, None, None]
+    out, r = corr_core_plain(s, g_mat, m_mat, need_r=True)
+    gbar = torch.from_numpy(rng.normal(size=(b, n, k)).astype(np.float32))
+    res = tuple(jnp.asarray(t.numpy()) for t in (s, g_mat, m_mat, out, r))
+    want_s, want_g, want_m = _corr_core_bwd(res, jnp.asarray(gbar.numpy()))
+    got_s, got_g = corr_core_bwd(gbar, s, g_mat, m_mat, out, r)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), atol=1e-5, rtol=1e-4)
+    assert not np.asarray(want_m).any()    # M gets no gradient on either side
+
+
+# (b, h, w, D, L, shift, K, center, bins): VIGOR-like, centre window, prior
+GRAD_CASES = [(2, 4, 4, 80, 80, 4, 20, False, None),
+              (1, 4, 4, 64, 32, 8, 16, True, None),
+              (2, 4, 4, 40, 40, 2, 20, False, tuple(range(-2, 3)))]
+
+
+@pytest.mark.parametrize("impl", ["function", "dispatch_auto"])
+@pytest.mark.parametrize("case", GRAD_CASES, ids=["vigor", "center", "prior"])
+def test_corr_grads_match_jax(case, impl):
+    """Gradients of sat and grd through the port (rolled_corr_cuda, i.e.
+    CorrCore, which a CUDA tensor takes; and rolled_corr_dispatch 'auto',
+    the plain einsums on a CPU tensor) against jax.grad of the JAX
+    package's ops/corr.py rolled_corr, for the loss sum(scores * weight)."""
+    import jax
+    from ccvpe_tpu.ops.corr import rolled_corr as jax_rolled_corr
+
+    b, h, w, d, length, shift, k, center, bins = case
+    rng = np.random.default_rng(23)
+    sat = rng.normal(size=(b, h, w, d)).astype(np.float32)
+    grd = rng.normal(size=(b, length)).astype(np.float32)
+    kk = k if bins is None else len(bins)
+    wgt = rng.normal(size=(b, h, w, kk)).astype(np.float32)
+
+    def loss(s, g):
+        return jnp.sum(jax_rolled_corr(s, g, shift, k, center, bins) * wgt)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(sat), jnp.asarray(grd))
+    ts = torch.from_numpy(sat).requires_grad_()
+    tg = torch.from_numpy(grd).requires_grad_()
+    before = corr_core.launches
+    if impl == "function":
+        out = rolled_corr_cuda(ts, tg, shift, k, center, bins)
+    else:
+        out = tcorr.rolled_corr_dispatch(ts, tg, shift, k, center, bins, "auto")
+    (out * torch.from_numpy(wgt)).sum().backward()
+    assert corr_core.launches == before
+    for got, ref in ((ts.grad, want[0]), (tg.grad, want[1])):
+        ref = np.asarray(ref)
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got.numpy() / scale, ref / scale, atol=1e-5)
+
+
+def test_forward_without_grad_keeps_one_product():
+    """With no gradient wanted, rolled_corr_cuda calls corr_core without r
+    (the serving path); with one, it goes through CorrCore."""
+    from unittest import mock
+
+    from ccvpe_tpu_torch.ops import corr_cuda
+
+    sat, grd = torch.randn(1, 2, 2, 16), torch.randn(1, 16)
+    with mock.patch.object(corr_cuda, "corr_core", wraps=corr_cuda.corr_core) as spy:
+        with torch.no_grad():
+            corr_cuda.rolled_corr_cuda(sat, grd, 2, 4)
+        corr_cuda.rolled_corr_cuda(sat.requires_grad_(), grd, 2, 4).sum().backward()
+    assert [c.kwargs.get("need_r", False) for c in spy.call_args_list] == [False, True]

@@ -1,7 +1,8 @@
 """Port vs JAX: the whole CVM forward (eval mode) on tiny(), tiny with an
-orientation prior (bins -1..1) and tiny with centre-window matching, with
-JAX weights carried across by state_dict_from_jax and loaded strictly.
-A slow case runs the real VIGOR geometry at batch 1."""
+orientation prior (bins -1..1), tiny with centre-window matching, and the
+port's fused decoder stages (lmu_fused_min_res=32) against the JAX unfused
+forward, with JAX weights carried across by state_dict_from_jax and loaded
+strictly. A slow case runs the real VIGOR geometry at batch 1."""
 
 import dataclasses
 
@@ -18,16 +19,19 @@ from ccvpe_tpu_torch.core import config as tcfg
 from ccvpe_tpu_torch.models.cvm import CVM, build_cvm, check_supported
 from ccvpe_tpu_torch.utils.convert import state_dict_from_jax
 
+# name -> (overrides of both configs, overrides of the port's only)
 VARIANTS = {
-    "tiny": {},
-    "ori_prior": {"ori_noise": 90.0},
-    "center_window": {"center_window": True},
+    "tiny": ({}, {}),
+    "ori_prior": ({"ori_noise": 90.0}, {}),
+    "center_window": ({"center_window": True}, {}),
+    "lmu_fused": ({}, {"lmu_fused_min_res": 32}),
 }
 
 
-def run_both(preset, overrides, batch, seed):
+def run_both(preset, overrides, batch, seed, port_overrides=None):
     jax_cfg = dataclasses.replace(getattr(jcfg, preset)(), **overrides)
-    port_cfg = dataclasses.replace(getattr(tcfg, preset)(), **overrides)
+    port_cfg = dataclasses.replace(getattr(tcfg, preset)(), **overrides,
+                                   **(port_overrides or {}))
     rng = np.random.default_rng(seed)
     hg, wg = jax_cfg.grd_size
     hs, ws = jax_cfg.sat_size
@@ -38,19 +42,27 @@ def run_both(preset, overrides, batch, seed):
     ref = jax.jit(lambda v, g, s: model.apply(v, g, s, False))(variables, grd, sat)
     ref = jax.tree.map(np.asarray, ref)
 
-    port = build_cvm(port_cfg, "cpu", state_dict=state_dict_from_jax(
-        variables["params"], variables["batch_stats"], port_cfg.num_scales))
-    raw = {}
-    port.conv1_ori.register_forward_hook(lambda m, i, o: raw.update(ori=o))
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"],
+                             port_cfg.num_scales)
+    port = build_cvm(port_cfg, "cpu", state_dict=sd)
     with torch.inference_mode():
         out = port(torch.from_numpy(grd), torch.from_numpy(sat))
+    # the raw ori head output, from an unfused run (a fused final stage
+    # never calls the head module)
+    unfused = build_cvm(dataclasses.replace(port_cfg, lmu_fused_min_res=0), "cpu",
+                        state_dict=sd)
+    raw = {}
+    unfused.conv1_ori.register_forward_hook(lambda m, i, o: raw.update(ori=o))
+    with torch.inference_mode():
+        unfused(torch.from_numpy(grd), torch.from_numpy(sat))
     raw_norm = torch.linalg.vector_norm(raw["ori"], dim=1)[..., None].numpy()
     return ref, out, raw_norm
 
 
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def outputs(request):
-    return run_both("tiny", VARIANTS[request.param], batch=2, seed=11)
+    overrides, port_overrides = VARIANTS[request.param]
+    return run_both("tiny", overrides, batch=2, seed=11, port_overrides=port_overrides)
 
 
 def test_logits_match_jax(outputs):
@@ -94,7 +106,7 @@ def test_ori_prior_returns_full_bottleneck_stack():
 UNPORTED = [("remat_backbone", True), ("remat_skip_blocks", 2),
             ("remat_policy", "save_dw"), ("remat_decoder", True),
             ("spatial_axis", "model"), ("ori_axis", "model"),
-            ("lmu_fused_min_res", 256), ("phase_space_min_res", 256),
+            ("phase_space_min_res", 256),
             ("circular_impl", "edgefix"), ("deconv_impl", "conv"),
             ("compute_dtype", "bfloat16"), ("corr_bf16", True), ("ori_window", 224)]
 

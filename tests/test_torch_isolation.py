@@ -37,8 +37,9 @@ def test_no_forbidden_module_at_run_time():
         "import ccvpe_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(ccvpe_tpu_torch.__path__, 'ccvpe_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
-        "from ccvpe_tpu_torch.ops import corr_cuda\n"
-        "assert corr_cuda.load_library.cache_info().currsize == 0, 'built at import'\n"
+        "from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda\n"
+        "for mod in (corr_cuda, lmu_cuda):\n"
+        "    assert mod.load_library.cache_info().currsize == 0, 'built at import'\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad or len(names) < 15 else 0)\n")
