@@ -24,16 +24,30 @@
 //
 // What the design does about it: only x, skip and y (forward) or x, skip,
 // dy, dx and dskip (backward) touch device memory; the fine intermediates h
-// and g and their gradients live in shared memory as channel planes (plane
-// stride odd, so neighbouring pixels sit in neighbouring banks). One block
-// owns a T x T fine output tile (T even) and recomputes h on (T+4)^2 and g
-// on (T+2)^2 pixels around it, so borders are the convs' zero padding, not
-// deconv(0)+bias: every value outside the image is stored as 0. Weights go
-// through shared memory one operand at a time (they do not all fit beside
-// the planes). Each thread keeps a PT-pixel x CT-channel register tile,
-// loads CT weights as float4 broadcasts and PT activations per tap.
-// Tensor cores (TF32/bf16 wgmma), TMA and coalesced stores are for a later
-// change.
+// and g and their gradients live in shared memory as channel planes (see
+// plane_stride for their spacing). One block owns a T x T fine output tile
+// (T even) and recomputes h on (T+4)^2 and g on (T+2)^2 pixels around it, so
+// borders are the convs' zero padding, not deconv(0)+bias: every value
+// outside the image is stored as 0. Weights go through shared memory one
+// operand at a time (they do not all fit beside the planes).
+//
+// Two products carry all the arithmetic. The convs (tile_conv: the deconv,
+// conv_a and its recompute, da, dh|dskip and dx) are CUDA-core FMAs: each
+// thread keeps a PT-pixel x CT-channel register tile, loads CT weights as
+// float4 broadcasts and PT activations per tap. The backward's three weight
+// gradients (tile_wgrad: dw2, dw1, dwd) are products over a tile's pixels;
+// as FMAs they issued more shared-memory loads than FMAs (5 per 4) and took
+// about a third of the backward's time at the VIGOR shapes. They run on the
+// tensor cores through mma_3xtf32, one warp-level m16n8k8 TF32 mma.sync
+// primitive: each float32 operand is split into two TF32 values and three
+// products are summed in float32, so the results stay float32-accurate, and
+// a fragment of 16 x 8 x 8 multiply-adds needs 6 loads per lane. That about
+// halved their time; they are now bound by the instructions around the
+// products (loads, splits, addresses) at 128 registers a thread, not by the
+// tensor cores. What bounds the backward now is the FMA convs and the
+// weight and plane loads between them. Tensor cores for the convs (shared
+// with the forward, whose ReLU mask the backward recomputes), larger tiles,
+// and cp.async/TMA for the loads are for a later change.
 //
 // Backward sums: the TPU kernel adds weight gradients into one accumulator
 // across its in-order grid. Here a fixed grid of blocks walks the tiles in
@@ -45,19 +59,26 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <initializer_list>
 
 namespace {
 
 // Threads per block: 512 where the shared memory of a block leaves room
 // for only one block on an SM (VIGOR stage 5: 16 warps instead of 8 hide
-// more latency), 256 elsewhere (the heads fit two or three blocks).
+// more latency), 256 elsewhere (the heads fit two or three blocks; the
+// backward asks for two, which caps it at 128 registers a thread).
 constexpr int kSmallBlock = 256;
 constexpr int kLargeBlock = 512;
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int plane_stride(int side) { return (side * side) | 1; }
+// Floats between two channel planes of side^2 pixels: the least >= side^2
+// that is 4 times an odd number, so 8 neighbouring channels start in 8
+// banks 4 apart. A TF32 fragment load (8 channels x 4 neighbouring pixels,
+// mma_3xtf32 in tile_wgrad) then touches 32 different banks; the FMA
+// convs read one channel at a time and do not depend on it.
+__host__ __device__ inline int plane_stride(int side) { return (side * side + 3) / 8 * 8 + 4; }
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // padded output-channel count of a weight operand in shared memory
 __host__ __device__ inline int pad_co(int c) { return c <= 4 ? 4 : (c + 7) / 8 * 8; }
@@ -176,46 +197,147 @@ __device__ void tile_conv(const float* in, Chan chan, int in_side, int step, int
   }
 }
 
-// Weight gradient over an n x n pixel box:
-//   part[(tap*cin + ci)*cout + co] += sum_{r,c < n}
-//       in[ci*in_ps + (r*step + ky)*in_side + c*step + kx + in_org]
-//     * g[co*g_ps + (r*g_step)*g_side + c*g_step + g_org]
-// Each thread owns (tap, 4 input channels, co) entries, sums its pixels in a
-// fixed order and adds the sum into its own entries of the block's partial
-// slice (no other thread writes them).
-template <int KS>
-__device__ void tile_wgrad(const float* in, int in_ps, int in_side, int step, int in_org, int cin,
-                           const float* g, int g_ps, int g_side, int g_step, int g_org, int cout,
-                           int n, float* __restrict__ part) {
-  const int ncig = (cin + 3) / 4;
-  const int total = KS * KS * ncig * cout;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int co = e % cout;
-    const int rest = e / cout;
-    const int cig = rest % ncig;
-    const int tap = rest / ncig;
-    const int ky = tap / KS, kx = tap % KS;
-    const float* ip[4];
+// --- the 3xTF32 tensor-core product -------------------------------------
+//
+// One warp, one mma.sync.m16n8k8 TF32 tile: D (16 x 8) += A (16 x 8) B (8 x 8).
+// Lane l holds, with g = l / 4 and q = l % 4 (PTX ISA, "Matrix fragments
+// for mma.m16n8k8" with .tf32): A (m, k) at a[0] (g, q), a[1] (g+8, q),
+// a[2] (g, q+4), a[3] (g+8, q+4); B (k, n) at b[0] (q, g), b[1] (q+4, g);
+// D (m, n) at d[0] (g, 2q), d[1] (g, 2q+1), d[2] (g+8, 2q), d[3] (g+8, 2q+1).
+__device__ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v (finite) rounded to TF32 as cvt.rna.tf32.f32 rounds it, nearest with
+// ties away from zero, on the bits: add half a unit of the 10-bit mantissa
+// to the magnitude, clear the 13 bits below it. sm_90 has no instruction
+// for cvt.rna; ptxas emulates it with this add and mask plus a guard for
+// inf and NaN, twice the instructions of a split, and the weight gradients
+// are bound by the instructions around their products.
+__device__ inline uint32_t rna_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo + O(2^-22 |v|): hi = tf32(v), lo = tf32(v - hi), both rounded
+// as rna_tf32 (ops/tf32.py::split_tf32 is the same). v - hi is exact.
+__device__ inline void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(v);
+  lo = rna_tf32(v - __uint_as_float(hi));
+}
+
+// acc[j], this lane's part of the 16 x 8 tile of A B at (m0, n0 + 8j), for
+// j < NT: += sum over k < K of a(m, k) * b(k, n), with A [M][K] and B [K][N]
+// read through the functors a and b and zero outside those bounds (so M, N
+// and K need not be multiples of 16, 8 and 8). Each k-step of 8 splits the
+// A fragment once for all NT tiles and runs three TF32 products per tile,
+// lo*hi + hi*lo and then hi*hi, into float32 accumulators: the product
+// dropped, lo*lo, is ~2^-22 of |a b|, so the result is float32-accurate,
+// where one TF32 product alone keeps ~3 decimal digits. The order of the
+// sums is fixed, so two calls give the same bits. No branch depends on the
+// data or the shape inside, so the compiler can overlap one tile's loads
+// with another's products.
+template <int NT, class A, class B>
+__device__ void mma_3xtf32(A a, B b, int m0, int n0, int M, int N, int K, float (&acc)[NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int m_lo = m0 + g, m_hi = m0 + g + 8;
+  const bool in_lo = m_lo < M, in_hi = m_hi < M;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = imin(cig * 4 + j, cin - 1);
-      ip[j] = in + ci * in_ps + ky * in_side + kx + in_org;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const int k1 = k0 + q, k2 = k0 + q + 4;
+    const bool in1 = k1 < K, in2 = k2 < K;
+    uint32_t ah[4], al[4];
+    split_tf32(in_lo && in1 ? a(m_lo, k1) : 0.f, ah[0], al[0]);
+    split_tf32(in_hi && in1 ? a(m_hi, k1) : 0.f, ah[1], al[1]);
+    split_tf32(in_lo && in2 ? a(m_lo, k2) : 0.f, ah[2], al[2]);
+    split_tf32(in_hi && in2 ? a(m_hi, k2) : 0.f, ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + 8 * j + g;
+      uint32_t bh[2], bl[2];
+      split_tf32(n < N && in1 ? b(k1, n) : 0.f, bh[0], bl[0]);
+      split_tf32(n < N && in2 ? b(k2, n) : 0.f, bh[1], bl[1]);
+      mma_tf32(acc[j], al, bh);
+      mma_tf32(acc[j], ah, bl);
+      mma_tf32(acc[j], ah, bh);
     }
-    const float* gp = g + co * g_ps + g_org;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < n; ++r) {
-      for (int c = 0; c < n; ++c) {
-        const float gv = gp[r * g_step * g_side + c * g_step];
-        const int o = r * step * in_side + c * step;
+  }
+}
+
+// (m, n) of acc[j], this lane's j-th entry of the 16 x 8 tile at (m0, n0).
+__device__ inline int2 mma_entry(int j, int m0, int n0) {
+  const int lane = threadIdx.x % 32;
+  return make_int2(m0 + lane / 4 + (j / 2) * 8, n0 + 2 * (lane % 4) + j % 2);
+}
+
+// Output tiles of 8 columns that one warp item covers for N columns: the
+// A fragment (4 values a lane, split into 8 TF32 values) is loaded once for
+// all of them. The largest of 5, 4, 2 and 1 that divides the tile count,
+// so that no item holds a tile past N (5 takes the VIGOR stages' 40 output
+// channels in one item).
+__host__ __device__ inline int wgrad_tiles(int n) {
+  const int tiles = (n + 7) / 8;
+  return tiles % 5 == 0 ? 5 : tiles % 4 == 0 ? 4 : tiles % 2 == 0 ? 2 : 1;
+}
+
+template <int NTAP, int NB, int NT, class In, class G>
+__device__ int tile_wgrad_nt(In in, G g, int cin, int cout, int first, float* __restrict__ part) {
+  const int nmt = (cin + 15) / 16, nng = (cout + 8 * NT - 1) / (8 * NT);
+  const int items = NTAP * nmt * nng;
+  const int nwarps = blockDim.x / 32;
+  for (int it = (threadIdx.x / 32 - first % nwarps + nwarps) % nwarps; it < items; it += nwarps) {
+    const int n0 = it % nng * 8 * NT, rest = it / nng;
+    const int m0 = rest % nmt * 16, tap = rest / nmt;
+    float* dst = part + tap * cin * cout;
+    float prev[NT][4], acc[NT][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = fmaf(ip[j][o], gv, acc[j]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int2 mn = mma_entry(e, m0, n0 + 8 * j);
+        prev[j][e] = mn.x < cin && mn.y < cout ? dst[mn.x * cout + mn.y] : 0.f;
+        acc[j][e] = 0.f;
       }
-    }
+    mma_3xtf32<NT>([=](int ci, int k) { return in(tap, ci, k); },
+                   [=](int k, int co) { return g(tap, co, k); }, m0, n0, cin, cout, NB * NB, acc);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = cig * 4 + j;
-      if (ci < cin) part[(tap * cin + ci) * cout + co] += acc[j];
-    }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int2 mn = mma_entry(e, m0, n0 + 8 * j);
+        if (mn.x < cin && mn.y < cout) dst[mn.x * cout + mn.y] = prev[j][e] + acc[j][e];
+      }
+  }
+  return items;
+}
+
+// Weight gradients over an NB x NB pixel box for NTAP taps, as products
+// with M = cin, N = cout and K = NB^2 pixels:
+//   part[(tap*cin + ci)*cout + co] += sum_{k < NB^2} in(tap, ci, k) * g(tap, co, k)
+// where in and g read the shared-memory planes (pixel k = row k / NB,
+// column k % NB of the box). Each warp owns whole (tap, 16 input channels,
+// wgrad_tiles(cout) x 8 output channels) items, sums their pixels in a
+// fixed order on the tensor cores and adds the sums into its own entries of
+// the block's partial slice with one float32 add each (no other thread
+// writes them; a warp keeps the same items on every pixel box). It reads
+// those entries before the product, so that their latency (the slice lives
+// in L2 or device memory) hides behind it. (Accumulating onto the partial
+// sums inside the product saves registers but adds each pixel's products
+// to a large running sum in the tensor core's accumulator, and the weight
+// gradients then lose more than an order of magnitude of accuracy.)
+// Item i goes to warp (first + i) % warps, so that back-to-back calls
+// continue where the last one stopped; returns first + its item count for
+// the next call.
+template <int NTAP, int NB, class In, class G>
+__device__ int tile_wgrad(In in, G g, int cin, int cout, int first, float* __restrict__ part) {
+  switch (wgrad_tiles(cout)) {
+    case 5: return first + tile_wgrad_nt<NTAP, NB, 5>(in, g, cin, cout, first, part);
+    case 4: return first + tile_wgrad_nt<NTAP, NB, 4>(in, g, cin, cout, first, part);
+    case 2: return first + tile_wgrad_nt<NTAP, NB, 2>(in, g, cin, cout, first, part);
+    default: return first + tile_wgrad_nt<NTAP, NB, 1>(in, g, cin, cout, first, part);
   }
 }
 
@@ -380,8 +502,11 @@ lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
                });
 }
 
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
+// T, the fine tile side, is d.t: a template argument, so that the weight
+// gradients' pixel boxes (T x T, and T/2 x T/2 for the deconv) have a
+// compile-time side.
+template <int kThreads, int T>
+__global__ void __launch_bounds__(kThreads, kLargeBlock / kThreads)
 lmu_bwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ skip,
                const float* __restrict__ dy, const float* __restrict__ wd,
                const float* __restrict__ bd, const float* __restrict__ w1,
@@ -397,7 +522,7 @@ lmu_bwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
   float* s_x = smem + l.x;
   float* s_dh = smem + l.dh;
   float* s_w = smem + l.w;
-  const int c = d.cd + d.cs, t = d.t, hs = t + 4, gs = t + 2, xs = hs / 2;
+  const int c = d.cd + d.cs, t = T, hs = t + 4, gs = t + 2, xs = hs / 2;
   const int hps = plane_stride(hs), gps = plane_stride(gs), xps = plane_stride(xs);
   const int dps = plane_stride(t);
   const int img_h = 2 * d.hc, img_w = 2 * d.wc;
@@ -431,9 +556,18 @@ lmu_bwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
                  });
     __syncthreads();
     // conv_b and conv_a weight and bias grads over the T x T owned pixels
-    tile_wgrad<3>(s_g, gps, gs, 1, 0, d.c1, s_dy, hps, hs, 1, 2 * hs + 2, d.cout, t, mine + pl.dw2);
+    // (tap = ky*3 + kx: the input box shifted by (ky, kx); pixel k = (k / T, k % T))
+    int first = tile_wgrad<9, T>(
+        [=](int tap, int ci, int k) { return s_g[ci * gps + (k / T + tap / 3) * gs + k % T + tap % 3]; },
+        [=](int, int co, int k) { return s_dy[co * hps + (k / T + 2) * hs + k % T + 2]; }, d.c1,
+        d.cout, 0, mine + pl.dw2);
     tile_bias_grad(s_dy, hps, hs, 1, 2 * hs + 2, d.cout, t, mine + pl.db2);
-    tile_wgrad<3>(s_hc, hps, hs, 1, hs + 1, c, s_da, gps, gs, 1, gs + 1, d.c1, t, mine + pl.dw1);
+    tile_wgrad<9, T>(
+        [=](int tap, int ci, int k) {
+          return s_hc[ci * hps + (k / T + tap / 3 + 1) * hs + k % T + tap % 3 + 1];
+        },
+        [=](int, int co, int k) { return s_da[co * gps + (k / T + 1) * gs + k % T + 1]; }, c,
+        d.c1, first, mine + pl.dw1);
     tile_bias_grad(s_da, gps, gs, 1, gs + 1, d.c1, t, mine + pl.db1);
     // [dh | dskip] = conv3x3(da, flipT(w1)) on T^2 (nothing above reads s_w)
     load_weights(s_w, w1t, 9 * d.c1, c);
@@ -465,11 +599,23 @@ lmu_bwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
                      dx[((static_cast<size_t>(b) * d.hc + gy) * d.wc + gx) * cin + co] = v;
                  });
     // deconv weight and bias grads: x (owned coarse) against dh, by phase
-    for (int ph = 0; ph < 4; ++ph)
-      tile_wgrad<1>(s_x, xps, xs, 1, xs + 1, cin, s_dh, dps, t, 2, (ph / 2) * t + ph % 2, cd,
-                    t / 2, mine + pl.dwd + ph * cin * cd);
+    // (tap = phase di*2 + dj: dh at fine pixel (2r + di, 2c + dj) of coarse pixel k = (r, c))
+    constexpr int TC = T / 2;
+    tile_wgrad<4, TC>(
+        [=](int, int ci, int k) { return s_x[ci * xps + (k / TC + 1) * xs + k % TC + 1]; },
+        [=](int ph, int co, int k) {
+          return s_dh[co * dps + (2 * (k / TC) + ph / 2) * t + 2 * (k % TC) + ph % 2];
+        },
+        cin, cd, 0, mine + pl.dwd);
     tile_bias_grad(s_dh, dps, t, 1, 0, cd, t, mine + pl.dbd);
   }
+}
+
+using BwdKernel = decltype(&lmu_bwd_kernel<kSmallBlock, 8>);
+
+BwdKernel bwd_kernel(bool large, int t) {
+  if (t == 8) return large ? lmu_bwd_kernel<kLargeBlock, 8> : lmu_bwd_kernel<kSmallBlock, 8>;
+  return large ? lmu_bwd_kernel<kLargeBlock, 4> : lmu_bwd_kernel<kSmallBlock, 4>;
 }
 
 // out[e] = sum over blocks k = 0, 1, ... of part[k][e], in that order.
@@ -480,6 +626,46 @@ __global__ void lmu_reduce_kernel(const float* __restrict__ part, int nblk, int 
   float s = 0.f;
   for (int k = 0; k < nblk; ++k) s += part[static_cast<size_t>(k) * psize + e];
   out[e] = s;
+}
+
+template <int NT>
+__device__ void probe_items(const float* sa, const float* sb, float* __restrict__ c, int m, int n,
+                            int k) {
+  const int nng = (n + 8 * NT - 1) / (8 * NT), items = (m + 15) / 16 * nng;
+  for (int it = threadIdx.x / 32; it < items; it += blockDim.x / 32) {
+    const int m0 = it / nng * 16, n0 = it % nng * 8 * NT;
+    float acc[NT][4] = {};
+    mma_3xtf32<NT>([=](int i, int kk) { return sa[i * k + kk]; },
+                   [=](int kk, int j) { return sb[kk * n + j]; }, m0, n0, m, n, k, acc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int2 mn = mma_entry(e, m0, n0 + 8 * j);
+        if (mn.x < m && mn.y < n) c[mn.x * n + mn.y] = acc[j][e];
+      }
+  }
+}
+
+// The primitive alone: c [M][N] = a [M][K] b [K][N], both staged in shared
+// memory, each warp taking whole items of 16 rows x wgrad_tiles(N) x 8
+// columns through mma_3xtf32, as tile_wgrad does.
+// One block; a check of the primitive, not a product for the model.
+__global__ void __launch_bounds__(kSmallBlock)
+mma_probe_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+                 int m, int n, int k) {
+  extern __shared__ __align__(16) float smem[];
+  float* sa = smem;
+  float* sb = smem + m * k;
+  for (int i = threadIdx.x; i < m * k; i += blockDim.x) sa[i] = a[i];
+  for (int i = threadIdx.x; i < k * n; i += blockDim.x) sb[i] = b[i];
+  __syncthreads();
+  switch (wgrad_tiles(n)) {
+    case 5: probe_items<5>(sa, sb, c, m, n, k); break;
+    case 4: probe_items<4>(sa, sb, c, m, n, k); break;
+    case 2: probe_items<2>(sa, sb, c, m, n, k); break;
+    default: probe_items<1>(sa, sb, c, m, n, k);
+  }
 }
 
 int device_attr(cudaDeviceAttr attr) {
@@ -557,7 +743,7 @@ extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd
     const int bytes = bwd_layout(d).total * static_cast<int>(sizeof(float));
     if (bytes > limit) continue;
     const bool large = large_block(bytes);
-    auto kernel = large ? lmu_bwd_kernel<kLargeBlock> : lmu_bwd_kernel<kSmallBlock>;
+    const BwdKernel kernel = bwd_kernel(large, t);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     int per_sm = 0;
@@ -588,7 +774,7 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
   const bool large = large_block(bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch(
-      large ? lmu_bwd_kernel<kLargeBlock> : lmu_bwd_kernel<kSmallBlock>, nblk,
+      bwd_kernel(large, t), nblk,
       large ? kLargeBlock : kSmallBlock, bytes, s, d, static_cast<const float*>(x),
       static_cast<const float*>(skip), static_cast<const float*>(dy),
       static_cast<const float*>(wd), static_cast<const float*>(bd),
@@ -601,4 +787,19 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
   lmu_reduce_kernel<<<(psize + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part), nblk,
                                                          psize, static_cast<float*>(sums));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The 3xTF32 primitive alone (mma_probe_kernel): c [m][n] = a [m][k] b [k][n],
+// all float32 and contiguous, one block on `stream`. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for sizes
+// whose operands do not fit in a block's shared memory.
+extern "C" int ccvpe_mma_probe(const void* a, const void* b, void* c, int m, int n, int k,
+                               void* stream) {
+  const long floats = static_cast<long>(m) * k + static_cast<long>(k) * n;
+  if (m < 1 || n < 1 || k < 1 || floats * static_cast<long>(sizeof(float)) > max_smem_bytes())
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(mma_probe_kernel, 1, kSmallBlock,
+                                 static_cast<int>(floats * sizeof(float)),
+                                 static_cast<cudaStream_t>(stream), static_cast<const float*>(a),
+                                 static_cast<const float*>(b), static_cast<float*>(c), m, n, k));
 }

@@ -7,7 +7,9 @@ kernel, which recomputes h and g on chip.
 
 `fused_stage` and `fused_stage_bwd` launch the kernels on CUDA tensors
 (counting launches) and run the plain versions of ops/lmu.py on CPU
-tensors. Shapes and layouts as in ops/lmu.py: NHWC float32 activations,
+tensors. `mma_probe` runs the backward's 3xTF32 tensor-core primitive
+alone on one matrix product, for checking it against float64 (its plain
+version is ops/tf32.py::matmul_3xtf32_plain). Shapes and layouts as in ops/lmu.py: NHWC float32 activations,
 contiguous (the NHWC view of a channels_last NCHW tensor is), torch weight
 layouts, which the wrappers turn into the kernel's. Nothing touches nvcc
 or the card until a CUDA tensor arrives.
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
+from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
 
 
 @functools.cache
@@ -36,6 +39,8 @@ def load_library() -> ctypes.CDLL:
     lib.ccvpe_lmu_bwd_plan.restype = i
     lib.ccvpe_lmu_bwd.argtypes = [p] * 14 + [i] * 10 + [p]
     lib.ccvpe_lmu_bwd.restype = i
+    lib.ccvpe_mma_probe.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.ccvpe_mma_probe.restype = i
     return lib
 
 
@@ -186,3 +191,28 @@ class FusedStage(torch.autograd.Function):
     def backward(ctx, dy):
         x, skip, wd, bd, w1, b1, w2, b2 = ctx.saved_tensors
         return fused_stage_bwd(x, skip, dy.contiguous(), wd, bd, w1, b1, w2, b2)
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] through the kernel's 3xTF32 mma.sync primitive
+    (one block, operands in shared memory) on CUDA tensors, through
+    matmul_3xtf32_plain on CPU ones. Counts launches in mma_probe.launches."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"expected [M, K] @ [K, N], got {tuple(a.shape)} @ {tuple(b.shape)}")
+    if not a.is_cuda:
+        return matmul_3xtf32_plain(a, b)
+    for name, t in (("a", a), ("b", b)):
+        _check(name, t, a.device)
+    (m, k), n = a.shape, b.shape[1]
+    lib = load_library()
+    c = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.ccvpe_mma_probe(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"ccvpe_mma_probe launch failed: CUDA error {rc}")
+    mma_probe.launches += 1
+    return c
+
+
+mma_probe.launches = 0

@@ -6,7 +6,9 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every hand-written kernel from csrc/ with nvcc (sm_90a), one nvcc
-     per source, all started together, timed, with ptxas' report;
+     per source, all started together, timed, with ptxas' report; the
+     tensor-core instructions (HMMA) of each LMU kernel counted in
+     cuobjdump -sass, and B3 required to hold TF32 ones;
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI and ori-prior shapes,
      and at one shape with ragged N and D edges and the largest K;
@@ -15,11 +17,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. the correlation backward: grads of S and of the ground descriptor
      through the kernel's autograd.Function against autograd through the
      plain version, at the six VIGOR scales;
-  6. the fused LMU stage kernels (forward B2, backward B3) against their
-     plain versions at the four VIGOR calls of a step at
-     lmu_fused_min_res=256, a ragged no-skip Cout-1 case and a large-bias
-     case; B3 twice, for the same bits;
-  7. their kernel / plain / cuDNN-chain times beside their bounds;
+  6. B3's 3xTF32 mma.sync primitive alone (mma_probe) against a float64
+     matmul at ragged M x N x K, twice for the same bits, and its times;
+     then the fused LMU stage kernels (forward B2, backward B3) against
+     their plain versions at the four VIGOR calls of a step at
+     lmu_fused_min_res=256, a ragged no-skip Cout-1 case, a large-bias case
+     and a case with no channel count a multiple of 4; B3 twice, for the
+     same bits;
+  7. their kernel / plain / cuDNN-chain times beside their bounds (float32
+     on the CUDA cores, and 3xTF32 on the tensor cores);
   8. the serving path at full width: vigor() with seeded random weights,
      InferenceEngine(batch_size=8).predict on 20 requests (the last batch
      padded), kernel launches counted; one batch's CVM forward with
@@ -33,7 +39,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cuDNN (lmu_fused_min_res=0) from the same state: losses, every
      gradient, BN running stats; p50 step time, pairs/s and peak memory
      over 8 steps; one step under torch.profiler;
- 10. a {"kernels": [...]} line, then the last line
+ 10. a {"kernels": [...], "probes": [...]} line (probes: the primitive
+     alone, launched on no path), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -56,6 +63,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 # Tolerances of the kernel against its plain version: both sum in float32,
 # in another order (the kernel over D in 32-wide chunks with fmaf, cuBLAS in
 # its own tiling), so scores in [-1, 1] differ by a few ulps times sqrt(D).
@@ -78,6 +86,11 @@ LMU_FWD_RTOL, LMU_BWD_ATOL = 1e-5, 5e-5
 STEP_LOSS_RTOL, STEP_GRAD_ATOL = 1e-4, 5e-4
 BN_MEAN_ATOL, BN_VAR_RTOL, BN_VAR_ATOL = 1e-5, 2e-4, 1e-5
 CORR_GRAD_ATOL = 1e-4
+# The 3xTF32 primitive against a float64 matmul, relative to the output's
+# max: 3xTF32 lands near 1e-6 there and one TF32 product near 1e-4, so the
+# bound tells the two apart.
+PROBE_RTOL = 1e-5
+PROBE_SHAPES = ((81, 40, 64), (56, 1, 16), (40, 32, 64), (41, 16, 16), (5, 3, 4))  # M, N, K
 OUT_DIR = "chiprun_out"
 
 
@@ -183,8 +196,8 @@ def lmu_vigor_shapes(cfg, batch):
     ]
 
 
-def lmu_inputs(shape, gen, dyadic=False, bias_scale=0.3):
-    """x, skip, torch-layout weights and biases on the card. dyadic: small
+def lmu_inputs(shape, gen, dyadic=False, bias_scale=0.3, device="cuda"):
+    """x, skip, torch-layout weights and biases on `device` (gen's). dyadic: small
     multiples of 1/4 .. 1/16, so that the deconv and conv_a sums are exact
     in float32 in any order and the ReLU mask of the kernel and of the
     plain version agree everywhere (otherwise a pre-activation within
@@ -194,8 +207,8 @@ def lmu_inputs(shape, gen, dyadic=False, bias_scale=0.3):
     def mk(*size, scale, den=8):
         if dyadic:
             lim = max(1, int(round(scale * den * 2)))
-            return torch.randint(-lim, lim + 1, size, device="cuda", generator=gen).float() / den
-        return torch.randn(*size, device="cuda", generator=gen) * scale
+            return torch.randint(-lim, lim + 1, size, device=device, generator=gen).float() / den
+        return torch.randn(*size, device=device, generator=gen) * scale
 
     x = mk(b, hc, wc, cin, scale=1.0, den=4)
     skip = mk(b, 2 * hc, 2 * wc, cs, scale=1.0, den=4) if cs else None
@@ -209,7 +222,9 @@ def lmu_bound(shape, backward):
     """Least time for the stage's work: the float32 operations it must do
     on these inputs (the backward recomputes h and g, then the two
     transposed convs, the three weight-gradient products and dx), or each
-    input read once and each output written once, whichever is longer."""
+    input read once and each output written once, whichever is longer.
+    Also returns the same bound with every operation on the tensor cores
+    in 3xTF32 (three TF32 products at 495 TFLOP/s for each float32 one)."""
     _, b, hc, wc, cin, cs, cd, c1, cout = shape
     c = cd + cs
     pix = b * 4 * hc * wc
@@ -221,7 +236,8 @@ def lmu_bound(shape, backward):
         flops = 2 * pix * (cin * cd + 9 * c * c1 + 9 * c1 * cout)
         nbytes = 4 * (b * hc * wc * cin + pix * cs + pix * cout + wts)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    t_tc = max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops, t_tc
 
 
 def scaled_err(a, b):
@@ -258,6 +274,62 @@ def check_lmu(shape, gen, bias_scale=0.3):
                 bwd_max_abs=bwd_abs, deterministic=same, ok=fwd_ok and bwd_ok)
 
 
+def sass_hmma(lib_path):
+    """{kernel function: [HMMA opcodes]} in the library's SASS (cuobjdump
+    from nvcc's toolkit), for the functions whose names hold 'kernel'."""
+    from ccvpe_tpu_torch.csrc.build import nvcc
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
+                          text=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "kernel" in fn:
+                found[fn] = []
+        elif fn in found and "HMMA" in line:
+            found[fn].append(line.split("*/")[1].split()[0])
+    return found
+
+
+def check_probe(gen):
+    """mma_probe (the 3xTF32 primitive alone) against a float64 matmul at
+    PROBE_SHAPES, twice for the same bits; one TF32 product's error beside
+    it shows what the bound tells apart."""
+    from ccvpe_tpu_torch.ops.lmu_cuda import mma_probe
+    from ccvpe_tpu_torch.ops.tf32 import round_tf32
+    rows = []
+    for m, n, k in PROBE_SHAPES:
+        a = torch.randn(m, k, device="cuda", generator=gen)
+        b = torch.randn(k, n, device="cuda", generator=gen)
+        got, again = mma_probe(a, b), mma_probe(a, b)
+        want = a.double() @ b.double()
+        one = round_tf32(a) @ round_tf32(b)
+        torch.cuda.synchronize()
+        err, err_1x = scaled_err(got.double(), want), scaled_err(one.double(), want)
+        same = torch.equal(got, again)
+        rows.append(dict(m=m, n=n, k=k, scaled_err=err, scaled_err_1xtf32=err_1x,
+                         max_abs=float((got.double() - want).abs().max()),
+                         deterministic=same, ok=same and err <= PROBE_RTOL))
+    return rows
+
+
+def time_probe(gen):
+    """Kernel / plain / torch.matmul times of mma_probe at PROBE_SHAPES[0],
+    beside the bound of its 3xTF32 products at 495 TFLOP/s or its bytes."""
+    from ccvpe_tpu_torch.ops.lmu_cuda import mma_probe
+    from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
+    m, n, k = PROBE_SHAPES[0]
+    a = torch.randn(m, k, device="cuda", generator=gen)
+    b = torch.randn(k, n, device="cuda", generator=gen)
+    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * 2 * m * n * k / TF32_FLOPS_PER_S * 1e3
+    return dict(ms=time_ms(lambda: mma_probe(a, b)),
+                plain_ms=time_ms(lambda: matmul_3xtf32_plain(a, b)),
+                library_ms=time_ms(lambda: torch.matmul(a, b)),
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_lmu(shape, gen):
     """Kernel, plain and cuDNN-chain times of B2 and B3 at one shape."""
     import torch.nn.functional as F
@@ -290,9 +362,9 @@ def time_lmu(shape, gen):
     row["bwd_plain_ms"] = time_ms(lambda: fused_stage_bwd_plain(x, skip, dy, *ws))
     row["bwd_chain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dyc, retain_graph=True))
     for key, bwd in (("fwd", False), ("bwd", True)):
-        bound, by, nbytes, flops = lmu_bound(shape, bwd)
+        bound, by, nbytes, flops, tc = lmu_bound(shape, bwd)
         row.update({f"{key}_bound_ms": bound, f"{key}_bound_by": by, f"{key}_bytes": nbytes,
-                    f"{key}_flops": flops})
+                    f"{key}_flops": flops, f"{key}_tc_bound_ms": tc})
     return row
 
 
@@ -496,6 +568,15 @@ def main() -> int:
     corr_cuda.load_library()
     lmu_cuda.load_library()
     report["build_s"] = build_s
+    hmma = sass_hmma(built["lmu"].path)
+    report["lmu_sass_hmma"] = {fn: dict(count=len(ops), opcodes=sorted(set(ops)))
+                               for fn, ops in hmma.items()}
+    for fn, ops in hmma.items():
+        log(f"sass {fn[:90]}: {len(ops)} HMMA {sorted(set(ops))}")
+    bwd_fns = [fn for fn in hmma if "lmu_bwd_kernel" in fn]
+    if not bwd_fns or not all(any("TF32" in op for op in hmma[fn]) for fn in bwd_fns):
+        log("FAIL: lmu_bwd_kernel holds no TF32 HMMA instruction")
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -591,9 +672,21 @@ def main() -> int:
     # 6. B2 and B3 against their plain versions: the four VIGOR calls, a
     #    ragged no-skip Cout-1 case (Hc, Wc not multiples of any tile) and
     #    large biases (the border must be zero padding, not deconv(0)+bias)
+    report["probe"] = check_probe(gen)
+    for r in report["probe"]:
+        log(f"check mma_probe {r['m']}x{r['n']}x{r['k']}: 3xTF32 scaled err {r['scaled_err']:.3g} "
+            f"(rtol {PROBE_RTOL} of max, vs float64), one TF32 product {r['scaled_err_1xtf32']:.3g}, "
+            f"same bits twice {r['deterministic']} {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            return 1
+    probe_time = time_probe(gen)
+    log(f"time mma_probe {'x'.join(map(str, PROBE_SHAPES[0]))}: kernel {probe_time['ms']:.4f} ms, "
+        f"plain {probe_time['plain_ms']:.4f}, torch.matmul {probe_time['library_ms']:.4f}, "
+        f"bound {probe_time['bound_ms']:.6f} ({probe_time['bound_by']})")
     lmu_shapes = lmu_vigor_shapes(vigor, batch)
     extra = [("ragged, no skip, Cout 1", 2, 13, 21, 9, 0, 8, 12, 1),
-             ("large biases", 2, 10, 12, 12, 5, 8, 16, 3)]
+             ("large biases", 2, 10, 12, 12, 5, 8, 16, 3),
+             ("ragged channels", 2, 7, 11, 5, 3, 7, 9, 3)]
     report["lmu_checks"] = []
     for shape in lmu_shapes + extra:
         r = check_lmu(shape, gen, bias_scale=5.0 if shape[0] == "large biases" else 0.3)
@@ -622,16 +715,17 @@ def main() -> int:
             f"{row['fwd_bound_ms']:.3f} ({row['fwd_bound_by']}, {row['fwd_flops'] / 1e9:.1f} GFLOP); "
             f"bwd kernel {row['bwd_ms']:.3f} ms, plain {row['bwd_plain_ms']:.3f}, cuDNN chain "
             f"{row['bwd_chain_ms']:.3f}, bound {row['bwd_bound_ms']:.3f} ({row['bwd_bound_by']}, "
-            f"{row['bwd_flops'] / 1e9:.1f} GFLOP)")
+            f"{row['bwd_flops'] / 1e9:.1f} GFLOP), 3xTF32 bound {row['bwd_tc_bound_ms']:.3f}")
     log(f"time lmu per step (4 + 4 launches): fwd kernel {lmu_tot['fwd_ms']:.3f} ms, plain "
         f"{lmu_tot['fwd_plain_ms']:.3f}, chain {lmu_tot['fwd_chain_ms']:.3f}, bound "
         f"{lmu_tot['fwd_bound_ms']:.3f}; bwd kernel {lmu_tot['bwd_ms']:.3f} ms, plain "
         f"{lmu_tot['bwd_plain_ms']:.3f}, chain {lmu_tot['bwd_chain_ms']:.3f}, bound "
-        f"{lmu_tot['bwd_bound_ms']:.3f} [{card}]")
+        f"{lmu_tot['bwd_bound_ms']:.3f} (f32), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32) [{card}]")
     # the checks and timings above do not count
     corr_core.launches = 0
     lmu_cuda.fused_stage.launches = 0
     lmu_cuda.fused_stage_bwd.launches = 0
+    lmu_cuda.mma_probe.launches = 0
 
     # 8. the serving path at full width
     gen_cpu = torch.Generator().manual_seed(17)
@@ -754,21 +848,31 @@ def main() -> int:
         "launches": train_launches["lmu_fwd"], "max_abs_err": lmu_fwd_err,
         "ms": lmu_tot["fwd_ms"], "plain_ms": lmu_tot["fwd_plain_ms"],
         "bound_ms": lmu_tot["fwd_bound_ms"], "bound_by": by("fwd"),
-        "library_ms": lmu_tot["fwd_chain_ms"],
+        "library_ms": lmu_tot["fwd_chain_ms"], "tc_bound_ms": lmu_tot["fwd_tc_bound_ms"],
     }, {
         "name": "lmu_bwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:404",
         "launches": train_launches["lmu_bwd"], "max_abs_err": lmu_bwd_err,
         "ms": lmu_tot["bwd_ms"], "plain_ms": lmu_tot["bwd_plain_ms"],
         "bound_ms": lmu_tot["bwd_bound_ms"], "bound_by": by("bwd"),
-        "library_ms": lmu_tot["bwd_chain_ms"],
+        "library_ms": lmu_tot["bwd_chain_ms"], "tc_bound_ms": lmu_tot["bwd_tc_bound_ms"],
+    }]
+    # B3's tensor-core primitive alone: a check of lmu_bwd's products, on no
+    # path of the model, so it stands beside the kernels and not among them
+    probes = [{
+        "name": "mma_probe", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
+        "checks": "lmu_bwd (ccvpe_tpu/ops/lmu_pallas.py:196, _conv3x3_wgrad)",
+        "launches": lmu_cuda.mma_probe.launches,
+        "max_abs_err": max(r["max_abs"] for r in report["probe"]),
+        **probe_time,
     }]
     report["kernels"] = kernels
+    report["probes"] = probes
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "probes": probes}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
