@@ -3,8 +3,11 @@
 Each kernel source `csrc/<name>.cu` exposes a plain C interface and is
 compiled into its own shared library under `csrc/_build/`, named by a hash
 of the source and the flags, at first use; `ops/*_cuda.py` load it with
-ctypes. Nothing is compiled when this module is imported. A failed build
-raises with nvcc's output.
+ctypes. A build may add preprocessor defines (`build("lmu", ("X",))`
+compiles with -DX): they are part of the hash, so each define set is a
+library of its own, and the build without defines keeps its name.
+Nothing is compiled when this module is imported. A failed build raises
+with nvcc's output.
 
     python -m ccvpe_tpu_torch.csrc.build      # build every kernel, print ptxas
 """
@@ -46,24 +49,30 @@ def nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def nvcc_command(sources: Sequence[Path], output: Path) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(output), *map(str, sources)]
+def _define_flags(defines: Sequence[str]) -> List[str]:
+    return [f"-D{d}" for d in defines]
 
 
-def library_path(name: str) -> Path:
+def nvcc_command(sources: Sequence[Path], output: Path, defines: Sequence[str] = ()) -> List[str]:
+    return [nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(output), *map(str, sources)]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = " ".join([*NVCC_FLAGS, *_define_flags(defines)])
+    digest = hashlib.sha256(src.read_bytes() + flags.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Built:
-    """Compile csrc/<name>.cu unless this exact source is built already."""
-    out = library_path(name)
+def build(name: str, defines: Sequence[str] = ()) -> Built:
+    """Compile csrc/<name>.cu with -D for each of `defines`, unless this
+    exact source is built already with them."""
+    out = library_path(name, defines)
     if out.exists():
         return Built(out, "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command([CSRC / f"{name}.cu"], tmp)
+    cmd = nvcc_command([CSRC / f"{name}.cu"], tmp, defines)
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start

@@ -14,7 +14,9 @@
 // wrapper (ops/lmu_cuda.py) from torch's: wd [4][Cin][Cd] (phase di*2+dj),
 // w1 [9][Cd+Cs][C1], w2 [9][C1][Cout] (tap ky*3+kx); the backward also
 // takes the flipped-transposed w2T [9][Cout][C1], w1T [9][C1][Cd+Cs] and
-// wdT [4][Cd][Cin].
+// wdT [4][Cd][Cin]. Each operand's last dimension is padded with zeros to
+// pad_co columns (16-byte aligned), so that the kernels copy it into
+// shared memory as one flat run of 16-byte cp.async transfers.
 //
 // What bounds it on an H100: operations. In float32 with no tensor cores a
 // VIGOR stage does ~75,600 flop per fine pixel forward (conv_a 9*56*40*2,
@@ -28,8 +30,14 @@
 // plane_stride for their spacing). One block owns a T x T fine output tile
 // (T even) and recomputes h on (T+4)^2 and g on (T+2)^2 pixels around it, so
 // borders are the convs' zero padding, not deconv(0)+bias: every value
-// outside the image is stored as 0. Weights go through shared memory one
-// operand at a time (they do not all fit beside the planes).
+// outside the image is stored as 0. Planes and weights reach shared memory
+// by cp.async (no register round trip, every copy of a phase in flight at
+// once). The backward's five weight operands stay resident where they fit
+// beside the planes (the heads), else stream through two buffers (each
+// copy issued as soon as its buffer's last reader has passed a barrier, so
+// it overlaps the work before its first reader) or, where only one fits
+// (VIGOR's loc stage 5), through one (the copies before dh and dx still
+// overlap the weight gradients); see ccvpe_lmu_bwd_plan.
 //
 // Two products carry all the arithmetic. The convs (tile_conv: the deconv,
 // conv_a and its recompute, da, dh|dskip and dx) are CUDA-core FMAs: each
@@ -42,12 +50,19 @@
 // primitive: each float32 operand is split into two TF32 values and three
 // products are summed in float32, so the results stay float32-accurate, and
 // a fragment of 16 x 8 x 8 multiply-adds needs 6 loads per lane. That about
-// halved their time; they are now bound by the instructions around the
-// products (loads, splits, addresses) at 128 registers a thread, not by the
-// tensor cores. What bounds the backward now is the FMA convs and the
-// weight and plane loads between them. Tensor cores for the convs (shared
-// with the forward, whose ReLU mask the backward recomputes), larger tiles,
-// and cp.async/TMA for the loads are for a later change.
+// halved their time; they are bound by the instructions around the
+// products (loads, splits, addresses), not by the tensor cores. The tile
+// loop keeps little else in registers (its layouts arrive as kernel
+// parameters, its plane strides are compile-time constants), so the 128 a
+// thread has go to their accumulators. What bounds the backward is the FMA
+// convs (about half of its block time;
+// ops/lmu_cuda.py::bwd_phase_cycles times it by phase). Their warps take
+// items in a rotation that continues across calls with no barrier between
+// (the deconv's four phases, the weight gradients and the conv after
+// them); dx walks dh's four phases as groups of planes, with no division
+// per channel. Tensor cores for the convs (shared with the forward, whose
+// ReLU mask the backward recomputes) need larger tiles first, and are for
+// a later change.
 //
 // Backward sums: the TPU kernel adds weight gradients into one accumulator
 // across its in-order grid. Here a fixed grid of blocks walks the tiles in
@@ -78,51 +93,105 @@ __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // banks 4 apart. A TF32 fragment load (8 channels x 4 neighbouring pixels,
 // mma_3xtf32 in tile_wgrad) then touches 32 different banks; the FMA
 // convs read one channel at a time and do not depend on it.
-__host__ __device__ inline int plane_stride(int side) { return (side * side + 3) / 8 * 8 + 4; }
+__host__ __device__ constexpr int plane_stride(int side) { return (side * side + 3) / 8 * 8 + 4; }
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // padded output-channel count of a weight operand in shared memory
 __host__ __device__ inline int pad_co(int c) { return c <= 4 ? 4 : (c + 7) / 8 * 8; }
 
-// dst[c*ps + r*side + col] = src[b, y0+r, x0+col, c] inside the image, else 0
+// --- asynchronous copies into shared memory (cp.async) -------------------
+
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, cached in L2 only (weights, read by every block)
+__device__ inline void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// 4 bytes, or 4 zero bytes when !valid (src is then not read)
+__device__ inline void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Closes this thread's copies issued since the last commit into one group.
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of this thread's groups are still in flight; a
+// barrier after it makes every thread's copies visible to the block.
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The same for N in {0, 1, 2} known only at run time.
+__device__ inline void cp_async_wait_upto(int n) {
+  if (n >= 2) cp_async_wait<2>(); else if (n == 1) cp_async_wait<1>(); else cp_async_wait<0>();
+}
+
+// dst[c*ps + r*side + col] = src[b, y0+r, x0+col, c] inside the image, else
+// 0, as 4-byte cp.async copies (zero-filled outside); the caller commits.
+// Element i = (r*side + col)*nc + c of the box, so neighbouring threads read
+// neighbouring channels of a pixel; each thread steps its (c, col, r) by
+// blockDim.x elements with adds and compares, no division per element.
 __device__ void load_planes(float* dst, int ps, int side, const float* __restrict__ src,
                             int b, int h, int w, int nc, int y0, int x0) {
   const int n = side * side * nc;
+  const int step_p = blockDim.x / nc, step_c = blockDim.x % nc;
+  const int step_r = step_p / side, step_col = step_p % side;
+  int c = threadIdx.x % nc, col = threadIdx.x / nc % side, r = threadIdx.x / nc / side;
+  const float* img = src + static_cast<size_t>(b) * h * w * nc;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = i % nc;
-    const int p = i / nc;
-    const int r = p / side, col = p % side;
     const int gy = y0 + r, gx = x0 + col;
-    float v = 0.f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-      v = src[((static_cast<size_t>(b) * h + gy) * w + gx) * nc + c];
-    dst[c * ps + p] = v;
+    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    cp_async4(dst + c * ps + r * side + col,
+              in ? img + (static_cast<size_t>(gy) * w + gx) * nc + c : src, in);
+    c += step_c;
+    col += step_col;
+    r += step_r;
+    if (c >= nc) { c -= nc; ++col; }
+    if (col >= side) { col -= side; ++r; }
   }
 }
 
-// dst[r][c] (c < coutp) = src[r][c] for c < cout, 0 on the padding
-__device__ void load_weights(float* dst, const float* __restrict__ src, int rows, int cout) {
-  const int coutp = pad_co(cout);
-  const int n = rows * coutp;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / coutp, c = i % coutp;
-    dst[i] = c < cout ? src[r * cout + c] : 0.f;
-  }
+// dst[0, n) = src[0, n): n floats (a multiple of 4, both ends 16-byte
+// aligned: an operand in the kernel's padded layout) as 16-byte cp.async
+// copies, committed as one group.
+__device__ void copy_weights(float* dst, const float* __restrict__ src, int n) {
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) cp_async16(dst + i, src + i);
+  cp_async_commit();
 }
 
-// out(r, c)[co] = sum_{ci, ky, kx} in[chan(ci) + (r*step + ky)*in_side + c*step + kx]
-//                                  * w[((ky*KS + kx)*cin + ci)*coutp + co]
-// for r, c < out_side; epi(r, c, co, value) stores it. One warp takes CT
-// output channels of 32*PT pixels (pixel lane + 32*k), so weight loads are
-// warp-wide broadcasts and activation loads hit 32 neighbouring pixels.
-template <int KS, int PT, int CT, class Chan, class Epi>
-__device__ void tile_conv_impl(const float* in, Chan chan, int in_side, int step, int cin,
-                               const float* w, int coutp, int out_side, Epi epi) {
+// Input channel k of a conv: plane j of group g (k = g * per + j), at
+// in + goff(g) + j * ps. The deconv and the 3x3 convs read one group of
+// planes; dx reads dh's four deconv phases as four groups of Cd planes.
+// The convs walk k in order as (g, j), with no division per channel.
+struct OneGroup {
+  __device__ int operator()(int) const { return 0; }
+};
+
+// out(r, c)[co] = sum over k < ng*per, ky, kx of
+//   in[goff(k / per) + (k % per)*ps + (r*step + ky)*in_side + c*step + kx]
+//   * w[((ky*KS + kx)*cin + k)*coutp + co]
+// for r, c < out_side, each one fmaf chain from 0 in that order (k
+// ascending, then ky, kx); epi(r, c, co, value) stores it. One warp item
+// takes CT output channels of 32*PT pixels (pixel lane + 32*k), so weight
+// loads are warp-wide broadcasts and activation loads hit 32 neighbouring
+// pixels. Item i goes to warp (first + i) % warps, so that calls with no
+// barrier between continue the rotation; returns first + its item count.
+template <int KS, int PT, int CT, class Goff, class Epi>
+__device__ int tile_conv_impl(const float* in, Goff goff, int ng, int per, int ps, int in_side,
+                              int step, const float* w, int coutp, int out_side, int first,
+                              Epi epi) {
+  const int cin = ng * per;
   const int npos = out_side * out_side;
   const int nchunk = (npos + 32 * PT - 1) / (32 * PT);
   const int ncg = coutp / CT;
+  const int items = nchunk * ncg;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nwarps = blockDim.x / 32;
-  for (int it = warp; it < nchunk * ncg; it += nwarps) {
+  for (int it = (warp - first % nwarps + nwarps) % nwarps; it < items; it += nwarps) {
     const int cg = it % ncg, ch = it / ncg;
     const int co0 = cg * CT;
     int off[PT];
@@ -137,25 +206,31 @@ __device__ void tile_conv_impl(const float* in, Chan chan, int in_side, int step
     for (int k = 0; k < PT; ++k)
 #pragma unroll
       for (int j = 0; j < CT; ++j) acc[k][j] = 0.f;
-    for (int ci = 0; ci < cin; ++ci) {
-      const float* ip = in + chan(ci);
-      const float* wp = w + ci * coutp + co0;
+    for (int g = 0; g < ng; ++g) {
+      const float* ig = in + goff(g);
+      const float* wg = w + g * per * coutp + co0;
+      // 1x1 taps: unrolled, so that the next channels' loads run ahead of the FMAs
+#pragma unroll (KS == 1 ? 4 : 1)
+      for (int ci = 0; ci < per; ++ci) {
+        const float* ip = ig + ci * ps;
+        const float* wp = wg + ci * coutp;
 #pragma unroll
-      for (int ky = 0; ky < KS; ++ky) {
+        for (int ky = 0; ky < KS; ++ky) {
 #pragma unroll
-        for (int kx = 0; kx < KS; ++kx) {
-          const float* wt = wp + (ky * KS + kx) * cin * coutp;
-          float wv[CT];
+          for (int kx = 0; kx < KS; ++kx) {
+            const float* wt = wp + (ky * KS + kx) * cin * coutp;
+            float wv[CT];
 #pragma unroll
-          for (int j = 0; j < CT; j += 4) {
-            const float4 f = *reinterpret_cast<const float4*>(wt + j);
-            wv[j] = f.x; wv[j + 1] = f.y; wv[j + 2] = f.z; wv[j + 3] = f.w;
-          }
+            for (int j = 0; j < CT; j += 4) {
+              const float4 f = *reinterpret_cast<const float4*>(wt + j);
+              wv[j] = f.x; wv[j + 1] = f.y; wv[j + 2] = f.z; wv[j + 3] = f.w;
+            }
 #pragma unroll
-          for (int k = 0; k < PT; ++k) {
-            const float v = ip[off[k] + ky * in_side + kx];
+            for (int k = 0; k < PT; ++k) {
+              const float v = ip[off[k] + ky * in_side + kx];
 #pragma unroll
-            for (int j = 0; j < CT; ++j) acc[k][j] = fmaf(v, wv[j], acc[k][j]);
+              for (int j = 0; j < CT; ++j) acc[k][j] = fmaf(v, wv[j], acc[k][j]);
+            }
           }
         }
       }
@@ -168,33 +243,35 @@ __device__ void tile_conv_impl(const float* in, Chan chan, int in_side, int step
       for (int j = 0; j < CT; ++j) epi(q / out_side, q % out_side, co0 + j, acc[k][j]);
     }
   }
+  return first + items;
 }
 
 // Picks the register tile: CT = 8 when the padded channel count allows it,
-// and the largest PT that still gives every warp a work item.
-template <int KS, class Chan, class Epi>
-__device__ void tile_conv(const float* in, Chan chan, int in_side, int step, int cin,
-                          const float* w, int cout, int out_side, Epi epi) {
+// and the largest PT that still gives every warp a work item. (Choosing by
+// an estimate of issue cycles, which took CT = 4 or a larger PT where this
+// rule leaves warps idle, was slower on the card.) The choice changes which
+// warp computes an output, never its sum. Returns first + the item count,
+// as tile_conv_impl.
+template <int KS, class Goff, class Epi>
+__device__ int tile_conv(const float* in, Goff goff, int ng, int per, int ps, int in_side,
+                         int step, const float* w, int cout, int out_side, int first, Epi epi) {
   const int coutp = pad_co(cout);
   const int npos = out_side * out_side;
   auto guarded = [&](int r, int c, int co, float v) {
     if (co < cout) epi(r, c, co, v);
   };
   const int nwarps = blockDim.x / 32;
+#define CCVPE_CONV(PT, CT) \
+  tile_conv_impl<KS, PT, CT>(in, goff, ng, per, ps, in_side, step, w, coutp, out_side, first, guarded)
   if (coutp % 8 == 0) {
     const int ncg = coutp / 8;
-    if (((npos + 127) / 128) * ncg >= nwarps)
-      tile_conv_impl<KS, 4, 8>(in, chan, in_side, step, cin, w, coutp, out_side, guarded);
-    else if (((npos + 63) / 64) * ncg >= nwarps)
-      tile_conv_impl<KS, 2, 8>(in, chan, in_side, step, cin, w, coutp, out_side, guarded);
-    else
-      tile_conv_impl<KS, 1, 8>(in, chan, in_side, step, cin, w, coutp, out_side, guarded);
-  } else {
-    if ((npos + 127) / 128 >= nwarps)
-      tile_conv_impl<KS, 4, 4>(in, chan, in_side, step, cin, w, coutp, out_side, guarded);
-    else
-      tile_conv_impl<KS, 2, 4>(in, chan, in_side, step, cin, w, coutp, out_side, guarded);
+    if ((npos + 127) / 128 * ncg >= nwarps) return CCVPE_CONV(4, 8);
+    if ((npos + 63) / 64 * ncg >= nwarps) return CCVPE_CONV(2, 8);
+    return CCVPE_CONV(1, 8);
   }
+  if ((npos + 127) / 128 >= nwarps) return CCVPE_CONV(4, 4);
+  return CCVPE_CONV(2, 4);
+#undef CCVPE_CONV
 }
 
 // --- the 3xTF32 tensor-core product -------------------------------------
@@ -353,6 +430,55 @@ __device__ void tile_bias_grad(const float* g, int g_ps, int g_side, int g_step,
   }
 }
 
+// --- the per-phase timer (built only with -DCCVPE_LMU_PHASE_TIMER) --------
+//
+// The backward's tile loop in twelve phases, named in ops/lmu_cuda.py::
+// BWD_PHASES. In the timed build each phase ends at a barrier, after which
+// thread 0 reads clock64() and adds the cycles since the last mark to its
+// phase; the block's row of sums lands in g_phase_cycles[blockIdx.x] when
+// its tiles are done. The build without the define holds no clock read and
+// no extra barrier: mark() is empty there.
+enum BwdPhase {
+  kPhPlanes, kPhDeconv, kPhW1, kPhConvA, kPhW2t, kPhDa, kPhWgrad21, kPhW1t, kPhDh, kPhWdt,
+  kPhDx, kPhWgradD, kBwdPhases
+};
+
+#ifdef CCVPE_LMU_PHASE_TIMER
+__device__ unsigned long long* g_phase_cycles;   // [blocks][kBwdPhases], set by the host
+
+struct PhaseTimer {
+  unsigned long long acc[kBwdPhases];
+  long long last;
+  __device__ PhaseTimer() : last(0) {
+#pragma unroll
+    for (int p = 0; p < kBwdPhases; ++p) acc[p] = 0;
+  }
+  __device__ void start() {
+    __syncthreads();
+    if (threadIdx.x == 0) last = clock64();
+  }
+  __device__ void mark(int phase) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[phase] += static_cast<unsigned long long>(now - last);
+      last = now;
+    }
+  }
+  __device__ void store() const {
+    if (threadIdx.x != 0) return;
+#pragma unroll
+    for (int p = 0; p < kBwdPhases; ++p) g_phase_cycles[blockIdx.x * kBwdPhases + p] = acc[p];
+  }
+};
+#else
+struct PhaseTimer {
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void store() const {}
+};
+#endif
+
 struct Dims {
   int b, hc, wc, cin, cs, cd, c1, cout;  // shapes; cs = 0 without skip
   int t;                                 // fine tile side, even
@@ -384,17 +510,35 @@ __host__ __device__ FwdLayout fwd_layout(const Dims& d) {
   return l;
 }
 
-// Shared memory of the backward, in floats: the planes hc = [h|skip] and
-// dy on (T+4)^2, g and da on (T+2)^2, dh on T^2, the coarse x region, and
-// one weight operand at a time.
-struct BwdLayout { int hc, g, dy, da, x, dh, w, total; };
+// The backward's weight operands in the order its tile loop reads them,
+// and where they live: all five resident (copied once per block), two
+// buffers in turn, or one buffer (ccvpe_lmu_bwd_plan picks).
+enum WeightOp { kOpWd, kOpW1, kOpW2t, kOpW1t, kOpWdt, kWeightOps };
+enum WeightMode { kStreamOne, kStreamTwo, kResident };
 
-__host__ __device__ BwdLayout bwd_layout(const Dims& d) {
+// Floats of a backward weight operand in the kernel's padded layout.
+__host__ __device__ inline int bwd_weight_floats(const Dims& d, int op) {
+  const int c = d.cd + d.cs;
+  switch (op) {
+    case kOpWd: return 4 * d.cin * pad_co(d.cd);
+    case kOpW1: return 9 * c * pad_co(d.c1);
+    case kOpW2t: return 9 * d.cout * pad_co(d.c1);
+    case kOpW1t: return 9 * d.c1 * pad_co(c);
+    default: return 4 * d.cd * pad_co(d.cin);
+  }
+}
+
+// Shared memory of the backward, in floats: the planes hc = [h|skip] and
+// dy on (T+4)^2, g and da on (T+2)^2, dh on T^2, the coarse x region, then
+// the weights: w[op] for each operand when resident, else the buffers w[0]
+// and w[1] (the same one in kStreamOne), each as large as the largest
+// operand; then, `ahead`, second dy and x regions dy2 and x2, into which
+// the next tile's planes are copied while this tile runs (else dy2 = dy,
+// x2 = x).
+struct BwdLayout { int hc, g, dy, da, x, dh, w[kWeightOps], dy2, x2, total; };
+
+__host__ __device__ BwdLayout bwd_layout(const Dims& d, int mode, bool ahead) {
   const int c = d.cd + d.cs, hs = d.t + 4, gs = d.t + 2, xs = hs / 2;
-  int w = imax(4 * d.cin * pad_co(d.cd), 9 * c * pad_co(d.c1));
-  w = imax(w, 9 * d.cout * pad_co(d.c1));
-  w = imax(w, 9 * d.c1 * pad_co(c));
-  w = imax(w, 4 * d.cd * pad_co(d.cin));
   BwdLayout l;
   l.hc = 0;
   l.g = l.hc + round4(c * plane_stride(hs));
@@ -402,8 +546,27 @@ __host__ __device__ BwdLayout bwd_layout(const Dims& d) {
   l.da = l.dy + round4(d.cout * plane_stride(hs));
   l.x = l.da + round4(d.c1 * plane_stride(gs));
   l.dh = l.x + round4(d.cin * plane_stride(xs));
-  l.w = l.dh + round4(d.cd * plane_stride(d.t));
-  l.total = l.w + round4(w);
+  int end = l.dh + round4(d.cd * plane_stride(d.t));
+  if (mode == kResident) {
+    for (int op = 0; op < kWeightOps; ++op) {
+      l.w[op] = end;
+      end += round4(bwd_weight_floats(d, op));
+    }
+  } else {
+    int wmax = 0;
+    for (int op = 0; op < kWeightOps; ++op) wmax = imax(wmax, bwd_weight_floats(d, op));
+    for (int op = 0; op < kWeightOps; ++op) l.w[op] = end;
+    if (mode == kStreamTwo) l.w[1] = end + round4(wmax);
+    end = l.w[1] + round4(wmax);
+  }
+  l.dy2 = l.dy;
+  l.x2 = l.x;
+  if (ahead) {
+    l.dy2 = end;
+    l.x2 = l.dy2 + round4(d.cout * plane_stride(hs));
+    end = l.x2 + round4(d.cin * plane_stride(xs));
+  }
+  l.total = end;
   return l;
 }
 
@@ -434,28 +597,31 @@ __device__ void tile_origin(const Dims& d, int tile, int* b, int* ty0, int* tx0)
 
 // h planes on the (T+4)^2 fine region at (fy0, fx0) = deconv of the coarse
 // x planes (region side xs = hs/2 at (fy0/2, fx0/2)), one phase at a time
-// so a warp's weights are one broadcast; 0 outside the image.
-__device__ void deconv_tile(float* h, int hps, int hs, const float* xpl, int xps, int xs,
-                            const float* wsm, const float* __restrict__ bd, int cin, int cd,
-                            int img_h, int img_w, int fy0, int fx0) {
+// so a warp's weights are one broadcast; 0 outside the image. The phases
+// continue one warp rotation (no barrier between them); returns its end.
+__device__ int deconv_tile(float* h, int hps, int hs, const float* xpl, int xps, int xs,
+                           const float* wsm, const float* __restrict__ bd, int cin, int cd,
+                           int img_h, int img_w, int fy0, int fx0) {
   const int cdp = pad_co(cd);
+  int first = 0;
   for (int ph = 0; ph < 4; ++ph) {
     const int di = ph / 2, dj = ph % 2;
-    tile_conv<1>(xpl, [=](int ci) { return ci * xps; }, xs, 1, cin, wsm + ph * cin * cdp, cd, xs,
-                 [&](int r, int c, int co, float v) {
-                   const int rr = 2 * r + di, cc = 2 * c + dj;
-                   const int gy = fy0 + rr, gx = fx0 + cc;
-                   const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
-                   h[co * hps + rr * hs + cc] = in ? v + bd[co] : 0.f;
-                 });
+    first = tile_conv<1>(xpl, OneGroup{}, 1, cin, xps, xs, 1, wsm + ph * cin * cdp, cd, xs, first,
+                         [&](int r, int c, int co, float v) {
+                           const int rr = 2 * r + di, cc = 2 * c + dj;
+                           const int gy = fy0 + rr, gx = fx0 + cc;
+                           const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
+                           h[co * hps + rr * hs + cc] = in ? v + bd[co] : 0.f;
+                         });
   }
+  return first;
 }
 
 // g = relu(conv3x3(hc, w1) + b1) on the (T+2)^2 region at (gy0, gx0); 0 outside.
 __device__ void conv_a_tile(float* g, int gps, int gs, const float* hc, int hps, int hs,
                             const float* wsm, const float* __restrict__ b1, int c, int c1,
                             int img_h, int img_w, int gy0, int gx0) {
-  tile_conv<3>(hc, [=](int ci) { return ci * hps; }, hs, 1, c, wsm, c1, gs,
+  tile_conv<3>(hc, OneGroup{}, 1, c, hps, hs, 1, wsm, c1, gs, 0,
                [&](int r, int cc, int co, float v) {
                  const int gy = gy0 + r, gx = gx0 + cc;
                  const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
@@ -483,18 +649,22 @@ lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
 
   load_planes(sb, xps, xs, x, b, d.hc, d.wc, d.cin, ty0 / 2 - 1, tx0 / 2 - 1);
   if (d.cs) load_planes(sa + d.cd * hps, hps, hs, skip, b, img_h, img_w, d.cs, ty0 - 2, tx0 - 2);
-  load_weights(sw, wd, 4 * d.cin, d.cd);
+  cp_async_commit();
+  copy_weights(sw, wd, 4 * d.cin * pad_co(d.cd));
+  cp_async_wait<0>();
   __syncthreads();
   deconv_tile(sa, hps, hs, sb, xps, xs, sw, bd, d.cin, d.cd, img_h, img_w, ty0 - 2, tx0 - 2);
   __syncthreads();
-  load_weights(sw, w1, 9 * c, d.c1);
+  copy_weights(sw, w1, 9 * c * pad_co(d.c1));
+  cp_async_wait<0>();
   __syncthreads();
   conv_a_tile(sb, gps, gs, sa, hps, hs, sw, b1, c, d.c1, img_h, img_w, ty0 - 1, tx0 - 1);
   __syncthreads();
-  load_weights(sa, w2, 9 * d.c1, d.cout);
+  copy_weights(sa, w2, 9 * d.c1 * pad_co(d.cout));
+  cp_async_wait<0>();
   __syncthreads();
   const int cout = d.cout;
-  tile_conv<3>(sb, [=](int ci) { return ci * gps; }, gs, 1, d.c1, sa, cout, d.t,
+  tile_conv<3>(sb, OneGroup{}, 1, d.c1, gps, gs, 1, sa, cout, d.t, 0,
                [&](int r, int cc, int co, float v) {
                  const int gy = ty0 + r, gx = tx0 + cc;
                  if (gy < img_h && gx < img_w)
@@ -503,58 +673,153 @@ lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
 }
 
 // T, the fine tile side, is d.t: a template argument, so that the weight
-// gradients' pixel boxes (T x T, and T/2 x T/2 for the deconv) have a
-// compile-time side.
+// gradients' pixel boxes (T x T, and T/2 x T/2 for the deconv) and the
+// plane strides in their addresses are compile-time constants. `mode` is a
+// WeightMode, the same for every block; l and pl are bwd_layout(d, mode,
+// ahead) and part_layout(d), computed once on the host (as parameters they
+// cost the tile loop no registers).
+//
+// One tile, phase by phase (BwdPhase names them; the timer's marks end
+// each), and where the weight copies go in each mode:
+//   planes + wd   the skip planes, and x and dy unless they were copied
+//                 ahead (then the next tile's x and dy start copying into
+//                 the other plane buffers); one buffer: wd's copy; two:
+//                 w1's copy (its buffer's last reader was the previous dx)
+//   deconv, conv_a, da, each after its operand's wait (w1, w2T load); two
+//                 buffers: each wait first issues the copy after next
+//   dw2..db1      one buffer: w1T's copy overlaps them; two: wdT's
+//   w1T load, dh|dskip
+//   dwd dbd       one buffer: wdT's copy overlaps them; two: the next
+//                 tile's wd
+//   wdT load, dx
+// Resident, no tile waits for weights or marks a weight phase.
 template <int kThreads, int T>
 __global__ void __launch_bounds__(kThreads, kLargeBlock / kThreads)
-lmu_bwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ skip,
+lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __restrict__ x,
+               const float* __restrict__ skip,
                const float* __restrict__ dy, const float* __restrict__ wd,
                const float* __restrict__ bd, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2t,
                const float* __restrict__ w1t, const float* __restrict__ wdt,
                float* __restrict__ dx, float* __restrict__ dskip, float* __restrict__ part) {
   extern __shared__ __align__(16) float smem[];
-  const BwdLayout l = bwd_layout(d);
   float* s_hc = smem + l.hc;
   float* s_g = smem + l.g;
-  float* s_dy = smem + l.dy;
   float* s_da = smem + l.da;
-  float* s_x = smem + l.x;
   float* s_dh = smem + l.dh;
-  float* s_w = smem + l.w;
-  const int c = d.cd + d.cs, t = T, hs = t + 4, gs = t + 2, xs = hs / 2;
-  const int hps = plane_stride(hs), gps = plane_stride(gs), xps = plane_stride(xs);
-  const int dps = plane_stride(t);
+  constexpr int t = T, hs = t + 4, gs = t + 2, xs = hs / 2;
+  constexpr int hps = plane_stride(hs), gps = plane_stride(gs), xps = plane_stride(xs);
+  constexpr int dps = plane_stride(t);
+  const int c = d.cd + d.cs;
   const int img_h = 2 * d.hc, img_w = 2 * d.wc;
   const int cd = d.cd, cs = d.cs, cin = d.cin;
-  const PartLayout pl = part_layout(d);
   float* mine = part + static_cast<size_t>(blockIdx.x) * pl.total;
+  const bool resident = mode == kResident, two = mode == kStreamTwo;
+  // operand `op` on the block's it-th tile: its own region, or the buffer
+  // its turn falls on (two buffers alternate over five operands a tile)
+  auto wslot = [&](int op, int it) -> float* {
+    if (resident) return smem + l.w[op];
+    return smem + (((op + it) & 1) ? l.w[1] : l.w[0]);
+  };
+  auto fetch = [&](int op, const float* src, int it) {
+    copy_weights(wslot(op, it), src, bwd_weight_floats(d, op));
+  };
+  if (resident) {
+    fetch(kOpWd, wd, 0);
+    fetch(kOpW1, w1, 0);
+    fetch(kOpW2t, w2t, 0);
+    fetch(kOpW1t, w1t, 0);
+    fetch(kOpWdt, wdt, 0);
+  } else if (two) {
+    fetch(kOpWd, wd, 0);
+  }
+  // x and dy of tile `tl` into the buffers of the block's it-th tile
+  auto load_x_dy = [&](int tl, int it) {
+    int b_, y0, x0;
+    tile_origin(d, tl, &b_, &y0, &x0);
+    load_planes(smem + ((it & 1) ? l.x2 : l.x), xps, xs, x, b_, d.hc, d.wc, cin, y0 / 2 - 1,
+                x0 / 2 - 1);
+    load_planes(smem + ((it & 1) ? l.dy2 : l.dy), hps, hs, dy, b_, img_h, img_w, d.cout, y0 - 2,
+                x0 - 2);
+  };
+  const bool ahead = l.x2 != l.x;
+  if (ahead) {
+    load_x_dy(blockIdx.x, 0);
+    cp_async_commit();
+  }
+  PhaseTimer timer;
+  timer.start();
 
-  for (int tile = blockIdx.x; tile < d.ntiles; tile += gridDim.x) {
+  int it = 0;
+  for (int tile = blockIdx.x; tile < d.ntiles; tile += gridDim.x, ++it) {
     int b, ty0, tx0;
     tile_origin(d, tile, &b, &ty0, &tx0);
+    float* s_x = smem + ((it & 1) ? l.x2 : l.x);
+    float* s_dy = smem + ((it & 1) ? l.dy2 : l.dy);
+    const bool next = tile + gridDim.x < d.ntiles;
+    const bool pre = ahead && next;   // the next tile's x and dy copy during this one
     __syncthreads();   // the previous tile's last readers are done
-    load_planes(s_x, xps, xs, x, b, d.hc, d.wc, cin, ty0 / 2 - 1, tx0 / 2 - 1);
+    if (!ahead) load_x_dy(tile, it);
     if (cs) load_planes(s_hc + cd * hps, hps, hs, skip, b, img_h, img_w, cs, ty0 - 2, tx0 - 2);
-    load_planes(s_dy, hps, hs, dy, b, img_h, img_w, d.cout, ty0 - 2, tx0 - 2);
-    load_weights(s_w, wd, 4 * cin, cd);
+    cp_async_commit();
+    if (two) {
+      fetch(kOpW1, w1, it);
+    } else if (!resident) {
+      fetch(kOpWd, wd, it);
+    }
+    if (pre) {
+      load_x_dy(tile + gridDim.x, it + 1);
+      cp_async_commit();
+    }
+    // complete: this tile's planes and wd (two buffers: issued during the
+    // last tile); in flight: w1 (two buffers) and the next tile's planes
+    cp_async_wait_upto(two + pre);
     __syncthreads();
+    timer.mark(kPhPlanes);
     // recompute h and g exactly as the forward does
-    deconv_tile(s_hc, hps, hs, s_x, xps, xs, s_w, bd, cin, cd, img_h, img_w, ty0 - 2, tx0 - 2);
+    deconv_tile(s_hc, hps, hs, s_x, xps, xs, wslot(kOpWd, it), bd, cin, cd, img_h, img_w,
+                ty0 - 2, tx0 - 2);
     __syncthreads();
-    load_weights(s_w, w1, 9 * c, d.c1);
+    timer.mark(kPhDeconv);
+    if (!resident) {
+      if (two) {
+        fetch(kOpW2t, w2t, it);
+        cp_async_wait_upto(1 + pre);   // w1; w2T and the next planes may fly
+      } else {
+        fetch(kOpW1, w1, it);
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      timer.mark(kPhW1);
+    }
+    conv_a_tile(s_g, gps, gs, s_hc, hps, hs, wslot(kOpW1, it), b1, c, d.c1, img_h, img_w,
+                ty0 - 1, tx0 - 1);
     __syncthreads();
-    conv_a_tile(s_g, gps, gs, s_hc, hps, hs, s_w, b1, c, d.c1, img_h, img_w, ty0 - 1, tx0 - 1);
-    __syncthreads();
+    timer.mark(kPhConvA);
+    if (!resident) {
+      if (two) {
+        fetch(kOpW1t, w1t, it);
+        cp_async_wait<1>();
+      } else {
+        fetch(kOpW2t, w2t, it);
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      timer.mark(kPhW2t);
+    }
     // da = relu'(a) * conv3x3(dy, flipT(w2)) on (T+2)^2
-    load_weights(s_w, w2t, 9 * d.cout, d.c1);
-    __syncthreads();
-    tile_conv<3>(s_dy, [=](int ci) { return ci * hps; }, hs, 1, d.cout, s_w, d.c1, gs,
+    tile_conv<3>(s_dy, OneGroup{}, 1, d.cout, hps, hs, 1, wslot(kOpW2t, it), d.c1, gs, 0,
                  [&](int r, int cc, int co, float v) {
                    const int i = co * gps + r * gs + cc;
                    s_da[i] = s_g[i] > 0.f ? v : 0.f;
                  });
     __syncthreads();
+    timer.mark(kPhDa);
+    if (two) {
+      fetch(kOpWdt, wdt, it);
+    } else if (!resident) {
+      fetch(kOpW1t, w1t, it);
+    }
     // conv_b and conv_a weight and bias grads over the T x T owned pixels
     // (tap = ky*3 + kx: the input box shifted by (ky, kx); pixel k = (k / T, k % T))
     int first = tile_wgrad<9, T>(
@@ -562,53 +827,68 @@ lmu_bwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
         [=](int, int co, int k) { return s_dy[co * hps + (k / T + 2) * hs + k % T + 2]; }, d.c1,
         d.cout, 0, mine + pl.dw2);
     tile_bias_grad(s_dy, hps, hs, 1, 2 * hs + 2, d.cout, t, mine + pl.db2);
-    tile_wgrad<9, T>(
+    first = tile_wgrad<9, T>(
         [=](int tap, int ci, int k) {
           return s_hc[ci * hps + (k / T + tap / 3 + 1) * hs + k % T + tap % 3 + 1];
         },
         [=](int, int co, int k) { return s_da[co * gps + (k / T + 1) * gs + k % T + 1]; }, c,
         d.c1, first, mine + pl.dw1);
     tile_bias_grad(s_da, gps, gs, 1, gs + 1, d.c1, t, mine + pl.db1);
-    // [dh | dskip] = conv3x3(da, flipT(w1)) on T^2 (nothing above reads s_w)
-    load_weights(s_w, w1t, 9 * d.c1, c);
+    timer.mark(kPhWgrad21);
+    if (!resident) {
+      if (two) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+      timer.mark(kPhW1t);
+    }
+    // [dh | dskip] = conv3x3(da, flipT(w1)) on T^2 (reads s_da, which
+    // nothing above writes after da's barrier)
+    first = tile_conv<3>(s_da, OneGroup{}, 1, d.c1, gps, gs, 1, wslot(kOpW1t, it), c, t, first,
+                         [&](int r, int cc, int co, float v) {
+                           const int gy = ty0 + r, gx = tx0 + cc;
+                           const bool in = gy < img_h && gx < img_w;
+                           if (co < cd) {
+                             s_dh[co * dps + r * t + cc] = in ? v : 0.f;
+                           } else if (in) {
+                             dskip[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cs +
+                                   co - cd] = v;
+                           }
+                         });
     __syncthreads();
-    tile_conv<3>(s_da, [=](int ci) { return ci * gps; }, gs, 1, d.c1, s_w, c, t,
-                 [&](int r, int cc, int co, float v) {
-                   const int gy = ty0 + r, gx = tx0 + cc;
-                   const bool in = gy < img_h && gx < img_w;
-                   if (co < cd) {
-                     s_dh[co * dps + r * t + cc] = in ? v : 0.f;
-                   } else if (in) {
-                     dskip[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cs + co - cd] = v;
-                   }
-                 });
-    __syncthreads();
-    // dx on the T/2 x T/2 owned coarse pixels: sum over phases and Cd
-    load_weights(s_w, wdt, 4 * cd, cin);
-    __syncthreads();
+    timer.mark(kPhDh);
+    if (two) {
+      if (next) fetch(kOpWd, wd, it + 1);
+    } else if (!resident) {
+      fetch(kOpWdt, wdt, it);
+    }
+    // deconv weight and bias grads: x (owned coarse) against dh, by phase
+    // (tap = phase di*2 + dj: dh at fine pixel (2r + di, 2c + dj) of coarse pixel k = (r, c))
+    constexpr int TC = T / 2;
+    first = tile_wgrad<4, TC>(
+        [=](int, int ci, int k) { return s_x[ci * xps + (k / TC + 1) * xs + k % TC + 1]; },
+        [=](int ph, int co, int k) {
+          return s_dh[co * dps + (2 * (k / TC) + ph / 2) * t + 2 * (k % TC) + ph % 2];
+        },
+        cin, cd, first, mine + pl.dwd);
+    tile_bias_grad(s_dh, dps, t, 1, 0, cd, t, mine + pl.dbd);
+    timer.mark(kPhWgradD);
+    if (!resident) {
+      if (two && next) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+      timer.mark(kPhWdt);
+    }
+    // dx on the T/2 x T/2 owned coarse pixels: sum over the four phases
+    // (groups of Cd dh planes, at fine offset (di, dj)) and Cd
     const int hc_out = ty0 / 2, wc_out = tx0 / 2;
-    tile_conv<1>(s_dh,
-                 [=](int k) {
-                   const int ph = k / cd;
-                   return (k % cd) * dps + (ph / 2) * t + ph % 2;
-                 },
-                 t, 2, 4 * cd, s_w, cin, t / 2,
+    tile_conv<1>(s_dh, [=](int ph) { return (ph / 2) * t + ph % 2; }, 4, cd, dps, t, 2,
+                 wslot(kOpWdt, it), cin, t / 2, first,
                  [&](int r, int cc, int co, float v) {
                    const int gy = hc_out + r, gx = wc_out + cc;
                    if (gy < d.hc && gx < d.wc)
                      dx[((static_cast<size_t>(b) * d.hc + gy) * d.wc + gx) * cin + co] = v;
                  });
-    // deconv weight and bias grads: x (owned coarse) against dh, by phase
-    // (tap = phase di*2 + dj: dh at fine pixel (2r + di, 2c + dj) of coarse pixel k = (r, c))
-    constexpr int TC = T / 2;
-    tile_wgrad<4, TC>(
-        [=](int, int ci, int k) { return s_x[ci * xps + (k / TC + 1) * xs + k % TC + 1]; },
-        [=](int ph, int co, int k) {
-          return s_dh[co * dps + (2 * (k / TC) + ph / 2) * t + 2 * (k % TC) + ph % 2];
-        },
-        cin, cd, 0, mine + pl.dwd);
-    tile_bias_grad(s_dh, dps, t, 1, 0, cd, t, mine + pl.dbd);
+    timer.mark(kPhDx);
   }
+  timer.store();
 }
 
 using BwdKernel = decltype(&lmu_bwd_kernel<kSmallBlock, 8>);
@@ -695,6 +975,22 @@ bool dims_ok(int b, int hc, int wc, int cin, int cs, int cd, int c1, int cout) {
   return b >= 1 && hc >= 1 && wc >= 1 && cin >= 1 && cs >= 0 && cd >= 1 && c1 >= 1 && cout >= 1;
 }
 
+// Blocks of the backward an SM keeps resident with this layout, and its
+// threads per block; both 0 where the layout exceeds `limit` bytes.
+cudaError_t bwd_occupancy(const Dims& d, int mode, bool ahead, int limit, int* blocks,
+                          int* threads) {
+  *blocks = 0;
+  *threads = 0;
+  const int bytes = bwd_layout(d, mode, ahead).total * static_cast<int>(sizeof(float));
+  if (bytes > limit) return cudaSuccess;
+  const bool large = large_block(bytes);
+  const BwdKernel kernel = bwd_kernel(large, d.t);
+  *threads = large ? kLargeBlock : kSmallBlock;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, *threads, bytes);
+}
+
 }  // namespace
 
 // Forward: y = the stage of x (and skip, null when cs = 0). Picks the
@@ -725,12 +1021,18 @@ extern "C" int ccvpe_lmu_fwd(const void* x, const void* skip, const void* wd, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Plan of the backward: the tile T (8, else 4), the number of blocks (as
-// many as the card keeps resident, at most one per tile) and the floats of
-// one block's partial slice. The caller allocates nblk * part_floats
-// zeroed floats of partials and part_floats floats of reduced sums.
+// Plan of the backward: the tile T (8, else 4), the weight mode, whether
+// the next tile's x and dy planes are copied ahead, the number of blocks
+// (as many as the card keeps resident, at most one per tile) and the
+// floats of one block's partial slice. The weights stay resident where all
+// five fit beside the planes and an SM keeps at least as many of the
+// kernel's threads as with one buffer; else two buffers on the same
+// condition; else one. Then the planes go ahead on the same condition. The
+// caller allocates nblk * part_floats zeroed floats of partials and
+// part_floats floats of reduced sums.
 extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                                  int cout, int* t_out, int* nblk, int* part_floats) {
+                                  int cout, int* t_out, int* mode_out, int* ahead_out,
+                                  int* nblk, int* part_floats) {
   if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout))
     return static_cast<int>(cudaErrorInvalidValue);
   const int limit = max_smem_bytes();
@@ -740,18 +1042,31 @@ extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd
   if (e != cudaSuccess) return static_cast<int>(e);
   for (int t : {8, 4}) {
     const Dims d = make_dims(b, hc, wc, cin, cs, cd, c1, cout, t);
-    const int bytes = bwd_layout(d).total * static_cast<int>(sizeof(float));
-    if (bytes > limit) continue;
-    const bool large = large_block(bytes);
-    const BwdKernel kernel = bwd_kernel(large, t);
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    int blocks = 0, threads = 0;
+    e = bwd_occupancy(d, kStreamOne, false, limit, &blocks, &threads);
     if (e != cudaSuccess) return static_cast<int>(e);
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      large ? kLargeBlock : kSmallBlock, bytes);
+    if (threads == 0) continue;
+    const int floor = blocks * threads;
+    int mode = kStreamOne;
+    for (int m : {kResident, kStreamTwo}) {
+      int mb = 0, mt = 0;
+      e = bwd_occupancy(d, m, false, limit, &mb, &mt);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (mt > 0 && mb * mt >= floor) {
+        mode = m;
+        blocks = mb;
+        break;
+      }
+    }
+    int ab = 0, at = 0;
+    e = bwd_occupancy(d, mode, true, limit, &ab, &at);
     if (e != cudaSuccess) return static_cast<int>(e);
+    const bool ahead = at > 0 && ab * at >= floor;
+    if (ahead) blocks = ab;
     *t_out = t;
-    *nblk = imin(d.ntiles, imax(1, per_sm) * sms);
+    *mode_out = mode;
+    *ahead_out = ahead;
+    *nblk = imin(d.ntiles, imax(1, blocks) * sms);
     *part_floats = part_layout(d).total;
     return 0;
   }
@@ -765,17 +1080,20 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
                              const void* bd, const void* w1, const void* b1, const void* w2t,
                              const void* w1t, const void* wdt, void* dx, void* dskip, void* part,
                              void* sums, int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                             int cout, int t, int nblk, void* stream) {
+                             int cout, int t, int mode, int ahead, int nblk, void* stream) {
   if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout) || (t != 8 && t != 4) || nblk < 1 ||
-      (cs > 0) != (skip != nullptr) || (cs > 0) != (dskip != nullptr))
+      mode < kStreamOne || mode > kResident || (cs > 0) != (skip != nullptr) ||
+      (cs > 0) != (dskip != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d = make_dims(b, hc, wc, cin, cs, cd, c1, cout, t);
-  const int bytes = bwd_layout(d).total * static_cast<int>(sizeof(float));
+  const BwdLayout l = bwd_layout(d, mode, ahead != 0);
+  const int bytes = l.total * static_cast<int>(sizeof(float));
   const bool large = large_block(bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch(
       bwd_kernel(large, t), nblk,
-      large ? kLargeBlock : kSmallBlock, bytes, s, d, static_cast<const float*>(x),
+      large ? kLargeBlock : kSmallBlock, bytes, s, d, mode, l, part_layout(d),
+      static_cast<const float*>(x),
       static_cast<const float*>(skip), static_cast<const float*>(dy),
       static_cast<const float*>(wd), static_cast<const float*>(bd),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
@@ -788,6 +1106,19 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
                                                          psize, static_cast<float*>(sums));
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef CCVPE_LMU_PHASE_TIMER
+// The timed build only: where the backward's blocks write their phase
+// cycles, int64 [nblk][kBwdPhases] (the caller zeroes it), for the
+// launches that follow on `stream`.
+extern "C" int ccvpe_lmu_bwd_phase_buffer(void* cycles, void* stream) {
+  return static_cast<int>(cudaMemcpyToSymbolAsync(g_phase_cycles, &cycles, sizeof(cycles), 0,
+                                                  cudaMemcpyHostToDevice,
+                                                  static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int ccvpe_lmu_bwd_phases() { return kBwdPhases; }
+#endif
 
 // The 3xTF32 primitive alone (mma_probe_kernel): c [m][n] = a [m][k] b [k][n],
 // all float32 and contiguous, one block on `stream`. Returns

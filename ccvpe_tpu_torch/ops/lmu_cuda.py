@@ -9,10 +9,14 @@ kernel, which recomputes h and g on chip.
 (counting launches) and run the plain versions of ops/lmu.py on CPU
 tensors. `mma_probe` runs the backward's 3xTF32 tensor-core primitive
 alone on one matrix product, for checking it against float64 (its plain
-version is ops/tf32.py::matmul_3xtf32_plain). Shapes and layouts as in ops/lmu.py: NHWC float32 activations,
-contiguous (the NHWC view of a channels_last NCHW tensor is), torch weight
-layouts, which the wrappers turn into the kernel's. Nothing touches nvcc
-or the card until a CUDA tensor arrives.
+version is ops/tf32.py::matmul_3xtf32_plain). `bwd_phase_cycles` runs the
+backward built with its per-phase timer (csrc/lmu.cu, -DCCVPE_LMU_PHASE_TIMER,
+a library of its own) and returns the cycles each block spent in each of
+BWD_PHASES; the main path never loads that library. Shapes and layouts as
+in ops/lmu.py: NHWC float32 activations, contiguous (the NHWC view of a
+channels_last NCHW tensor is), torch weight layouts, which the wrappers
+turn into the kernel's. Nothing touches nvcc or the card until a CUDA
+tensor arrives.
 """
 
 from __future__ import annotations
@@ -22,25 +26,53 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
 from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
+
+
+# The backward's tile loop, phase by phase, in the order the timer's
+# sums come back (csrc/lmu.cu::BwdPhase).
+BWD_PHASES = ("planes + wd", "deconv", "w1 load", "conv_a", "w2T load", "da",
+              "dw2 db2 dw1 db1", "w1T load", "dh|dskip", "wdT load", "dx", "dwd dbd")
+PHASE_TIMER = "CCVPE_LMU_PHASE_TIMER"
+# Where the backward keeps its weight operands (csrc/lmu.cu::WeightMode).
+WEIGHT_MODES = ("one buffer", "two buffers", "resident")
+
+
+def _bind(path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ccvpe_lmu_fwd.argtypes = [p] * 9 + [i] * 8 + [p]
+    lib.ccvpe_lmu_fwd.restype = i
+    lib.ccvpe_lmu_bwd_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 5
+    lib.ccvpe_lmu_bwd_plan.restype = i
+    lib.ccvpe_lmu_bwd.argtypes = [p] * 14 + [i] * 12 + [p]
+    lib.ccvpe_lmu_bwd.restype = i
+    lib.ccvpe_mma_probe.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.ccvpe_mma_probe.restype = i
+    return lib
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build csrc/lmu.cu for sm_90a at first use and bind its C entries."""
     from ccvpe_tpu_torch.csrc.build import build
-    lib = ctypes.CDLL(str(build("lmu").path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ccvpe_lmu_fwd.argtypes = [p] * 9 + [i] * 8 + [p]
-    lib.ccvpe_lmu_fwd.restype = i
-    lib.ccvpe_lmu_bwd_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
-    lib.ccvpe_lmu_bwd_plan.restype = i
-    lib.ccvpe_lmu_bwd.argtypes = [p] * 14 + [i] * 10 + [p]
-    lib.ccvpe_lmu_bwd.restype = i
-    lib.ccvpe_mma_probe.argtypes = [p] * 3 + [i] * 3 + [p]
-    lib.ccvpe_mma_probe.restype = i
+    return _bind(build("lmu").path)
+
+
+@functools.cache
+def load_timed_library() -> ctypes.CDLL:
+    """The same source built with the backward's per-phase timer."""
+    from ccvpe_tpu_torch.csrc.build import build
+    lib = _bind(build("lmu", (PHASE_TIMER,)).path)
+    lib.ccvpe_lmu_bwd_phase_buffer.argtypes = [ctypes.c_void_p] * 2
+    lib.ccvpe_lmu_bwd_phase_buffer.restype = ctypes.c_int
+    lib.ccvpe_lmu_bwd_phases.restype = ctypes.c_int
+    if lib.ccvpe_lmu_bwd_phases() != len(BWD_PHASES):
+        raise RuntimeError(f"the timed library has {lib.ccvpe_lmu_bwd_phases()} phases, "
+                           f"BWD_PHASES names {len(BWD_PHASES)}")
     return lib
 
 
@@ -75,21 +107,41 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def pad_co(c: int) -> int:
+    """Columns of a weight operand with c output channels in the kernel's
+    layout (csrc/lmu.cu::pad_co): 4 up to 4 channels, else a multiple of 8."""
+    return 4 if c <= 4 else (c + 7) // 8 * 8
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """[..., n] -> contiguous [..., pad_co(n)], zeros in the added columns."""
+    return F.pad(t, (0, pad_co(t.shape[-1]) - t.shape[-1])).contiguous()
+
+
 def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
     """torch layouts -> the kernel's operands (phase di*2+dj, tap ky*3+kx):
     wd [4][Cin][Cd], w1 [9][C][C1], w2 [9][C1][Cout] and, for the backward,
     the flipped-transposed w2T [9][Cout][C1] and w1T [9][C1][C] of the
-    transposed convs and wdT [4][Cd][Cin] of dx (the TPU kernel's _flipT)."""
+    transposed convs and wdT [4][Cd][Cin] of dx (the TPU kernel's _flipT),
+    each with its last dimension padded with zeros to pad_co columns, so
+    that the kernels copy an operand as one flat run of 16-byte transfers."""
     wd, w1, w2 = wd.detach(), w1.detach(), w2.detach()
     cin, cd = wd.shape[:2]
     c1, c = w1.shape[:2]
     cout = w2.shape[0]
-    return (wd.permute(2, 3, 0, 1).reshape(4, cin, cd).contiguous(),
-            w1.permute(2, 3, 1, 0).reshape(9, c, c1).contiguous(),
-            w2.permute(2, 3, 1, 0).reshape(9, c1, cout).contiguous(),
-            w2.flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, c1).contiguous(),
-            w1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, c1, c).contiguous(),
-            wd.permute(2, 3, 1, 0).reshape(4, cd, cin).contiguous())
+    return tuple(_padded(t) for t in (
+        wd.permute(2, 3, 0, 1).reshape(4, cin, cd),
+        w1.permute(2, 3, 1, 0).reshape(9, c, c1),
+        w2.permute(2, 3, 1, 0).reshape(9, c1, cout),
+        w2.flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, c1),
+        w1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, c1, c),
+        wd.permute(2, 3, 1, 0).reshape(4, cd, cin)))
+
+
+def _check_operand(name: str, t: torch.Tensor, device) -> None:
+    _check(name, t, device)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (cp.async copies)")
 
 
 def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
@@ -106,7 +158,7 @@ def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
             _check(name, t, dev)
     wdk, w1k, w2k = kernel_weights(wd, w1, w2)[:3]
     for name, t in (("wd", wdk), ("w1", w1k), ("w2", w2k)):
-        _check(name, t, dev)
+        _check_operand(name, t, dev)
     lib = load_library()
     y = torch.empty((b, 2 * hc, 2 * wc, cout), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
@@ -131,6 +183,28 @@ def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Ten
     torch layouts. Counts launches in fused_stage_bwd.launches."""
     if not x.is_cuda:
         return fused_stage_bwd_plain(x, skip, dy, wd, bd, w1, b1, w2, b2)
+    grads, _ = _launch_bwd(load_library(), x, skip, dy, wd, bd, w1, b1, w2, b2)
+    fused_stage_bwd.launches += 1
+    return grads
+
+
+fused_stage_bwd.launches = 0
+
+
+def bwd_phase_cycles(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Tensor,
+                     wd: torch.Tensor, bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor):
+    """B3 built with its per-phase timer, on CUDA tensors only (the timer
+    is a clock on the card): (the grads as fused_stage_bwd returns them,
+    int64 [blocks, len(BWD_PHASES)] clock64 cycles each block spent in each
+    phase, summed over its tiles). Not counted in fused_stage_bwd.launches:
+    the main path runs the untimed library."""
+    if not x.is_cuda:
+        raise ValueError("the phase timer runs on the card: pass CUDA tensors")
+    return _launch_bwd(load_timed_library(), x, skip, dy, wd, bd, w1, b1, w2, b2, timed=True)
+
+
+def _launch_bwd(lib, x, skip, dy, wd, bd, w1, b1, w2, b2, timed=False):
     b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
     if tuple(dy.shape) != (b, 2 * hc, 2 * wc, cout):
         raise ValueError(f"dy has shape {tuple(dy.shape)}, expected {(b, 2 * hc, 2 * wc, cout)}")
@@ -140,29 +214,27 @@ def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Ten
             _check(name, t, dev)
     wdk, w1k, _, w2t, w1t, wdt = kernel_weights(wd, w1, w2)
     for name, t in (("wd", wdk), ("w1", w1k), ("w2t", w2t), ("w1t", w1t), ("wdt", wdt)):
-        _check(name, t, dev)
-    lib = load_library()
-    t_ = ctypes.c_int(0)
-    nblk = ctypes.c_int(0)
-    psize = ctypes.c_int(0)
+        _check_operand(name, t, dev)
     with torch.cuda.device(dev):
-        rc = lib.ccvpe_lmu_bwd_plan(b, hc, wc, cin, cs, cd, c1, cout, ctypes.byref(t_),
-                                    ctypes.byref(nblk), ctypes.byref(psize))
-        if rc != 0:
-            raise RuntimeError(f"ccvpe_lmu_bwd_plan failed: CUDA error {rc}")
+        t_, mode, ahead, nblk, psize = _plan(lib, b, hc, wc, cin, cs, cd, c1, cout)
         dx = torch.empty_like(x)
         dskip = None if skip is None else torch.empty_like(skip)
-        part = torch.zeros((nblk.value, psize.value), device=dev, dtype=torch.float32)
-        sums = torch.empty(psize.value, device=dev, dtype=torch.float32)
+        part = torch.zeros((nblk, psize), device=dev, dtype=torch.float32)
+        sums = torch.empty(psize, device=dev, dtype=torch.float32)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        cycles = None
+        if timed:
+            cycles = torch.zeros((nblk, len(BWD_PHASES)), device=dev, dtype=torch.int64)
+            rc = lib.ccvpe_lmu_bwd_phase_buffer(cycles.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"ccvpe_lmu_bwd_phase_buffer failed: CUDA error {rc}")
         rc = lib.ccvpe_lmu_bwd(x.data_ptr(), _ptr(skip), dy.data_ptr(), wdk.data_ptr(),
                                bd.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
                                w1t.data_ptr(), wdt.data_ptr(), dx.data_ptr(), _ptr(dskip),
                                part.data_ptr(), sums.data_ptr(), b, hc, wc, cin, cs, cd, c1,
-                               cout, t_.value, nblk.value, stream)
+                               cout, t_, mode, ahead, nblk, stream)
     if rc != 0:
         raise RuntimeError(f"ccvpe_lmu_bwd launch failed: CUDA error {rc}")
-    fused_stage_bwd.launches += 1
     c = cd + cs
     dwd, dbd, dw1, db1, dw2, db2 = torch.split(
         sums, [4 * cin * cd, cd, 9 * c * c1, c1, 9 * c1 * cout, cout])
@@ -172,10 +244,29 @@ def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Ten
             dw1.reshape(3, 3, c, c1).permute(3, 2, 0, 1),
             db1,
             dw2.reshape(3, 3, c1, cout).permute(3, 2, 0, 1),
-            db2)
+            db2), cycles
 
 
-fused_stage_bwd.launches = 0
+def _plan(lib, b, hc, wc, cin, cs, cd, c1, cout):
+    """ccvpe_lmu_bwd_plan on the current device: (T, weight mode, planes
+    copied a tile ahead (0 or 1), blocks, floats of a block's partial slice)."""
+    out = [ctypes.c_int(0) for _ in range(5)]
+    rc = lib.ccvpe_lmu_bwd_plan(b, hc, wc, cin, cs, cd, c1, cout, *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"ccvpe_lmu_bwd_plan failed: CUDA error {rc}")
+    return tuple(v.value for v in out)
+
+
+def bwd_plan(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
+             w1: torch.Tensor, w2: torch.Tensor) -> dict:
+    """How B3 runs these shapes on x's card: its fine tile T, where it keeps
+    the weights (one of WEIGHT_MODES), whether each tile's x and dy planes
+    are copied while the one before runs, its blocks and tiles."""
+    b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
+    with torch.cuda.device(x.device):
+        t, mode, ahead, nblk, _ = _plan(load_library(), b, hc, wc, cin, cs, cd, c1, cout)
+    return dict(t=t, weights=WEIGHT_MODES[mode], planes_ahead=bool(ahead), blocks=nblk,
+                tiles=b * -(-2 * hc // t) * -(-2 * wc // t))
 
 
 class FusedStage(torch.autograd.Function):

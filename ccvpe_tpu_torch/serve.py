@@ -2,7 +2,8 @@
 port of ccvpe_tpu/serve.py:30-94).
 
 Requests run in chunks of `batch_size`, the tail zero-padded to the same
-shape; pose decoding runs on the card and only scalars come back.
+shape; pose decoding runs on the card and only scalars come back. Each
+batch runs in float32, TF32 off (core/precision.py).
 
     engine = InferenceEngine.from_checkpoint(vigor(), "model.pt")
     poses = engine.predict(grd_batch, sat_batch)   # list of PoseResult
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ccvpe_tpu_torch.core.config import ModelConfig
+from ccvpe_tpu_torch.core.precision import float32_matmuls
 from ccvpe_tpu_torch.models.cvm import build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.train.step import device_normalize
@@ -56,6 +58,7 @@ class InferenceEngine:
         return cls(model_cfg, load_state_dict_file(checkpoint), batch_size, device)
 
     @torch.inference_mode()
+    @float32_matmuls()
     def _run(self, grd: np.ndarray, sat: np.ndarray):
         g = device_normalize(torch.from_numpy(grd).to(self.device))
         s = device_normalize(torch.from_numpy(sat).to(self.device))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
+from ccvpe_tpu_torch.core.precision import float32_matmuls
 from ccvpe_tpu_torch.models.cvm import CVM, CVMOutput, build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.ops.gt import gaussian_heatmap, maxpool_pyramid, orientation_bin_weights
@@ -202,11 +203,13 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     sequential microbatches, each backward adding grad / A, and the BN
     running stats pass from one microbatch to the next. `generator` (on the
     model's device) draws the drop-connect masks; metrics are 0-d tensors
-    on the device (averaged over microbatches)."""
+    on the device (averaged over microbatches). Forward, backward and the
+    update run in float32, TF32 off (core/precision.py)."""
     accum = train_cfg.grad_accum_steps
     if accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
 
+    @float32_matmuls()
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
         model = state.model
         model.train()
@@ -236,9 +239,11 @@ def make_eval_decode_step(model: CVM) -> Callable[..., Tuple[torch.Tensor, ...]]
     """Forward + pose decode + GT location + prob@GT, returning six [B]
     tensors (pred rows, cols, angle deg, GT rows, cols, prob@GT) on the
     model's device; the heatmap never leaves it. Inputs are NHWC tensors on
-    that device, images uint8 or normalized f32, offsets [B]."""
+    that device, images uint8 or normalized f32, offsets [B]. Runs in
+    float32, TF32 off (core/precision.py)."""
 
     @torch.inference_mode()
+    @float32_matmuls()
     def step(grd, sat, row_offset, col_offset):
         out = model(device_normalize(grd), device_normalize(sat))
         rows, cols, angle = pose.decode_pose(out.heatmap, out.ori)

@@ -5,10 +5,12 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every hand-written kernel from csrc/ with nvcc (sm_90a), one nvcc
-     per source, all started together, timed, with ptxas' report; the
-     tensor-core instructions (HMMA) of each LMU kernel counted in
-     cuobjdump -sass, and B3 required to hold TF32 ones;
+  2. build every hand-written kernel from csrc/ with nvcc (sm_90a), and
+     lmu.cu once more with B3's per-phase timer, one nvcc per library, all
+     started together, timed, with ptxas' report; the tensor-core
+     instructions (HMMA) and clock reads of each LMU kernel counted in
+     cuobjdump -sass: B3 must hold TF32 ones, and the main path's library
+     no clock read;
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI and ori-prior shapes,
      and at one shape with ragged N and D edges and the largest K;
@@ -21,17 +23,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      matmul at ragged M x N x K, twice for the same bits, and its times;
      then the fused LMU stage kernels (forward B2, backward B3) against
      their plain versions at the four VIGOR calls of a step at
-     lmu_fused_min_res=256, a ragged no-skip Cout-1 case, a large-bias case
-     and a case with no channel count a multiple of 4; B3 twice, for the
-     same bits;
+     lmu_fused_min_res=256, the four KITTI calls, a ragged no-skip Cout-1
+     case, a large-bias case and a case with no channel count a multiple
+     of 4; B3 twice, for the same bits;
   7. their kernel / plain / cuDNN-chain times beside their bounds (float32
-     on the CUDA cores, and 3xTF32 on the tensor cores);
+     on the CUDA cores, and 3xTF32 on the tensor cores); then B3's
+     per-phase split at the four VIGOR calls from the timed library (each
+     phase's share of the block cycles, and that share of the untimed
+     kernel's time), the timed kernel's time beside the untimed one;
   8. the serving path at full width: vigor() with seeded random weights,
      InferenceEngine(batch_size=8).predict on 20 requests (the last batch
      padded), kernel launches counted; one batch's CVM forward with
      corr_impl='auto' held against 'plain'; the scalar eval step once; the
      p50 batch latency over 10 batches; one batch under torch.profiler
-     (device busy share, kernel time by name);
+     (device busy share, kernel time by name); the bare CVM forward's p50
+     with TF32 on and off (the cost of float32);
   9. the training slice at full width: vigor() with lmu_fused_min_res=256,
      batch 8, create_train_state + make_train_step; the fused calls' shapes
      read from the autograd graph; launches of one step (corr 6, lmu
@@ -45,7 +51,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 Details go to chiprun_out/chip_smoke.json.
 
 TF32 is off for matmuls and cuDNN throughout, so every comparison and time
-is strict float32.
+is strict float32 (the entry points force it too, core/precision.py), but
+for the one forward timed with TF32 on.
 """
 
 from __future__ import annotations
@@ -179,19 +186,20 @@ def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel",)):
 
 # --- the fused LMU stage (B2 forward, B3 backward) ---
 
-def lmu_vigor_shapes(cfg, batch):
+def lmu_call_shapes(cfg, batch, prefix=""):
     """(name, B, Hc, Wc, Cin, Cs, Cd, C1, Cout) of the four fused calls of a
-    VIGOR step at lmu_fused_min_res=256: stage 5 of both decoders (skip =
-    sat block 0, 16 channels at 256^2) and the final stage with its head."""
+    train step at lmu_fused_min_res=256: stage 5 of both decoders (skip =
+    sat block 0, 16 channels at 256^2; the loc decoder's input carries the
+    score max as one more channel) and the final stage with its head."""
     hc = cfg.sat_size[0] // 4          # 128: the input of the 256^2 stage
     return [
-        ("loc stage 5", batch, hc, hc, cfg.loc_conv_out[3] + 1, 16,
+        (prefix + "loc stage 5", batch, hc, hc, cfg.loc_conv_out[3] + 1, 16,
          cfg.loc_deconv_out[4], cfg.loc_conv_out[4], cfg.loc_conv_out[4]),
-        ("ori stage 5", batch, hc, hc, cfg.ori_conv_out[3], 16,
+        (prefix + "ori stage 5", batch, hc, hc, cfg.ori_conv_out[3], 16,
          cfg.ori_deconv_out[4], cfg.ori_conv_out[4], cfg.ori_conv_out[4]),
-        ("loc stage 6+head", batch, 2 * hc, 2 * hc, cfg.loc_conv_out[4] + 1, 0,
+        (prefix + "loc stage 6+head", batch, 2 * hc, 2 * hc, cfg.loc_conv_out[4] + 1, 0,
          cfg.loc_deconv_out[5], cfg.head_hidden, 1),
-        ("ori stage 6+head", batch, 2 * hc, 2 * hc, cfg.ori_conv_out[4], 0,
+        (prefix + "ori stage 6+head", batch, 2 * hc, 2 * hc, cfg.ori_conv_out[4], 0,
          cfg.ori_deconv_out[5], cfg.head_hidden, 2),
     ]
 
@@ -274,9 +282,10 @@ def check_lmu(shape, gen, bias_scale=0.3):
                 bwd_max_abs=bwd_abs, deterministic=same, ok=fwd_ok and bwd_ok)
 
 
-def sass_hmma(lib_path):
-    """{kernel function: [HMMA opcodes]} in the library's SASS (cuobjdump
-    from nvcc's toolkit), for the functions whose names hold 'kernel'."""
+def sass_scan(lib_path):
+    """{kernel function: ([HMMA opcodes], clock reads)} in the library's
+    SASS (cuobjdump from nvcc's toolkit), for the functions whose names
+    hold 'kernel'; a clock read is clock64()'s CS2R of SR_CLOCKLO."""
     from ccvpe_tpu_torch.csrc.build import nvcc
     tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
@@ -286,9 +295,11 @@ def sass_hmma(lib_path):
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if "kernel" in fn:
-                found[fn] = []
+                found[fn] = ([], 0)
         elif fn in found and "HMMA" in line:
-            found[fn].append(line.split("*/")[1].split()[0])
+            found[fn][0].append(line.split("*/")[1].split()[0])
+        elif fn in found and "SR_CLOCKLO" in line:
+            found[fn] = (found[fn][0], found[fn][1] + 1)
     return found
 
 
@@ -366,6 +377,60 @@ def time_lmu(shape, gen):
         row.update({f"{key}_bound_ms": bound, f"{key}_bound_by": by, f"{key}_bytes": nbytes,
                     f"{key}_flops": flops, f"{key}_tc_bound_ms": tc})
     return row
+
+
+def phase_split(shape, gen, kernel_ms):
+    """B3's split by phase at one shape: the timed library's block cycles
+    per phase (summed over blocks), each phase's share, and that share of
+    the untimed kernel's time `kernel_ms` (the wrapper's, from time_lmu);
+    the timed kernel's own time beside it, and whether its outputs are the
+    untimed kernel's bits."""
+    from ccvpe_tpu_torch.ops.lmu_cuda import (BWD_PHASES, bwd_phase_cycles, bwd_plan,
+                                              fused_stage_bwd)
+    _, b, hc, wc, *_, cout = shape
+    x, skip, ws = lmu_inputs(shape, gen)
+    plan = bwd_plan(x, skip, ws[0], ws[2], ws[4])
+    dy = torch.randn(b, 2 * hc, 2 * wc, cout, device="cuda", generator=gen)
+    got, cycles = bwd_phase_cycles(x, skip, dy, *ws)
+    want = fused_stage_bwd(x, skip, dy, *ws)
+    torch.cuda.synchronize()
+    same = all(g is None or torch.equal(g, w) for g, w in zip(got, want))
+    timed_ms = time_ms(lambda: bwd_phase_cycles(x, skip, dy, *ws))
+    per_phase = cycles.sum(0).tolist()
+    total = sum(per_phase)
+    phases = [dict(phase=name, share=c / total, ms=c / total * kernel_ms,
+                   cycles_per_tile=c / plan["tiles"])
+              for name, c in zip(BWD_PHASES, per_phase)]
+    return dict(name=shape[0], kernel_ms=kernel_ms, timed_ms=timed_ms, same_bits=same,
+                tiles_per_block=plan["tiles"] / plan["blocks"], phases=phases, **plan)
+
+
+def tf32_cost(model, g, s, card, reps=10):
+    """The bare CVM forward (no entry point, so the flags apply as set) at
+    one batch with TF32 off and on in cuBLAS and cuDNN, in turns: p50 of
+    each and the heatmap's largest difference. Leaves TF32 off."""
+    times = {False: [], True: []}
+    heat = {}
+    with torch.inference_mode():
+        for i in range(reps + 1):
+            for tf32 in (False, True) if i % 2 else (True, False):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model(g, s)
+                torch.cuda.synchronize()
+                if i:                                  # the first round warms up
+                    times[tf32].append(time.perf_counter() - t0)
+                heat[tf32] = out.heatmap
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p50 = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    diff = float((heat[True] - heat[False]).abs().max())
+    log(f"CVM forward vigor batch {g.shape[0]}: p50 {p50[False]:.2f} ms in float32 (TF32 off), "
+        f"{p50[True]:.2f} ms with TF32 on in cuBLAS and cuDNN; heatmap max abs difference "
+        f"{diff:.3g} [{card}]")
+    return dict(p50_f32_ms=p50[False], p50_tf32_ms=p50[True], heatmap_max_abs_diff=diff)
 
 
 def grads_close(fused, unfused, atol):
@@ -557,26 +622,37 @@ def main() -> int:
         f"ccvpe_tpu_torch {ccvpe_tpu_torch.__version__} device {kind}")
     report["card"] = card
 
-    # 2. build every kernel, one nvcc per source, all started together
+    # 2. build every kernel, and lmu.cu with B3's phase timer, one nvcc per
+    #    library, all started together
+    jobs = {name: (name, ()) for name in KERNELS}
+    jobs["lmu+timer"] = ("lmu", (lmu_cuda.PHASE_TIMER,))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(lambda job: build(*job), jobs.values())))
     build_s = time.perf_counter() - t0
     for name, b in built.items():
         log(f"build {name}: {b.seconds:.2f} s -> {b.path.name}\n{b.log.strip()}")
     log(f"build all: {build_s:.2f} s wall")
     corr_cuda.load_library()
     lmu_cuda.load_library()
+    lmu_cuda.load_timed_library()
     report["build_s"] = build_s
-    hmma = sass_hmma(built["lmu"].path)
-    report["lmu_sass_hmma"] = {fn: dict(count=len(ops), opcodes=sorted(set(ops)))
-                               for fn, ops in hmma.items()}
-    for fn, ops in hmma.items():
-        log(f"sass {fn[:90]}: {len(ops)} HMMA {sorted(set(ops))}")
-    bwd_fns = [fn for fn in hmma if "lmu_bwd_kernel" in fn]
-    if not bwd_fns or not all(any("TF32" in op for op in hmma[fn]) for fn in bwd_fns):
-        log("FAIL: lmu_bwd_kernel holds no TF32 HMMA instruction")
-        return 1
+    report["lmu_sass"] = {}
+    for lib in ("lmu", "lmu+timer"):
+        scan = sass_scan(built[lib].path)
+        report["lmu_sass"][lib] = {fn: dict(hmma=len(ops), opcodes=sorted(set(ops)), clocks=clk)
+                                   for fn, (ops, clk) in scan.items()}
+        for fn, (ops, clk) in scan.items():
+            log(f"sass {lib} {fn[:90]}: {len(ops)} HMMA {sorted(set(ops))}, {clk} clock reads")
+        bwd_fns = [fn for fn in scan if "lmu_bwd_kernel" in fn]
+        if not bwd_fns or not all(any("TF32" in op for op in scan[fn][0]) for fn in bwd_fns):
+            log(f"FAIL: {lib}: lmu_bwd_kernel holds no TF32 HMMA instruction")
+            return 1
+        clocks = sum(scan[fn][1] for fn in bwd_fns)
+        if (clocks > 0) != (lib == "lmu+timer"):
+            log(f"FAIL: {lib}: lmu_bwd_kernel holds {clocks} clock reads (the main path's "
+                "library must hold none, the timed one some)")
+            return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -683,12 +759,13 @@ def main() -> int:
     log(f"time mma_probe {'x'.join(map(str, PROBE_SHAPES[0]))}: kernel {probe_time['ms']:.4f} ms, "
         f"plain {probe_time['plain_ms']:.4f}, torch.matmul {probe_time['library_ms']:.4f}, "
         f"bound {probe_time['bound_ms']:.6f} ({probe_time['bound_by']})")
-    lmu_shapes = lmu_vigor_shapes(vigor, batch)
+    lmu_shapes = lmu_call_shapes(vigor, batch)
+    kitti_shapes = lmu_call_shapes(kitti, batch, "kitti ")
     extra = [("ragged, no skip, Cout 1", 2, 13, 21, 9, 0, 8, 12, 1),
              ("large biases", 2, 10, 12, 12, 5, 8, 16, 3),
              ("ragged channels", 2, 7, 11, 5, 3, 7, 9, 3)]
     report["lmu_checks"] = []
-    for shape in lmu_shapes + extra:
+    for shape in lmu_shapes + kitti_shapes + extra:
         r = check_lmu(shape, gen, bias_scale=5.0 if shape[0] == "large biases" else 0.3)
         log(f"check lmu {shape[0]:24s} {shape[1:]}: fwd max_abs {r['fwd_max_abs']:.3g} "
             f"(rtol {LMU_FWD_RTOL} of max), bwd scaled "
@@ -721,6 +798,24 @@ def main() -> int:
         f"{lmu_tot['fwd_bound_ms']:.3f}; bwd kernel {lmu_tot['bwd_ms']:.3f} ms, plain "
         f"{lmu_tot['bwd_plain_ms']:.3f}, chain {lmu_tot['bwd_chain_ms']:.3f}, bound "
         f"{lmu_tot['bwd_bound_ms']:.3f} (f32), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32) [{card}]")
+    # B3 by phase, from the timed library
+    report["lmu_bwd_phases"] = []
+    for shape, row in zip(lmu_shapes, report["lmu_timing"]):
+        r = phase_split(shape, gen, row["bwd_ms"])
+        report["lmu_bwd_phases"].append(r)
+        log(f"phases lmu bwd {shape[0]:18s}: untimed {r['kernel_ms']:.3f} ms, timed "
+            f"{r['timed_ms']:.3f} ms, T {r['t']}, weights {r['weights']}, planes ahead "
+            f"{r['planes_ahead']}, {r['blocks']} blocks x "
+            f"{r['tiles_per_block']:.1f} tiles, same bits as untimed {r['same_bits']} [{card}]")
+        log("  " + "; ".join(f"{p['phase']} {p['share']:.1%} {p['ms']:.3f} ms "
+                              f"{p['cycles_per_tile']:.0f} cyc/tile" for p in r["phases"]))
+        if not r["same_bits"]:
+            log("FAIL: the timed B3 computes other bits than the untimed one")
+            return 1
+        loads = sum(p["cycles_per_tile"] for p in r["phases"] if p["phase"].endswith(" load"))
+        if r["weights"] == "resident" and loads:
+            log("FAIL: the weights are resident, yet tiles spent cycles loading them")
+            return 1
     # the checks and timings above do not count
     corr_core.launches = 0
     lmu_cuda.fused_stage.launches = 0
@@ -824,6 +919,7 @@ def main() -> int:
                              predict20_s=predict_s, batch_ms=[x * 1e3 for x in lat])
     report["profile"] = profile_call(lambda: engine.predict(grd[:batch], sat[:batch]),
                                      "one serving batch", card, p50 * 1e3)
+    report["tf32_forward"] = tf32_cost(model, g, s, card)
 
     # 9. the training slice at full width
     train_launches = run_training(card, report, lmu_shapes)

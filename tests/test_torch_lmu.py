@@ -151,17 +151,66 @@ def test_large_biases_border_is_zero_padding():
     _grads_close(got, want, NAMES)
 
 
-def test_kernel_weight_layouts_match_the_tpu_kernels():
-    """The wrapper's operands equal the Pallas kernels' (lmu_pallas.py
-    :381-383, :593-597): wd [4,Cin,Cd], w1/w2 taps x in x out, and the
-    _flipT operands of the backward."""
-    _, _, ws = _case(9, 1, 2, 2, 5, 4, 3, 6, 2)
+def _tpu_operands_of_padded(ws):
+    """kernel_weights' six operands for the JAX-layout weights `ws`, each
+    checked to be zero beyond its true width and to have pad_co columns,
+    then with the padding stripped, beside the Pallas kernels' operands
+    (lmu_pallas.py :381-383, :593-597): wd [4,Cin,Cd], w1/w2 taps x in x out,
+    and the _flipT operands of the backward."""
     wd, _, w1, _, w2, _ = ws
-    ops = [t.numpy() for t in kernel_weights(*_torch_weights(ws)[0::2])]
     cin, cd = wd.shape[2:]
-    np.testing.assert_array_equal(ops[0], wd.reshape(4, cin, cd))
-    np.testing.assert_array_equal(ops[1], w1.reshape(9, *w1.shape[2:]))
-    np.testing.assert_array_equal(ops[2], w2.reshape(9, *w2.shape[2:]))
-    np.testing.assert_array_equal(ops[3], np.asarray(_flipT(w2)).reshape(9, 2, 6))
-    np.testing.assert_array_equal(ops[4], np.asarray(_flipT(w1)).reshape(9, 6, 7))
-    np.testing.assert_array_equal(ops[5], wd.reshape(4, cin, cd).transpose(0, 2, 1))
+    c, c1 = w1.shape[2:]
+    cout = w2.shape[3]
+    want = [wd.reshape(4, cin, cd), w1.reshape(9, c, c1), w2.reshape(9, c1, cout),
+            np.asarray(_flipT(w2)).reshape(9, cout, c1), np.asarray(_flipT(w1)).reshape(9, c1, c),
+            wd.reshape(4, cin, cd).transpose(0, 2, 1)]
+    got = []
+    for op, ref in zip(kernel_weights(*_torch_weights(ws)[0::2]), want):
+        op = op.numpy()
+        n = ref.shape[-1]
+        assert op.shape == (*ref.shape[:-1], lmu_cuda.pad_co(n))
+        assert op.flags.c_contiguous
+        assert not op[..., n:].any(), "the padding must be exact zeros"
+        got.append(op[..., :n])
+    return got, want
+
+
+def test_kernel_weight_layouts_match_the_tpu_kernels():
+    """The wrapper's operands, padding stripped, equal the Pallas kernels'."""
+    _, _, ws = _case(9, 1, 2, 2, 5, 4, 3, 6, 2)
+    for got, want in zip(*_tpu_operands_of_padded(ws)):
+        np.testing.assert_array_equal(got, want)
+
+
+# every channel count of the operands ragged: pad_co's columns for each
+PAD_WIDTHS = {1: 4, 2: 4, 3: 4, 16: 16, 41: 48, 81: 88}
+
+
+@pytest.mark.parametrize("n", list(PAD_WIDTHS))
+def test_kernel_weights_pad_to_pad_co_with_zeros(n):
+    """Cin = Cd = C1 = Cout = n (C = n + 3 with a skip of 3): each operand
+    holds torch's weights in its first columns, exact zeros up to pad_co
+    (csrc/lmu.cu's), and the TPU kernel's operand once the padding goes."""
+    assert lmu_cuda.pad_co(n) == PAD_WIDTHS[n]
+    _, _, ws = _case(11, 1, 2, 2, n, n, 3, n, n)
+    for got, want in zip(*_tpu_operands_of_padded(ws)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_phase_timer_names_every_phase_of_the_kernel():
+    """BWD_PHASES names csrc/lmu.cu's BwdPhase entries, one each, in order."""
+    import re
+    from ccvpe_tpu_torch.csrc.build import CSRC
+    src = (CSRC / "lmu.cu").read_text()
+    body = re.search(r"enum BwdPhase \{([^}]*)\}", src).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names[-1] == "kBwdPhases"
+    assert len(names) - 1 == len(lmu_cuda.BWD_PHASES) == len(set(lmu_cuda.BWD_PHASES))
+
+
+def test_phase_timer_needs_the_card():
+    x, skip, ws = _case(3, 1, 4, 4, 5, 4, 2, 6, 2)
+    dy = torch.zeros(1, 8, 8, 2)
+    with pytest.raises(ValueError, match="card"):
+        lmu_cuda.bwd_phase_cycles(_t(x), _t(skip), dy, *_torch_weights(ws))
+    assert lmu_cuda.load_timed_library.cache_info().currsize == 0

@@ -108,7 +108,8 @@ def test_3xtf32_product_is_float32_accurate_and_1xtf32_is_not(seed):
 
 def _lmu_shapes():
     cs = _chip_smoke()
-    return cs.lmu_vigor_shapes(cfg_lib.vigor(), 1) + [
+    return cs.lmu_call_shapes(cfg_lib.vigor(), 1) + cs.lmu_call_shapes(
+        cfg_lib.kitti(), 1, "kitti ") + [
         ("ragged, no skip, Cout 1", 1, 13, 21, 9, 0, 8, 12, 1),
         ("ragged channels", 1, 7, 11, 5, 3, 7, 9, 3),
     ]
