@@ -2,10 +2,10 @@
 
 Each kernel source `csrc/<name>.cu` exposes a plain C interface and is
 compiled into its own shared library under `csrc/_build/`, named by a hash
-of the source and the flags, at first use; `ops/*_cuda.py` load it with
-ctypes. A build may add preprocessor defines (`build("lmu", ("X",))`
-compiles with -DX): they are part of the hash, so each define set is a
-library of its own, and the build without defines keeps its name.
+of the source, of every header `csrc/*.cuh` (the sources include them) and
+of the flags, at first use; `ops/*_cuda.py` load it with ctypes. A build
+may add preprocessor defines (`build("lmu", ("X",))` compiles with -DX):
+they are part of the hash, so each define set is a library of its own.
 Nothing is compiled when this module is imported. A failed build raises
 with nvcc's output.
 
@@ -57,10 +57,18 @@ def nvcc_command(sources: Sequence[Path], output: Path, defines: Sequence[str] =
     return [nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(output), *map(str, sources)]
 
 
+def headers() -> List[Path]:
+    """The headers the sources may include, in name order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(name: str, defines: Sequence[str] = ()) -> Path:
-    src = CSRC / f"{name}.cu"
-    flags = " ".join([*NVCC_FLAGS, *_define_flags(defines)])
-    digest = hashlib.sha256(src.read_bytes() + flags.encode())
+    """The library of csrc/<name>.cu: named by a hash of the source, then
+    each header's name and bytes, then the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for h in headers():
+        digest.update(h.name.encode() + h.read_bytes())
+    digest.update(" ".join([*NVCC_FLAGS, *_define_flags(defines)]).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

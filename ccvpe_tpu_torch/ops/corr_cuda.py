@@ -9,7 +9,10 @@ the kernel computes per sat pixel t and bin k
     den2[t,k] = sum_d S[t,d]^2 * M[k,d]
     out[t,k]  = num * rsqrt(den2)        (and r = rsqrt(den2) if asked)
 
-reading S once. The CUDA route is a plain C interface built with nvcc
+reading S once, its products in 3xTF32 on the tensor cores. `corr_plan`
+sizes a launch (rows per tile, slices of D, K padded to a multiple of 8,
+blocks); `corr_core_split_plain` repeats the kernel's arithmetic in plain
+torch. The CUDA route is a plain C interface built with nvcc
 (csrc/build.py) and loaded with ctypes; nothing here touches nvcc or the
 card until a CUDA tensor arrives, so the module imports on a CPU-only host.
 On a CPU tensor `corr_core` runs `corr_core_plain`.
@@ -23,14 +26,69 @@ plain products of corr_pallas.py:124-135) gives it one, and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ccvpe_tpu_torch.ops.corr import build_roll_matrices
+from ccvpe_tpu_torch.ops.tf32 import split_tf32
 
 MAX_BINS = 32   # csrc/corr.cu kMaxBins
+# csrc/corr.cu's tile, ring and the shared memory of one block (smem_bytes)
+ROWS, CHUNK, STAGES = 64, 40, 2      # kRows, kChunk, kStages
+H100_SMS = 132
+SM_SMEM, BLOCK_SMEM_RESERVED, MAX_BLOCK_SMEM = 233472, 1024, 232448   # sm_90
+RECORD_BYTES = 65536    # cap on a block's G' hi, G' lo and M rows: it bounds a slice's width
+MAX_BLOCKS_PER_SM = 5   # kMinBlocks: __launch_bounds__ keeps 5 blocks' registers on an SM
+
+
+def smem_bytes(width: int, k: int, kp: int) -> int:
+    """Shared memory of one kernel block (csrc/corr.cu::smem_bytes): the S
+    ring, G' hi, G' lo and M as kp rows of width + 4 floats each, the out
+    and r staging."""
+    return 4 * STAGES * ROWS * (CHUNK + 4) + 4 * 3 * kp * (width + 4) + 4 * 2 * ROWS * k
+
+
+@dataclasses.dataclass(frozen=True)
+class CorrPlan:
+    rows: int            # T: sat rows per tile
+    slices: int          # slices of D, each a block's own
+    kp: int              # K padded to a multiple of 8
+    width: int           # channels per slice (the last may hold fewer)
+    grid_x: int          # blocks along the row tiles of one (batch, slice)
+    blocks_per_sm: int   # resident blocks per SM that the grid assumes
+    blocks: int          # grid_x * slices * B
+
+
+@functools.lru_cache(maxsize=256)
+def corr_plan(b: int, n: int, d: int, k: int, sms: int = H100_SMS) -> CorrPlan:
+    """The kernel's launch for S [b, n, d] and k bins on a card of `sms` SMs.
+    Row tiles of ROWS; where the b * tiles blocks fall short of one block
+    per SM, D is split into slices of a multiple of 8 channels until they
+    do not, and where D is wider than a block's G'/M rows hold
+    (RECORD_BYTES), into slices that fit (each slice then writes partial
+    sums that a second kernel adds). The grid is at most one wave of
+    resident blocks (per SM: as many as the shared memory holds, at most
+    MAX_BLOCKS_PER_SM), each taking an equal share of the row tiles."""
+    if not 1 <= k <= MAX_BINS:
+        raise ValueError(f"the CUDA kernel takes 1..{MAX_BINS} bins, got K={k}")
+    if min(b, n, d) < 1:
+        raise ValueError(f"empty S [{b}, {n}, {d}]")
+    kp = -(-k // 8) * 8
+    tiles = -(-n // ROWS)
+    widest = RECORD_BYTES // (12 * kp) // 8 * 8
+    want = -(-sms // (b * tiles))                 # slices for one block per SM
+    width = -(-d // 8) * 8 if want == 1 else max(8, d // want // 8 * 8)
+    width = min(width, widest)
+    slices = -(-d // width)
+    per_sm = min(MAX_BLOCKS_PER_SM,
+                 SM_SMEM // (smem_bytes(width, k, kp) + BLOCK_SMEM_RESERVED))
+    cap = max(1, per_sm * sms // (slices * b))
+    per_block = -(-tiles // min(tiles, cap))
+    grid_x = -(-tiles // per_block)
+    return CorrPlan(ROWS, slices, kp, width, grid_x, per_sm, grid_x * slices * b)
 
 
 def corr_core_plain(s_flat: torch.Tensor, g_mat: torch.Tensor,
@@ -44,14 +102,52 @@ def corr_core_plain(s_flat: torch.Tensor, g_mat: torch.Tensor,
     return (out, r) if need_r else out
 
 
+def corr_core_split_plain(s_flat: torch.Tensor, g_mat: torch.Tensor,
+                          m_mat: torch.Tensor, plan: CorrPlan, need_r: bool = False):
+    """The kernel's arithmetic in plain torch: per slice of plan.width
+    channels, num from three TF32 products (S lo.G' hi + S hi.G' lo, then
+    S hi.G' hi) and den2 from two (S^2 lo.M, then S^2 hi.M; M is exact in
+    TF32), each product exact in float32; the slices' partial sums added in
+    slice order. Sums inside a product run in the matmul's order, not the
+    tensor cores'. Same contract as corr_core_plain."""
+    d = s_flat.shape[-1]
+    num = den2 = 0
+    for lo in range(0, d, plan.width):
+        s = s_flat[..., lo:lo + plan.width]
+        g = g_mat[..., lo:lo + plan.width].transpose(1, 2)
+        m = m_mat[:, lo:lo + plan.width].t()
+        s_hi, s_lo = split_tf32(s)
+        q_hi, q_lo = split_tf32(s * s)
+        g_hi, g_lo = split_tf32(g.contiguous())
+        num = num + ((s_lo @ g_hi + s_hi @ g_lo) + s_hi @ g_hi)
+        den2 = den2 + (q_lo @ m + q_hi @ m)
+    r = torch.rsqrt(den2)
+    out = num * r
+    return (out, r) if need_r else out
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build csrc/corr.cu for sm_90a at first use and bind its C entry."""
+    """Build csrc/corr.cu for sm_90a at first use and bind its C entries."""
     from ccvpe_tpu_torch.csrc.build import build
     lib = ctypes.CDLL(str(build("corr").path))
-    lib.ccvpe_corr_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.ccvpe_corr_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                                   + [ctypes.c_void_p])
     lib.ccvpe_corr_fwd.restype = ctypes.c_int
+    lib.ccvpe_corr_occupancy.argtypes = [ctypes.c_int] * 3
+    lib.ccvpe_corr_occupancy.restype = ctypes.c_int
     return lib
+
+
+def kernel_occupancy(plan: CorrPlan, k: int) -> int:
+    """Resident kernel blocks per SM for `plan` on the current card (the
+    occupancy API); plan.blocks_per_sm should not exceed it."""
+    return load_library().ccvpe_corr_occupancy(plan.width, k, plan.kp)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device) -> None:
@@ -68,7 +164,9 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device) -> None:
 def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
               need_r: bool = False):
     """The fused kernel on a CUDA tensor, its plain version on a CPU one.
-    Same contract as corr_core_plain. Counts launches in corr_core.launches."""
+    Same contract as corr_core_plain; M must be exact in TF32 (0/1 window
+    masks are). Counts calls in corr_core.launches: one a call, whether the
+    plan launches one kernel or the kernel and the slice reduce."""
     if not s_flat.is_cuda:
         return corr_core_plain(s_flat, g_mat, m_mat, need_r)
     if s_flat.dim() != 3:
@@ -82,14 +180,19 @@ def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
     _check("g_mat", g_mat, (b, k, d), dev)
     _check("m_mat", m_mat, (k, d), dev)
     lib = load_library()
+    plan = corr_plan(b, n, d, k, _sm_count(dev.index))
     out = torch.empty((b, n, k), device=dev, dtype=torch.float32)
     r = torch.empty_like(out) if need_r else None
+    part = (torch.empty(plan.slices * b * n * 2 * plan.kp, device=dev, dtype=torch.float32)
+            if plan.slices > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ccvpe_corr_fwd(s_flat.data_ptr(), g_mat.data_ptr(),
                                 m_mat.data_ptr(), out.data_ptr(),
                                 r.data_ptr() if need_r else None,
-                                b, n, d, k, stream)
+                                part.data_ptr() if part is not None else None,
+                                b, n, d, k, plan.kp, plan.width, plan.slices,
+                                plan.grid_x, stream)
     if rc != 0:
         raise RuntimeError(f"ccvpe_corr_fwd launch failed: CUDA error {rc}")
     corr_core.launches += 1

@@ -10,12 +10,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      started together, timed, with ptxas' report; the tensor-core
      instructions (HMMA) and clock reads of each LMU kernel counted in
      cuobjdump -sass: B3 must hold TF32 ones, and the main path's library
-     no clock read;
+     no clock read; the correlation kernel (B1) must hold TF32 ones too;
   3. the correlation kernel against its plain PyTorch version at the main
-     path's shapes (VIGOR batch 8), at Oxford, KITTI and ori-prior shapes,
-     and at one shape with ragged N and D edges and the largest K;
-  4. its kernel / plain / library-matmul times (CUDA events, L2 flushed,
-     median) beside the bound from bytes and float32 operations;
+     path's shapes (VIGOR batch 8), at Oxford, KITTI (s1 and s6) and
+     ori-prior shapes, and at one shape with ragged N and D edges and the
+     largest K, with and without r, each twice for the same bits; against
+     a float64 product at VIGOR s1 and KITTI s1; its launch plans' blocks
+     per SM against the occupancy API;
+  4. its kernel / plain / two-matmul yardstick times (CUDA events, L2
+     flushed, median) beside the bound from bytes and float32 operations,
+     without r (serving) and with r (training), and each scale's plan;
   5. the correlation backward: grads of S and of the ground descriptor
      through the kernel's autograd.Function against autograd through the
      plain version, at the six VIGOR scales;
@@ -71,9 +75,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
-# Tolerances of the kernel against its plain version: both sum in float32,
-# in another order (the kernel over D in 32-wide chunks with fmaf, cuBLAS in
-# its own tiling), so scores in [-1, 1] differ by a few ulps times sqrt(D).
+# Tolerances of the kernel against its plain version and against float64:
+# the kernel's 3xTF32 products are each within ~2^-22 of the exact product
+# (float32-accurate), summed in float32 in another order (8 channels an mma,
+# chunks of 40, slices of D, against cuBLAS' own tiling), so scores in
+# [-1, 1] differ by a few ulps times sqrt(D).
 CORR_ATOL, CORR_RTOL = 2e-5, 1e-5
 # auto vs plain full forward: the score differences above pass through six
 # decoder stages; the JAX suite's own torch tolerances.
@@ -138,8 +144,8 @@ def corr_inputs(b, n, d, length, shift, bins, center, gen):
     return s, g_mat, m_mat.contiguous()
 
 
-def corr_bound(b, n, d, k):
-    nbytes = 4 * (b * n * d + b * k * d + k * d + b * n * k)
+def corr_bound(b, n, d, k, need_r=False):
+    nbytes = 4 * (b * n * d + b * k * d + k * d + (2 if need_r else 1) * b * n * k)
     flops = 4 * b * n * k * d + b * n * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -153,7 +159,7 @@ def vigor_corr_shapes(cfg, batch):
             for s in range(cfg.num_scales)]
 
 
-def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel",)):
+def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_kernel")):
     """Where one call of fn spends device time: torch.profiler kernel
     totals, the device busy share of the window, the top kernels, and the
     share of the kernels whose names contain one of `ours`."""
@@ -596,7 +602,8 @@ def run_training(card, report, lmu_shapes):
                            step_ms=[t * 1e3 for t in times], losses=losses, first=m_fused)
     report["train_profile"] = profile_call(
         lambda: step(state, batch, gen), "one train step", card, p50 * 1e3,
-        ours=("corr_fwd_kernel", "lmu_fwd_kernel", "lmu_bwd_kernel", "lmu_reduce_kernel"))
+        ours=("corr_fwd_kernel", "corr_reduce_kernel", "lmu_fwd_kernel", "lmu_bwd_kernel",
+              "lmu_reduce_kernel"))
     return launches
 
 
@@ -637,6 +644,16 @@ def main() -> int:
     lmu_cuda.load_library()
     lmu_cuda.load_timed_library()
     report["build_s"] = build_s
+    scan = sass_scan(built["corr"].path)
+    report["corr_sass"] = {fn: dict(hmma=len(ops), opcodes=sorted(set(ops)))
+                           for fn, (ops, _) in scan.items()}
+    for fn, (ops, _) in scan.items():
+        log(f"sass corr {fn[:90]}: {len(ops)} HMMA {sorted(set(ops))}")
+    fwd_fns = [fn for fn in scan if "corr_fwd_kernel" in fn]
+    if not fwd_fns or not all(any("HMMA.1688.F32.TF32" in op for op in scan[fn][0])
+                              for fn in fwd_fns):
+        log("FAIL: corr_fwd_kernel holds no HMMA.1688.F32.TF32 instruction")
+        return 1
     report["lmu_sass"] = {}
     for lib in ("lmu", "lmu+timer"):
         scan = sass_scan(built[lib].path)
@@ -672,6 +689,8 @@ def main() -> int:
     cases.append(("kitti s6 shift 8", batch, 256 * 256, kitti.loc_conv_out[-1],
                   kitti.grd_desc_lens[-1], kitti.roll_shifts[-1],
                   tuple(range(kitti.num_bins)), False))
+    cases.append(("kitti s1", batch, 64, kitti.sat_desc_dim, kitti.grd_desc_lens[0],
+                  kitti.roll_shifts[0], tuple(range(kitti.num_bins)), False))
     prior = cfg_lib.vigor(ori_noise=72.0).restricted_bins      # K = 9, bins -4..4
     cases.append(("vigor ori-prior s3", batch, 1024, 320, vigor.grd_desc_lens[2], 16,
                   prior, False))
@@ -682,42 +701,79 @@ def main() -> int:
     report["checks"] = []
     for name, b, n, d, length, shift, bins, center in cases:
         s, g_mat, m_mat = corr_inputs(b, n, d, length, shift, bins, center, gen)
+        plan = corr_cuda.corr_plan(b, n, d, len(bins), torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+        bare, bare2 = corr_core(s, g_mat, m_mat), corr_core(s, g_mat, m_mat)
         out, r = corr_core(s, g_mat, m_mat, need_r=True)
+        out2, r2 = corr_core(s, g_mat, m_mat, need_r=True)
         ref, ref_r = corr_core_plain(s, g_mat, m_mat, need_r=True)
         torch.cuda.synchronize()
+        same = (torch.equal(bare, bare2) and torch.equal(out, out2) and torch.equal(r, r2)
+                and torch.equal(bare, out))
         err = float((out - ref).abs().max())
         rel = float(((out - ref).abs() / ref.abs().clamp_min(1e-30)).max())
         r_rel = float(((r - ref_r).abs() / ref_r.abs()).max())
-        ok = (torch.allclose(out, ref, atol=CORR_ATOL, rtol=CORR_RTOL)
+        ok = (same and torch.allclose(out, ref, atol=CORR_ATOL, rtol=CORR_RTOL)
+              and torch.allclose(bare, ref, atol=CORR_ATOL, rtol=CORR_RTOL)
               and torch.allclose(r, ref_r, atol=0.0, rtol=CORR_RTOL))
+        row = dict(name=name, b=b, n=n, d=d, k=len(bins), max_abs=err, r_max_rel=r_rel,
+                   same_bits=same, plan=dataclasses.asdict(plan))
+        f64 = ""
+        if name in ("vigor s1", "kitti s1"):
+            want = corr_core_plain(s.double(), g_mat.double(), m_mat.double())
+            row["f64_max_abs"] = float((out.double() - want).abs().max())
+            row["plain_f64_max_abs"] = float((ref.double() - want).abs().max())
+            ok = ok and torch.allclose(out.double(), want, atol=CORR_ATOL, rtol=CORR_RTOL)
+            f64 = (f", vs float64 {row['f64_max_abs']:.3g} (plain's {row['plain_f64_max_abs']:.3g})")
         log(f"check {name:20s} B={b} N={n} D={d} K={len(bins)} out max_abs={err:.3g} "
-            f"max_rel={rel:.3g} r max_rel={r_rel:.3g} "
-            f"(atol {CORR_ATOL} rtol {CORR_RTOL}, sums in another order) "
-            f"{'ok' if ok else 'FAIL'}")
-        report["checks"].append(dict(name=name, b=b, n=n, d=d, k=len(bins),
-                                     max_abs=err, r_max_rel=r_rel, ok=ok))
+            f"max_rel={rel:.3g} r max_rel={r_rel:.3g}{f64} "
+            f"(atol {CORR_ATOL} rtol {CORR_RTOL}, sums in another order), without and with "
+            f"r, same bits twice {same}; {plan.slices} slices of {plan.width}, {plan.blocks} "
+            f"blocks {'ok' if ok else 'FAIL'}")
+        row["ok"] = ok
+        report["checks"].append(row)
         if not ok:
             return 1
         max_err = max(max_err, err)
 
-    # 4. timing at the VIGOR shapes
+    # 4. timing at the VIGOR shapes, without r (serving) and with r (training)
     report["timing"] = []
-    tot = dict(ms=0.0, plain_ms=0.0, matmul2_ms=0.0, bound_ms=0.0, bytes=0, flops=0)
+    tot = dict.fromkeys(("ms", "plain_ms", "matmul2_ms", "bound_ms", "bytes", "flops", "r_ms",
+                         "r_plain_ms", "r_bound_ms", "r_bytes", "r_flops"), 0)
     for name, b, n, d, length, shift, bins, center in cases[:6]:
         s, g_mat, m_mat = corr_inputs(b, n, d, length, shift, bins, center, gen)
         k = len(bins)
+        plan = corr_cuda.corr_plan(b, n, d, k, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+        occ = corr_cuda.kernel_occupancy(plan, k)
+        smem = corr_cuda.smem_bytes(plan.width, k, plan.kp)
+        if occ < plan.blocks_per_sm:
+            log(f"FAIL: {name}: the plan assumes {plan.blocks_per_sm} blocks per SM of {smem} B; "
+                f"the card holds {occ}")
+            return 1
         s2 = s * s
         g_t, m_t = g_mat.transpose(1, 2), m_mat.t()
-        row = dict(name=name, n=n, d=d, k=k,
-                   ms=time_ms(lambda: corr_core(s, g_mat, m_mat)),
-                   plain_ms=time_ms(lambda: corr_core_plain(s, g_mat, m_mat)),
-                   matmul2_ms=time_ms(lambda: (torch.bmm(s, g_t), torch.matmul(s2, m_t))))
-        bound, by, nbytes, flops = corr_bound(b, n, d, k)
-        row.update(bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+        row = dict(name=name, n=n, d=d, k=k, plan=dataclasses.asdict(plan), occupancy=occ,
+                   smem=smem)
+        # kernel, yardstick, plain, one after the other; then with r
+        row["ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat))
+        row["matmul2_ms"] = time_ms(lambda: (torch.bmm(s, g_t), torch.matmul(s2, m_t)))
+        row["plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat))
+        row["r_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True))
+        row["r_plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True))
+        for p, need_r in (("", False), ("r_", True)):
+            bound, by, nbytes, flops = corr_bound(b, n, d, k, need_r)
+            row.update({f"{p}bound_ms": bound, f"{p}bound_by": by, f"{p}bytes": nbytes,
+                        f"{p}flops": flops})
+        log(f"plan {name:10s}: T {plan.rows}, {plan.slices} slices of {plan.width}, K padded "
+            f"to {plan.kp}, grid {plan.grid_x} x {plan.slices} x {b} = {plan.blocks} blocks, "
+            f"{plan.blocks_per_sm} per SM assumed ({occ} fit, {smem} B each)")
         log(f"time {name:10s} N={n:6d} D={d:5d}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, two-matmul yardstick {row['matmul2_ms']:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-            f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32)")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {row['bytes'] / 1e6:.1f} MB at "
+            f"3.35 TB/s, {row['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s f32); with r: kernel "
+            f"{row['r_ms']:.4f} ms, plain {row['r_plain_ms']:.4f} ms, bound "
+            f"{row['r_bound_ms']:.4f} ms ({row['r_bytes'] / 1e6:.1f} MB) [{card}]")
         report["timing"].append(row)
         for key in tot:
             tot[key] += row[key]
@@ -725,7 +781,9 @@ def main() -> int:
     t_ops = tot["flops"] / FP32_FLOPS_PER_S * 1e3
     log(f"time per VIGOR forward (6 launches): kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, two-matmul {tot['matmul2_ms']:.4f} ms, bound "
-        f"{tot['bound_ms']:.4f} ms [{card}]")
+        f"{tot['bound_ms']:.4f} ms; with r: kernel {tot['r_ms']:.4f} ms, plain "
+        f"{tot['r_plain_ms']:.4f} ms, bound {tot['r_bound_ms']:.4f} ms [{card}]")
+    report["timing_total"] = tot
 
     # 5. the corr backward on the card: grads through the kernel's Function
     #    against autograd through its plain version, at the six VIGOR scales
@@ -937,7 +995,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-        "train_launches": train_launches["corr_fwd"],
+        "yardstick_ms": tot["matmul2_ms"], "r_ms": tot["r_ms"], "r_plain_ms": tot["r_plain_ms"],
+        "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
     }, {
         "name": "lmu_fwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:264",

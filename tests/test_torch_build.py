@@ -1,7 +1,7 @@
-"""csrc/build.py's preprocessor defines: each define set is a library of its
-own (the defines are in the hash), and the build without defines keeps the
-name it had before defines existed, so the main path's library is the same
-file. Nothing is compiled here."""
+"""csrc/build.py's library names: a hash of the source, of every header
+csrc/*.cuh (the sources include them) and of the flags, the preprocessor
+defines among them, so that each define set is a library of its own and a
+changed header builds anew. Nothing is compiled here."""
 
 import hashlib
 
@@ -13,9 +13,11 @@ from ccvpe_tpu_torch.ops import lmu_cuda
 
 @pytest.mark.parametrize("name", build.KERNELS)
 def test_defines_give_their_own_library_and_keep_the_default(name):
-    src = (build.CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    assert build.library_path(name) == build.BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((build.CSRC / f"{name}.cu").read_bytes())
+    for h in sorted(build.CSRC.glob("*.cuh")):
+        digest.update(h.name.encode() + h.read_bytes())
+    digest.update(" ".join(build.NVCC_FLAGS).encode())
+    assert build.library_path(name) == build.BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     assert build.library_path(name, ()) == build.library_path(name)
     paths = {build.library_path(name), build.library_path(name, ("A",)),
              build.library_path(name, ("B",)), build.library_path(name, ("A", "B"))}
@@ -30,3 +32,30 @@ def test_nvcc_command_passes_the_defines():
     assert not any(f.startswith("-D") for f in plain)
     assert f"-D{lmu_cuda.PHASE_TIMER}" in timed
     assert [f for f in timed if not f.startswith("-D")] == plain
+
+
+def test_headers_are_part_of_the_hash(tmp_path, monkeypatch):
+    """A changed, added or renamed header changes every library's name; the
+    source alone keeps it."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert first == build.library_path("k") and first.parent == tmp_path / "_build"
+    (tmp_path / "a.cuh").write_text("// two\n")
+    second = build.library_path("k")
+    (tmp_path / "b.cuh").write_text("")
+    third = build.library_path("k")
+    (tmp_path / "b.cuh").rename(tmp_path / "c.cuh")
+    fourth = build.library_path("k")
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert len({first, second, third, fourth}) == 4
+    assert build.library_path("k") == fourth
+    assert build.headers() == [tmp_path / "a.cuh", tmp_path / "c.cuh"]
+
+
+def test_the_kernels_share_one_header():
+    for name in build.KERNELS:
+        assert '#include "tf32_mma.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    assert build.headers() == [build.CSRC / "tf32_mma.cuh"]

@@ -1,8 +1,11 @@
 """Port vs JAX: the rolled correlation. The JAX side is the Pallas kernel
 run in CPU interpret mode (as tests/test_corr_pallas.py runs it); the port
 side is the plain `rolled_corr`, `corr_core_plain` (through
-`rolled_corr_cuda`, which takes it for a CPU tensor) and the loop
-transcription `rolled_corr_reference`."""
+`rolled_corr_cuda`, which takes it for a CPU tensor), the loop
+transcription `rolled_corr_reference` and `corr_core_split_plain`, the
+kernel's per-slice 3xTF32 arithmetic."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +16,8 @@ from jax.experimental.pallas import tpu as pltpu
 from _torch_helpers import CORR_TOL
 from ccvpe_tpu.ops.corr_pallas import rolled_corr_pallas
 from ccvpe_tpu_torch.ops import corr as tcorr
-from ccvpe_tpu_torch.ops.corr_cuda import corr_core, corr_core_plain, rolled_corr_cuda
+from ccvpe_tpu_torch.ops.corr_cuda import (corr_core, corr_core_plain, corr_core_split_plain,
+                                           corr_plan, rolled_corr_cuda)
 
 # (b, h, w, D, L, shift, K, center, bins): the eight CASES of
 # tests/test_corr_pallas.py, a restricted ori-prior case with negative bins
@@ -85,6 +89,73 @@ def test_need_r_is_rsqrt_of_den2(rng):
     np.testing.assert_allclose(r.numpy(), 1.0 / np.sqrt(den2), rtol=1e-5)
     np.testing.assert_allclose(out.numpy(), corr_core_plain(s, g_mat, m_mat).numpy())
     assert out.shape == r.shape == (b, n, k)
+
+
+# --- the kernel's arithmetic (corr_core_split_plain: per-slice 3xTF32 sums) ---
+#
+# CORR_TOL holds for it: each TF32 product of split parts is exact in
+# float32, and the dropped lo.lo' terms are ~2^-22 of |S G'| (S^2's lo.M
+# term is kept, M being exact), so num and den2 are float32-accurate sums
+# in another order, as the plain version's are.
+
+
+def split_inputs(sat, grd, shift, k, center, bins):
+    """(S [B, h*w, D], G' [B, K, D], M [K, D]) as rolled_corr_cuda builds them."""
+    bins = tuple(range(k)) if bins is None else bins
+    sat, grd = torch.from_numpy(sat), torch.from_numpy(grd)
+    b, h, w, d = sat.shape
+    g_mat, m_mat = tcorr.build_roll_matrices(grd, d, shift, bins, center)
+    g_mat = g_mat / torch.linalg.vector_norm(grd, dim=-1)[:, None, None]
+    return sat.reshape(b, h * w, d), g_mat, m_mat
+
+
+def check_split(sat, grd, shift, k, center, bins, ref):
+    s, g_mat, m_mat = split_inputs(sat, grd, shift, k, center, bins)
+    plan = corr_plan(s.shape[0], s.shape[1], s.shape[2], g_mat.shape[1])
+    out, r = corr_core_split_plain(s, g_mat, m_mat, plan, need_r=True)
+    want, want_r = corr_core_plain(s, g_mat, m_mat, need_r=True)
+    np.testing.assert_allclose(out.reshape(ref.shape).numpy(), ref, **CORR_TOL)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **CORR_TOL)
+    np.testing.assert_allclose(r.numpy(), want_r.numpy(), rtol=CORR_TOL["rtol"])
+    return plan
+
+
+def test_split_plain_matches_plain_and_pallas(case):
+    sat, grd, shift, k, center, bins, ref = case
+    check_split(sat, grd, shift, k, center, bins, ref)
+
+
+@pytest.fixture(scope="module")
+def ragged_case():
+    """N = 1000 (not a multiple of the 64-row tile), D = 70 (not a multiple
+    of 4 or 8), K = 32, centre window: the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(70)
+    sat = rng.normal(size=(1, 25, 40, 70)).astype(np.float32)
+    grd = rng.normal(size=(1, 50)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(rolled_corr_pallas(jnp.asarray(sat), jnp.asarray(grd), 3, 32, True))
+    return sat, grd, 3, 32, True, None, ref
+
+
+def test_split_plain_matches_pallas_ragged(ragged_case):
+    plan = check_split(*ragged_case)
+    assert plan.slices > 1 and 70 % plan.width != 0     # a ragged last slice
+
+
+def test_split_plain_single_slice_is_one_partial_sum():
+    """With one slice the emulation is the three + two products alone; with
+    several it adds the slices' partial sums in slice order."""
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(rng.normal(size=(1, 64, 48)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(1, 8, 48)).astype(np.float32))
+    m = torch.from_numpy((rng.random((8, 48)) < 0.5).astype(np.float32))
+    one = corr_plan(64, 64 * 64, 48, 8)
+    assert one.slices == 1
+    sliced = dataclasses.replace(one, slices=6, width=8)
+    a = corr_core_split_plain(s, g, m, one)
+    b = corr_core_split_plain(s, g, m, sliced)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), **CORR_TOL)
+    np.testing.assert_allclose(a.numpy(), corr_core_plain(s, g, m).numpy(), **CORR_TOL)
 
 
 def test_window_offset_float_expression():
