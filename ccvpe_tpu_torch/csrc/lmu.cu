@@ -39,30 +39,43 @@
 // (VIGOR's loc stage 5), through one (the copies before dh and dx still
 // overlap the weight gradients); see ccvpe_lmu_bwd_plan.
 //
-// Two products carry all the arithmetic. The convs (tile_conv: the deconv,
-// conv_a and its recompute, da, dh|dskip and dx) are CUDA-core FMAs: each
-// thread keeps a PT-pixel x CT-channel register tile, loads CT weights as
-// float4 broadcasts and PT activations per tap. The backward's three weight
-// gradients (tile_wgrad: dw2, dw1, dwd) are products over a tile's pixels;
-// as FMAs they issued more shared-memory loads than FMAs (5 per 4) and took
-// about a third of the backward's time at the VIGOR shapes. They run on the
-// tensor cores through mma_3xtf32, one warp-level m16n8k8 TF32 mma.sync
-// primitive: each float32 operand is split into two TF32 values and three
-// products are summed in float32, so the results stay float32-accurate, and
-// a fragment of 16 x 8 x 8 multiply-adds needs 6 loads per lane. That about
-// halved their time; they are bound by the instructions around the
-// products (loads, splits, addresses), not by the tensor cores. The tile
-// loop keeps little else in registers (its layouts arrive as kernel
-// parameters, its plane strides are compile-time constants), so the 128 a
-// thread has go to their accumulators. What bounds the backward is the FMA
-// convs (about half of its block time;
-// ops/lmu_cuda.py::bwd_phase_cycles times it by phase). Their warps take
-// items in a rotation that continues across calls with no barrier between
-// (the deconv's four phases, the weight gradients and the conv after
-// them); dx walks dh's four phases as groups of planes, with no division
-// per channel. Tensor cores for the convs (shared with the forward, whose
-// ReLU mask the backward recomputes) need larger tiles first, and are for
-// a later change.
+// Two kinds of product carry the arithmetic. The tensor cores take the
+// forward's convs: the deconv and conv_a (in B2 and in B3's recompute of h
+// and g) and B2's conv_b where Cout >= 5, as implicit GEMMs
+// (tile_conv_tc: M = the box's pixels, N = output channels, K = tap by
+// input channel), and B3's three weight gradients (tile_wgrad: dw2, dw1,
+// dwd, products over a tile's pixels). Both go through mma_3xtf32_step
+// (tf32_mma.cuh), one warp-level m16n8k8 TF32 mma.sync primitive: each
+// float32 operand is split into two TF32 values and three products are
+// summed in float32, so the results stay float32-accurate. On the CUDA
+// cores (67 TFLOP/s) the forward's convs were the kernels' largest cost;
+// the tensor cores give that arithmetic several times the rate even at
+// three products for each float32 one. A conv item splits its A fragments
+// (activations) once for up to five n-tiles and its B fragments (weights)
+// once for its m-tiles (kFwdMTiles, kBwdMTiles); each tap sums in fresh
+// accumulators, because a tensor-core accumulate truncates and a chain of
+// hundreds of products drifts by several float32 ulps. Weights are read as
+// B straight from the operand's layout, activations as A from the planes,
+// so no shared-memory layout changed with them. What bounds the convs is
+// the instructions around the products (loads, four integer and float ops
+// a split) and their latency with 4 warps or fewer on each of an SM's four
+// sub-partitions, not mma.sync's own rate (ops/lmu_cuda.py::mma_rate
+// measures it). A conv's K order is fixed (tile_conv_tc_nt), so B2 at
+// T = 16 and B3 at T = 8 compute the same bits of g, and B3's recomputed
+// ReLU mask is B2's. The other convs are CUDA-core FMAs (tile_conv): B3's
+// da, dh|dskip and dx, and conv_b where Cout <= 4 (the heads: an n-tile of
+// 8 would be mostly empty; fwd_conv states the rule). Each thread keeps a
+// PT-pixel x CT-channel register tile, loads CT weights as float4
+// broadcasts and PT activations per tap. The weight gradients are bound by
+// the instructions around their products (loads, splits, addresses), not
+// by the tensor cores. The backward's tile loop keeps little else in
+// registers (its layouts arrive as kernel parameters, its plane strides
+// are compile-time constants), so the 128 a thread has go to their
+// accumulators. Warps take items in a rotation that continues across calls
+// with no barrier between (the deconv's four phases, the weight gradients
+// and the conv after them); dx walks dh's four phases as groups of planes,
+// with no division per channel. ops/lmu_cuda.py::bwd_phase_cycles times
+// the backward by phase.
 //
 // Backward sums: the TPU kernel adds weight gradients into one accumulator
 // across its in-order grid. Here a fixed grid of blocks walks the tiles in
@@ -79,14 +92,24 @@
 
 #include "tf32_mma.cuh"   // cp.async copies; mma_3xtf32, the 3xTF32 product
 
+// Every kernel's dynamic shared memory. Device functions index it by int
+// offsets where that keeps their inner loops on 32-bit shared addresses.
+extern __shared__ __align__(16) float smem[];
+
 namespace {
 
 // Threads per block: 512 where the shared memory of a block leaves room
 // for only one block on an SM (VIGOR stage 5: 16 warps instead of 8 hide
 // more latency), 256 elsewhere (the heads fit two or three blocks; the
-// backward asks for two, which caps it at 128 registers a thread).
+// backward asks for two, which caps it at 128 registers a thread; the
+// forward for kFwdSmallBlocks).
 constexpr int kSmallBlock = 256;
 constexpr int kLargeBlock = 512;
+// Blocks of 256 threads the forward asks an SM to hold: the VIGOR heads'
+// shared memory (57.6 KB a block) fits three, and the cap of 85 registers
+// a thread keeps them resident (left to itself, ptxas took more, two
+// blocks fit, and the heads ran slower on the card).
+constexpr int kFwdSmallBlocks = 3;
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
@@ -94,7 +117,9 @@ __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // that is 4 times an odd number, so 8 neighbouring channels start in 8
 // banks 4 apart. A TF32 fragment load (8 channels x 4 neighbouring pixels,
 // mma_3xtf32 in tile_wgrad) then touches 32 different banks; the FMA
-// convs read one channel at a time and do not depend on it.
+// convs read one channel at a time and do not depend on it. The
+// tensor-core convs' A fragment is the other way round (4 channels x 8
+// neighbouring pixels) and takes a 2-way bank conflict with this stride.
 __host__ __device__ constexpr int plane_stride(int side) { return (side * side + 3) / 8 * 8 + 4; }
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // padded output-channel count of a weight operand in shared memory
@@ -248,10 +273,159 @@ __device__ int tile_conv(const float* in, Goff goff, int ng, int per, int ps, in
 // A fragment (4 values a lane, split into 8 TF32 values) is loaded once for
 // all of them. The largest of 5, 4, 2 and 1 that divides the tile count,
 // so that no item holds a tile past N (5 takes the VIGOR stages' 40 output
-// channels in one item).
+// channels in one item). The tensor-core convs take the same count: per
+// k-step an item loads and splits 4 A values per m-tile and 2 B values
+// per n-tile for 3 products each, so wide items issue the fewest
+// instructions per product (items of one n-tile ran much slower on the
+// card).
 __host__ __device__ inline int wgrad_tiles(int n) {
   const int tiles = (n + 7) / 8;
   return tiles % 5 == 0 ? 5 : tiles % 4 == 0 ? 4 : tiles % 2 == 0 ? 2 : 1;
+}
+
+// One k-step of 8 input channels from k0 of a tensor-core conv item:
+// part += the products of this lane's pixels (plane offsets a_off, tap
+// included) and weight rows from w_off (this lane's column, tap included).
+// TAIL: the last, ragged step, zero past cin (the weight row is clamped
+// there; its product with the zero is 0).
+template <int MT, int NT, bool TAIL>
+__device__ __forceinline__ void conv_tc_step(const int (&a_off)[MT][2], int w_off, int k0,
+                                             int cin, int ps, int coutp,
+                                             float (&part)[MT][NT][4]) {
+  const int q = threadIdx.x % 4;
+  const int k1 = k0 + q, k2 = k0 + q + 4;
+  const bool in1 = !TAIL || k1 < cin, in2 = !TAIL || k2 < cin;
+  float av[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    av[i][0] = in1 ? smem[a_off[i][0] + k1 * ps] : 0.f;
+    av[i][1] = in1 ? smem[a_off[i][1] + k1 * ps] : 0.f;
+    av[i][2] = in2 ? smem[a_off[i][0] + k2 * ps] : 0.f;
+    av[i][3] = in2 ? smem[a_off[i][1] + k2 * ps] : 0.f;
+  }
+  const int b1 = w_off + (TAIL ? imin(k1, cin - 1) : k1) * coutp;
+  const int b2 = w_off + (TAIL ? imin(k2, cin - 1) : k2) * coutp;
+  mma_3xtf32_step<MT, NT>(av, [&](int j, int h) { return smem[(h ? b2 : b1) + 8 * j]; }, part);
+}
+
+// The function of tile_conv for one group of planes at step 1,
+//   out(r, c)[co] = sum over ky, kx, k < cin of
+//     in[k*ps + (r + ky)*in_side + c + kx] * w[((ky*KS + kx)*cin + k)*coutp + co],
+// on the tensor cores, as an implicit GEMM: M = the out_side^2 output
+// pixels of the box (row r*out_side + c), N = cout, K = (tap, input
+// channel). B is the weight operand as it lies in shared memory, A is read
+// from the planes at each lane's two pixels (a pixel row past the box reads
+// pixel 0 and is not stored). The K order is fixed: tap by tap, and within
+// a tap k-steps of 8 channels (conv_tc_step) summed in fresh accumulators,
+// which are added to the item's in tap order. So an output's sum depends
+// on its own inputs alone, never on T, on the m-tile or fragment row it
+// lands in, or on the warp: the forward (T = 16) and the backward's
+// recompute (T = 8) give the same bits of h and g, and so the same ReLU
+// mask. One warp item is MT m-tiles of 16 pixels by NT
+// n-tiles of 8 channels (each A fragment split once for the NT n-tiles,
+// each B fragment once for the MT m-tiles); item i goes to warp
+// (first + i) % warps, as in tile_conv_impl; returns first + its item
+// count.
+template <int KS, int MT, int NT, class Epi>
+__device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, const float* w,
+                               int cout, int out_side, int first, Epi epi) {
+  const int coutp = pad_co(cout);
+  const int npos = out_side * out_side;
+  const int nng = (cout + 8 * NT - 1) / (8 * NT);
+  const int items = (npos + 16 * MT - 1) / (16 * MT) * nng;
+  const int g = threadIdx.x % 32 / 4;
+  const int nwarps = blockDim.x / 32;
+  const int in0 = static_cast<int>(in - smem), w0 = static_cast<int>(w - smem);
+  for (int it = (threadIdx.x / 32 - first % nwarps + nwarps) % nwarps; it < items; it += nwarps) {
+    const int n0 = it % nng * 8 * NT, m0 = it / nng * 16 * MT;
+    int px[MT][2];   // this lane's two pixels (rows g, g + 8) of each m-tile, as plane offsets
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = m0 + 16 * i + g + 8 * r < npos ? m0 + 16 * i + g + 8 * r : 0;
+        px[i][r] = in0 + p / out_side * in_side + p % out_side;
+      }
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int tap = 0; tap < KS * KS; ++tap) {
+      const int toff = tap / KS * in_side + tap % KS;
+      int a_off[MT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) a_off[i][r] = px[i][r] + toff;
+      const int w_off = w0 + tap * cin * coutp + n0 + g;
+      // each tap sums in fresh accumulators, added to acc in tap order: a
+      // tensor-core accumulate truncates, so long chains drift
+      float part[MT][NT][4] = {};
+      int k0 = 0;
+      for (; k0 + 8 <= cin; k0 += 8)
+        conv_tc_step<MT, NT, false>(a_off, w_off, k0, cin, ps, coutp, part);
+      if (k0 < cin) conv_tc_step<MT, NT, true>(a_off, w_off, k0, cin, ps, coutp, part);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int2 mn = mma_entry(e, m0 + 16 * i, n0 + 8 * j);
+          if (mn.x < npos && mn.y < cout)
+            epi(mn.x / out_side, mn.x % out_side, mn.y, acc[i][j][e]);
+        }
+  }
+  return first + items;
+}
+
+template <int KS, int MT, class Epi>
+__device__ int tile_conv_tc(const float* in, int cin, int ps, int in_side, const float* w,
+                            int cout, int out_side, int first, Epi epi) {
+#define CCVPE_CONV_TC(NT) \
+  tile_conv_tc_nt<KS, MT, NT>(in, cin, ps, in_side, w, cout, out_side, first, epi)
+  switch (wgrad_tiles(cout)) {
+    case 5: return CCVPE_CONV_TC(5);
+    case 4: return CCVPE_CONV_TC(4);
+    case 2: return CCVPE_CONV_TC(2);
+    default: return CCVPE_CONV_TC(1);
+  }
+#undef CCVPE_CONV_TC
+}
+
+// m-tiles of 16 pixels in one warp item of a tensor-core conv: two in the
+// forward, where each B fragment (weights) split once then serves 32
+// pixels, one in the backward, whose T = 8 boxes hold 7 (conv_a) or 3
+// (each deconv phase) m-tiles, too few items of two for 16 warps. A
+// choice of who computes an output, never of its sum, so the recomputed g
+// stays B2's. (Timed on the card: two made the forward faster at every
+// VIGOR call and the backward slower at stage 5.)
+constexpr int kFwdMTiles = 2;
+constexpr int kBwdMTiles = 1;
+
+// The forward's convs: the deconv and conv_a (B2's, and B3's recompute of
+// h and g through deconv_tile and conv_a_tile) and B2's conv_b. The route
+// is a rule of the shape alone, the same in both kernels (mirrored by
+// ops/lmu_cuda.py::tensor_core_conv): the tensor cores where the padded
+// output count is a multiple of 8 (cout >= 5: every VIGOR and KITTI conv
+// but the heads' conv_b, Cout 1 or 2, where an n-tile of 8 would be mostly
+// empty), else the FMA tile_conv. B3's da, dh|dskip and dx call tile_conv.
+template <int KS, int MT, class Epi>
+__device__ int fwd_conv(const float* in, int cin, int ps, int in_side, const float* w, int cout,
+                        int out_side, int first, Epi epi) {
+  if (pad_co(cout) % 8 == 0)
+    return tile_conv_tc<KS, MT>(in, cin, ps, in_side, w, cout, out_side, first, epi);
+  return tile_conv<KS>(in, OneGroup{}, 1, cin, ps, in_side, 1, w, cout, out_side, first, epi);
 }
 
 template <int NTAP, int NB, int NT, class In, class G>
@@ -493,6 +667,7 @@ __device__ void tile_origin(const Dims& d, int tile, int* b, int* ty0, int* tx0)
 // x planes (region side xs = hs/2 at (fy0/2, fx0/2)), one phase at a time
 // so a warp's weights are one broadcast; 0 outside the image. The phases
 // continue one warp rotation (no barrier between them); returns its end.
+template <int MT>
 __device__ int deconv_tile(float* h, int hps, int hs, const float* xpl, int xps, int xs,
                            const float* wsm, const float* __restrict__ bd, int cin, int cd,
                            int img_h, int img_w, int fy0, int fx0) {
@@ -500,37 +675,36 @@ __device__ int deconv_tile(float* h, int hps, int hs, const float* xpl, int xps,
   int first = 0;
   for (int ph = 0; ph < 4; ++ph) {
     const int di = ph / 2, dj = ph % 2;
-    first = tile_conv<1>(xpl, OneGroup{}, 1, cin, xps, xs, 1, wsm + ph * cin * cdp, cd, xs, first,
-                         [&](int r, int c, int co, float v) {
-                           const int rr = 2 * r + di, cc = 2 * c + dj;
-                           const int gy = fy0 + rr, gx = fx0 + cc;
-                           const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
-                           h[co * hps + rr * hs + cc] = in ? v + bd[co] : 0.f;
-                         });
+    first = fwd_conv<1, MT>(xpl, cin, xps, xs, wsm + ph * cin * cdp, cd, xs, first,
+                        [&](int r, int c, int co, float v) {
+                          const int rr = 2 * r + di, cc = 2 * c + dj;
+                          const int gy = fy0 + rr, gx = fx0 + cc;
+                          const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
+                          h[co * hps + rr * hs + cc] = in ? v + bd[co] : 0.f;
+                        });
   }
   return first;
 }
 
 // g = relu(conv3x3(hc, w1) + b1) on the (T+2)^2 region at (gy0, gx0); 0 outside.
+template <int MT>
 __device__ void conv_a_tile(float* g, int gps, int gs, const float* hc, int hps, int hs,
                             const float* wsm, const float* __restrict__ b1, int c, int c1,
                             int img_h, int img_w, int gy0, int gx0) {
-  tile_conv<3>(hc, OneGroup{}, 1, c, hps, hs, 1, wsm, c1, gs, 0,
-               [&](int r, int cc, int co, float v) {
-                 const int gy = gy0 + r, gx = gx0 + cc;
-                 const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
-                 g[co * gps + r * gs + cc] = in ? fmaxf(v + b1[co], 0.f) : 0.f;
-               });
+  fwd_conv<3, MT>(hc, c, hps, hs, wsm, c1, gs, 0, [&](int r, int cc, int co, float v) {
+    const int gy = gy0 + r, gx = gx0 + cc;
+    const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
+    g[co * gps + r * gs + cc] = in ? fmaxf(v + b1[co], 0.f) : 0.f;
+  });
 }
 
 template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kThreads == kSmallBlock ? kFwdSmallBlocks : 1)
 lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ skip,
                const float* __restrict__ wd, const float* __restrict__ bd,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2, const float* __restrict__ b2,
                float* __restrict__ y) {
-  extern __shared__ __align__(16) float smem[];
   const FwdLayout l = fwd_layout(d);
   float* sa = smem + l.a;
   float* sb = smem + l.b;
@@ -547,23 +721,26 @@ lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
   copy_weights(sw, wd, 4 * d.cin * pad_co(d.cd));
   cp_async_wait<0>();
   __syncthreads();
-  deconv_tile(sa, hps, hs, sb, xps, xs, sw, bd, d.cin, d.cd, img_h, img_w, ty0 - 2, tx0 - 2);
+  deconv_tile<kFwdMTiles>(sa, hps, hs, sb, xps, xs, sw, bd, d.cin, d.cd, img_h, img_w, ty0 - 2,
+                          tx0 - 2);
   __syncthreads();
   copy_weights(sw, w1, 9 * c * pad_co(d.c1));
   cp_async_wait<0>();
   __syncthreads();
-  conv_a_tile(sb, gps, gs, sa, hps, hs, sw, b1, c, d.c1, img_h, img_w, ty0 - 1, tx0 - 1);
+  conv_a_tile<kFwdMTiles>(sb, gps, gs, sa, hps, hs, sw, b1, c, d.c1, img_h, img_w, ty0 - 1,
+                          tx0 - 1);
   __syncthreads();
   copy_weights(sa, w2, 9 * d.c1 * pad_co(d.cout));
   cp_async_wait<0>();
   __syncthreads();
   const int cout = d.cout;
-  tile_conv<3>(sb, OneGroup{}, 1, d.c1, gps, gs, 1, sa, cout, d.t, 0,
-               [&](int r, int cc, int co, float v) {
-                 const int gy = ty0 + r, gx = tx0 + cc;
-                 if (gy < img_h && gx < img_w)
-                   y[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cout + co] = v + b2[co];
-               });
+  fwd_conv<3, kFwdMTiles>(sb, d.c1, gps, gs, sa, cout, d.t, 0,
+                          [&](int r, int cc, int co, float v) {
+                            const int gy = ty0 + r, gx = tx0 + cc;
+                            if (gy < img_h && gx < img_w)
+                              y[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cout +
+                                co] = v + b2[co];
+                          });
 }
 
 // T, the fine tile side, is d.t: a template argument, so that the weight
@@ -596,7 +773,6 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
                const float* __restrict__ b1, const float* __restrict__ w2t,
                const float* __restrict__ w1t, const float* __restrict__ wdt,
                float* __restrict__ dx, float* __restrict__ dskip, float* __restrict__ part) {
-  extern __shared__ __align__(16) float smem[];
   float* s_hc = smem + l.hc;
   float* s_g = smem + l.g;
   float* s_da = smem + l.da;
@@ -671,8 +847,8 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
     __syncthreads();
     timer.mark(kPhPlanes);
     // recompute h and g exactly as the forward does
-    deconv_tile(s_hc, hps, hs, s_x, xps, xs, wslot(kOpWd, it), bd, cin, cd, img_h, img_w,
-                ty0 - 2, tx0 - 2);
+    deconv_tile<kBwdMTiles>(s_hc, hps, hs, s_x, xps, xs, wslot(kOpWd, it), bd, cin, cd, img_h,
+                            img_w, ty0 - 2, tx0 - 2);
     __syncthreads();
     timer.mark(kPhDeconv);
     if (!resident) {
@@ -686,8 +862,8 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
       __syncthreads();
       timer.mark(kPhW1);
     }
-    conv_a_tile(s_g, gps, gs, s_hc, hps, hs, wslot(kOpW1, it), b1, c, d.c1, img_h, img_w,
-                ty0 - 1, tx0 - 1);
+    conv_a_tile<kBwdMTiles>(s_g, gps, gs, s_hc, hps, hs, wslot(kOpW1, it), b1, c, d.c1, img_h,
+                            img_w, ty0 - 1, tx0 - 1);
     __syncthreads();
     timer.mark(kPhConvA);
     if (!resident) {
@@ -828,7 +1004,6 @@ __device__ void probe_items(const float* sa, const float* sb, float* __restrict_
 __global__ void __launch_bounds__(kSmallBlock)
 mma_probe_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
                  int m, int n, int k) {
-  extern __shared__ __align__(16) float smem[];
   float* sa = smem;
   float* sb = smem + m * k;
   for (int i = threadIdx.x; i < m * k; i += blockDim.x) sa[i] = a[i];
@@ -840,6 +1015,27 @@ mma_probe_kernel(const float* __restrict__ a, const float* __restrict__ b, float
     case 2: probe_items<2>(sa, sb, c, m, n, k); break;
     default: probe_items<1>(sa, sb, c, m, n, k);
   }
+}
+
+// The primitive's issue rate on the card, the ceiling of the products
+// above: each warp runs `iters` rounds of 8 independent mma_tf32 products
+// on register operands (no loads, no splits); thread 0 of each block
+// writes the clock64 cycles of its loop to cycles[block]. A measurement of
+// the card, not a product for the model.
+__global__ void __launch_bounds__(kLargeBlock)
+mma_rate_kernel(int iters, float* __restrict__ out, long long* __restrict__ cycles) {
+  float acc[8][4] = {};
+  uint32_t a[4], b[2] = {__float_as_uint(1.f), __float_as_uint(.5f)};
+  for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(threadIdx.x * 1e-3f + i);
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_tf32(acc[j], a, b);
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
 }
 
 int device_attr(cudaDeviceAttr attr) {
@@ -887,18 +1083,22 @@ cudaError_t bwd_occupancy(const Dims& d, int mode, bool ahead, int limit, int* b
 
 }  // namespace
 
-// Forward: y = the stage of x (and skip, null when cs = 0). Picks the
-// largest fine tile T in {16, 8, 4} whose shared memory fits. Launches on
+// Forward: y = the stage of x (and skip, null when cs = 0). With t = 0,
+// picks the largest fine tile T in {16, 8, 4} whose shared memory fits
+// (ops/lmu_cuda.py::fwd_tile mirrors the rule); t in {16, 8, 4} forces
+// that T, for the checks that y's bits do not depend on it. Launches on
 // `stream`; returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for sizes it does not take.
 extern "C" int ccvpe_lmu_fwd(const void* x, const void* skip, const void* wd, const void* bd,
                              const void* w1, const void* b1, const void* w2, const void* b2,
                              void* y, int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                             int cout, void* stream) {
-  if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout) || (cs > 0) != (skip != nullptr))
+                             int cout, int t_force, void* stream) {
+  if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout) || (cs > 0) != (skip != nullptr) ||
+      (t_force != 0 && t_force != 16 && t_force != 8 && t_force != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const int limit = max_smem_bytes();
   for (int t : {16, 8, 4}) {
+    if (t_force != 0 && t != t_force) continue;
     const Dims d = make_dims(b, hc, wc, cin, cs, cd, c1, cout, t);
     const int bytes = fwd_layout(d).total * static_cast<int>(sizeof(float));
     if (bytes > limit) continue;
@@ -1027,4 +1227,13 @@ extern "C" int ccvpe_mma_probe(const void* a, const void* b, void* c, int m, int
                                  static_cast<int>(floats * sizeof(float)),
                                  static_cast<cudaStream_t>(stream), static_cast<const float*>(a),
                                  static_cast<const float*>(b), static_cast<float*>(c), m, n, k));
+}
+
+// mma_rate_kernel on `blocks` blocks of 512 threads: out holds blocks * 512
+// floats, cycles blocks int64. Returns cudaGetLastError() after the launch.
+extern "C" int ccvpe_mma_rate(int blocks, int iters, void* out, void* cycles, void* stream) {
+  if (blocks < 1 || iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  mma_rate_kernel<<<blocks, kLargeBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<float*>(out), static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
 }

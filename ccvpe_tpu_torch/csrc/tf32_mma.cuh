@@ -83,17 +83,46 @@ __device__ inline void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   lo = rna_tf32(v - __uint_as_float(hi));
 }
 
+// One k-step of 8 of the 3xTF32 product, for MT tiles of 16 rows by NT
+// tiles of 8 columns: acc[i][j] += A_i (16 x 8) B_j (8 x 8), where a[i][]
+// is this lane's fragment of A_i as float32 values (a(g, q), a(g+8, q),
+// a(g, q+4), a(g+8, q+4), zero where the step runs past K) and bv(j, h)
+// returns B_j (q + 4h, g). Each A fragment is split once for all NT tiles
+// and each B fragment once for all MT; each (i, j) runs three TF32
+// products, lo*hi + hi*lo and then hi*hi, into float32 accumulators: the
+// product dropped, lo*lo, is ~2^-22 of |a b|, so the result is
+// float32-accurate, where one TF32 product alone keeps ~3 decimal digits.
+// Each entry of acc gets the same sequence of products whatever its tile,
+// row or column, so its sum is a function of its own row of A and column
+// of B alone.
+template <int MT, int NT, class BV>
+__device__ inline void mma_3xtf32_step(const float (&a)[MT][4], BV bv, float (&acc)[MT][NT][4]) {
+  uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(a[i][e], ah[i][e], al[i][e]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t bh[2], bl[2];
+    split_tf32(bv(j, 0), bh[0], bl[0]);
+    split_tf32(bv(j, 1), bh[1], bl[1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      mma_tf32(acc[i][j], al[i], bh);
+      mma_tf32(acc[i][j], ah[i], bl);
+      mma_tf32(acc[i][j], ah[i], bh);
+    }
+  }
+}
+
 // acc[j], this lane's part of the 16 x 8 tile of A B at (m0, n0 + 8j), for
 // j < NT: += sum over k < K of a(m, k) * b(k, n), with A [M][K] and B [K][N]
 // read through the functors a and b and zero outside those bounds (so M, N
-// and K need not be multiples of 16, 8 and 8). Each k-step of 8 splits the
-// A fragment once for all NT tiles and runs three TF32 products per tile,
-// lo*hi + hi*lo and then hi*hi, into float32 accumulators: the product
-// dropped, lo*lo, is ~2^-22 of |a b|, so the result is float32-accurate,
-// where one TF32 product alone keeps ~3 decimal digits. The order of the
-// sums is fixed, so two calls give the same bits. No branch depends on the
-// data or the shape inside, so the compiler can overlap one tile's loads
-// with another's products.
+// and K need not be multiples of 16, 8 and 8), in k-steps of 8 through
+// mma_3xtf32_step. The order of the sums is fixed, so two calls give the
+// same bits. No branch depends on the data or the shape inside, so the
+// compiler can overlap one tile's loads with another's products.
 template <int NT, class A, class B>
 __device__ void mma_3xtf32(A a, B b, int m0, int n0, int M, int N, int K, float (&acc)[NT][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
@@ -103,21 +132,12 @@ __device__ void mma_3xtf32(A a, B b, int m0, int n0, int M, int N, int K, float 
   for (int k0 = 0; k0 < K; k0 += 8) {
     const int k1 = k0 + q, k2 = k0 + q + 4;
     const bool in1 = k1 < K, in2 = k2 < K;
-    uint32_t ah[4], al[4];
-    split_tf32(in_lo && in1 ? a(m_lo, k1) : 0.f, ah[0], al[0]);
-    split_tf32(in_hi && in1 ? a(m_hi, k1) : 0.f, ah[1], al[1]);
-    split_tf32(in_lo && in2 ? a(m_lo, k2) : 0.f, ah[2], al[2]);
-    split_tf32(in_hi && in2 ? a(m_hi, k2) : 0.f, ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = n0 + 8 * j + g;
-      uint32_t bh[2], bl[2];
-      split_tf32(n < N && in1 ? b(k1, n) : 0.f, bh[0], bl[0]);
-      split_tf32(n < N && in2 ? b(k2, n) : 0.f, bh[1], bl[1]);
-      mma_tf32(acc[j], al, bh);
-      mma_tf32(acc[j], ah, bl);
-      mma_tf32(acc[j], ah, bh);
-    }
+    const float av[1][4] = {{in_lo && in1 ? a(m_lo, k1) : 0.f, in_hi && in1 ? a(m_hi, k1) : 0.f,
+                             in_lo && in2 ? a(m_lo, k2) : 0.f, in_hi && in2 ? a(m_hi, k2) : 0.f}};
+    mma_3xtf32_step<1, NT>(av, [&](int j, int h) {
+      const int n = n0 + 8 * j + g, k = h ? k2 : k1;
+      return n < N && (h ? in2 : in1) ? b(k, n) : 0.f;
+    }, reinterpret_cast<float (&)[1][NT][4]>(acc));
   }
 }
 

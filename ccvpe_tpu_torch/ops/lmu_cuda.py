@@ -7,12 +7,17 @@ kernel, which recomputes h and g on chip.
 
 `fused_stage` and `fused_stage_bwd` launch the kernels on CUDA tensors
 (counting launches) and run the plain versions of ops/lmu.py on CPU
-tensors. `mma_probe` runs the backward's 3xTF32 tensor-core primitive
-alone on one matrix product, for checking it against float64 (its plain
-version is ops/tf32.py::matmul_3xtf32_plain). `bwd_phase_cycles` runs the
-backward built with its per-phase timer (csrc/lmu.cu, -DCCVPE_LMU_PHASE_TIMER,
-a library of its own) and returns the cycles each block spent in each of
-BWD_PHASES; the main path never loads that library. Shapes and layouts as
+tensors. `fused_stage_split_plain` emulates B2's arithmetic (its convs
+as 3xTF32 products where the kernel takes the tensor cores), and
+`fwd_tile`, `tensor_core_conv`, `conv_tiles`, `conv_items` and
+`fwd_mma_count` mirror its launch rules. `mma_probe` runs the kernels'
+3xTF32 tensor-core primitive alone on one matrix product, for checking it
+against float64 (its plain version is ops/tf32.py::matmul_3xtf32_plain);
+`mma_rate` measures the card's rate of its mma.sync. `bwd_phase_cycles`
+runs the backward built with its per-phase timer (csrc/lmu.cu,
+-DCCVPE_LMU_PHASE_TIMER, a library of its own) and returns the cycles
+each block spent in each of BWD_PHASES; the main path never loads that
+library. Shapes and layouts as
 in ops/lmu.py: NHWC float32 activations, contiguous (the NHWC view of a
 channels_last NCHW tensor is), torch weight layouts, which the wrappers
 turn into the kernel's. Nothing touches nvcc or the card until a CUDA
@@ -44,7 +49,7 @@ WEIGHT_MODES = ("one buffer", "two buffers", "resident")
 def _bind(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ccvpe_lmu_fwd.argtypes = [p] * 9 + [i] * 8 + [p]
+    lib.ccvpe_lmu_fwd.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.ccvpe_lmu_fwd.restype = i
     lib.ccvpe_lmu_bwd_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 5
     lib.ccvpe_lmu_bwd_plan.restype = i
@@ -52,6 +57,8 @@ def _bind(path) -> ctypes.CDLL:
     lib.ccvpe_lmu_bwd.restype = i
     lib.ccvpe_mma_probe.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.ccvpe_mma_probe.restype = i
+    lib.ccvpe_mma_rate.argtypes = [i] * 2 + [p] * 3
+    lib.ccvpe_mma_rate.restype = i
     return lib
 
 
@@ -113,6 +120,88 @@ def pad_co(c: int) -> int:
     return 4 if c <= 4 else (c + 7) // 8 * 8
 
 
+# The forward's fine tiles, largest first, and the shared memory a block
+# may have on an H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin).
+FWD_TILES = (16, 8, 4)
+MAX_BLOCK_SMEM = 232448
+
+
+def plane_stride(side: int) -> int:
+    """Floats between two channel planes of side^2 pixels (csrc/lmu.cu)."""
+    return (side * side + 3) // 8 * 8 + 4
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def fwd_smem_bytes(cin: int, cs: int, cd: int, c1: int, cout: int, t: int) -> int:
+    """Dynamic shared memory of B2 at fine tile t (csrc/lmu.cu::fwd_layout):
+    h|skip planes on (t+4)^2, later w2; the coarse x planes, later g on
+    (t+2)^2; wd, later w1."""
+    c, hs, gs = cd + cs, t + 4, t + 2
+    a = max(c * plane_stride(hs), 9 * c1 * pad_co(cout))
+    b = max(c1 * plane_stride(gs), cin * plane_stride(hs // 2))
+    w = max(4 * cin * pad_co(cd), 9 * c * pad_co(c1))
+    return 4 * (_round4(a) + _round4(b) + _round4(w))
+
+
+def fwd_tile(cin: int, cs: int, cd: int, c1: int, cout: int,
+             limit: int = MAX_BLOCK_SMEM) -> int:
+    """The fine tile B2 picks (ccvpe_lmu_fwd with t = 0): the largest of
+    FWD_TILES whose shared memory fits in `limit` bytes."""
+    for t in FWD_TILES:
+        if fwd_smem_bytes(cin, cs, cd, c1, cout, t) <= limit:
+            return t
+    raise ValueError("the stage's planes and weights fit no tile")
+
+
+def tensor_core_conv(cout: int) -> bool:
+    """The route of a forward conv with `cout` output channels
+    (csrc/lmu.cu::fwd_conv): the tensor cores where pad_co(cout) is a
+    multiple of 8, i.e. cout >= 5; else the CUDA cores' FMAs."""
+    return pad_co(cout) % 8 == 0
+
+
+def conv_tiles(cout: int) -> int:
+    """n-tiles of 8 channels in one warp item of a tensor-core conv (and of
+    a weight gradient), csrc/lmu.cu::wgrad_tiles: the largest of 5, 4, 2, 1
+    that divides ceil(cout / 8)."""
+    tiles = -(-cout // 8)
+    return next(n for n in (5, 4, 2, 1) if tiles % n == 0)
+
+
+# m-tiles of 16 pixels in one warp item of a tensor-core conv, in the
+# forward and in the backward's recompute (csrc/lmu.cu::kFwdMTiles,
+# kBwdMTiles)
+FWD_MTILES, BWD_MTILES = 2, 1
+
+
+def conv_items(out_side: int, cout: int, mtiles: int = FWD_MTILES) -> int:
+    """Warp items of a tensor-core conv over an out_side^2 pixel box:
+    groups of `mtiles` m-tiles of 16 pixels times groups of
+    conv_tiles(cout) n-tiles."""
+    return -(-out_side * out_side // (16 * mtiles)) * -(-cout // (8 * conv_tiles(cout)))
+
+
+def fwd_mma_count(b: int, hc: int, wc: int, cin: int, cs: int, cd: int, c1: int, cout: int,
+                  t: int) -> int:
+    """The m16n8k8 TF32 mma.sync instructions B2 issues for one call at
+    fine tile t (warp-level, three per 16 x 8 x 8 product): per tile the
+    deconv's four phases on the (t+4)/2 coarse box, conv_a on the (t+2)^2
+    box and conv_b on the t^2 box, each that takes the tensor cores, as
+    items x m-tiles x taps x k-steps of 8 channels x n-tiles x 3."""
+    def conv(out_side, c_in, c_out, taps):
+        if not tensor_core_conv(c_out):
+            return 0
+        return (conv_items(out_side, c_out) * FWD_MTILES * taps * -(-c_in // 8)
+                * conv_tiles(c_out) * 3)
+
+    per_tile = (4 * conv((t + 4) // 2, cin, cd, 1) + conv(t + 2, cd + cs, c1, 9)
+                + conv(t, c1, cout, 9))
+    return b * -(-2 * hc // t) * -(-2 * wc // t) * per_tile
+
+
 def _padded(t: torch.Tensor) -> torch.Tensor:
     """[..., n] -> contiguous [..., pad_co(n)], zeros in the added columns."""
     return F.pad(t, (0, pad_co(t.shape[-1]) - t.shape[-1])).contiguous()
@@ -138,6 +227,46 @@ def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
         wd.permute(2, 3, 1, 0).reshape(4, cd, cin)))
 
 
+def _product(a: torch.Tensor, b: torch.Tensor, cout: int) -> torch.Tensor:
+    """a [M, K] @ b [K, N] by the route the kernel takes for a conv with
+    cout output channels."""
+    return matmul_3xtf32_plain(a, b) if tensor_core_conv(cout) else a @ b
+
+
+def _conv3x3_split(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3 of NHWC `inp` with zero padding and torch weight w
+    (Cout, C, 3, 3), as im2col with K in the kernel's order (tap ky*3+kx,
+    then channel) and one product."""
+    b, h, wd_, c = inp.shape
+    pad = F.pad(inp, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([pad[:, ky:ky + h, kx:kx + wd_, :] for ky in range(3) for kx in range(3)],
+                     dim=-1)
+    wmat = w.permute(2, 3, 1, 0).reshape(9 * c, w.shape[0])
+    return _product(cols.reshape(-1, 9 * c), wmat, w.shape[0]).reshape(b, h, wd_, w.shape[0])
+
+
+def fused_stage_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
+                            bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                            w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """What B2 computes, in plain torch: each conv as one product (the
+    deconv's four phases side by side, the 3x3 convs as im2col with zero
+    borders) through
+    matmul_3xtf32_plain where tensor_core_conv takes the tensor cores, else
+    in float32; biases added after each sum, the ReLU after conv_a's. Sums
+    inside a product run in the matmul's order, not the tensor cores'.
+    Same contract as fused_stage_plain."""
+    b, hc, wc, cin = x.shape
+    cd = wd.shape[1]
+    x, wd, w1, w2 = (t.detach().float() for t in (x, wd, w1, w2))
+    wmat = wd.permute(0, 2, 3, 1).reshape(cin, 4 * cd)          # columns (di, dj, co)
+    h = _product(x.reshape(-1, cin), wmat, cd).reshape(b, hc, wc, 2, 2, cd)
+    h = h.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * hc, 2 * wc, cd) + bd.detach()
+    if skip is not None:
+        h = torch.cat([h, skip.detach().float()], dim=-1)
+    g = torch.relu(_conv3x3_split(h, w1) + b1.detach())
+    return _conv3x3_split(g, w2) + b2.detach()
+
+
 def _check_operand(name: str, t: torch.Tensor, device) -> None:
     _check(name, t, device)
     if t.data_ptr() % 16:
@@ -146,9 +275,13 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
 
 def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
                 bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                b2: torch.Tensor) -> torch.Tensor:
+                b2: torch.Tensor, tile: int = 0) -> torch.Tensor:
     """Kernel B2 on a CUDA tensor, fused_stage_plain on a CPU one: y NHWC
-    [B, 2Hc, 2Wc, Cout] float32. Counts launches in fused_stage.launches."""
+    [B, 2Hc, 2Wc, Cout] float32. Counts launches in fused_stage.launches.
+    `tile` 0 lets the kernel pick its fine tile T (fwd_tile); 16, 8 or 4
+    forces it, for the checks that y does not depend on T."""
+    if tile not in (0,) + FWD_TILES:
+        raise ValueError(f"tile must be 0 or one of {FWD_TILES}, got {tile}")
     if not x.is_cuda:
         return fused_stage_plain(x, skip, wd, bd, w1, b1, w2, b2)
     b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
@@ -165,7 +298,7 @@ def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ccvpe_lmu_fwd(x.data_ptr(), _ptr(skip), wdk.data_ptr(), bd.data_ptr(),
                                w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(), b2.data_ptr(),
-                               y.data_ptr(), b, hc, wc, cin, cs, cd, c1, cout, stream)
+                               y.data_ptr(), b, hc, wc, cin, cs, cd, c1, cout, tile, stream)
     if rc != 0:
         raise RuntimeError(f"ccvpe_lmu_fwd launch failed: CUDA error {rc}")
     fused_stage.launches += 1
@@ -307,3 +440,31 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 mma_probe.launches = 0
+
+
+def mma_rate(iters: int = 20000) -> dict:
+    """The card's issue rate of the m16n8k8 TF32 mma.sync the kernels'
+    products are made of (csrc/lmu.cu::mma_rate_kernel: one block of 16
+    warps per SM, each warp 8 independent products per round, no loads):
+    ms, clock64 cycles per product per SM sub-partition (4 per SM), and
+    TF32 TFLOP/s (2048 flops a product). On the card only."""
+    if not torch.cuda.is_available():
+        raise ValueError("the rate is the card's: no CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = load_library()
+    out = torch.empty(sms * 512, device=dev)
+    cycles = torch.zeros(sms, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for n in (100, iters):                          # the first launch warms up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = lib.ccvpe_mma_rate(sms, n, out.data_ptr(), cycles.data_ptr(), stream)
+        end.record()
+        if rc != 0:
+            raise RuntimeError(f"ccvpe_mma_rate launch failed: CUDA error {rc}")
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    per_sm = 16 * 8 * iters
+    return dict(ms=ms, cycles_per_mma_per_smsp=float(cycles.double().mean()) / (per_sm / 4),
+                tflops=per_sm * sms * 2048 / ms / 1e9)

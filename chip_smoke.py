@@ -7,10 +7,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every hand-written kernel from csrc/ with nvcc (sm_90a), and
      lmu.cu once more with B3's per-phase timer, one nvcc per library, all
-     started together, timed, with ptxas' report; the tensor-core
-     instructions (HMMA) and clock reads of each LMU kernel counted in
-     cuobjdump -sass: B3 must hold TF32 ones, and the main path's library
-     no clock read; the correlation kernel (B1) must hold TF32 ones too;
+     started together, timed, with ptxas' report, and each LMU kernel's
+     registers and spill bytes read from it; the tensor-core instructions
+     (HMMA) and clock reads of each LMU kernel counted in cuobjdump -sass:
+     B2 and B3 must hold TF32 ones, and the main path's library no clock
+     read; the correlation kernel (B1) must hold TF32 ones too;
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI (s1 and s6) and
      ori-prior shapes, and at one shape with ragged N and D edges and the
@@ -23,15 +24,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. the correlation backward: grads of S and of the ground descriptor
      through the kernel's autograd.Function against autograd through the
      plain version, at the six VIGOR scales;
-  6. B3's 3xTF32 mma.sync primitive alone (mma_probe) against a float64
-     matmul at ragged M x N x K, twice for the same bits, and its times;
+  6. the LMU kernels' 3xTF32 mma.sync primitive alone (mma_probe) against
+     a float64 matmul at ragged M x N x K, twice for the same bits, and
+     its times;
+     the card's issue rate of the TF32 mma.sync (mma_rate);
      then the fused LMU stage kernels (forward B2, backward B3) against
      their plain versions at the four VIGOR calls of a step at
      lmu_fused_min_res=256, the four KITTI calls, a ragged no-skip Cout-1
      case, a large-bias case and a case with no channel count a multiple
-     of 4; B3 twice, for the same bits;
+     of 4; B3 twice, for the same bits; B2 at the four VIGOR calls at the
+     tile T it picks and at T = 8 (B3's), for the same bits;
   7. their kernel / plain / cuDNN-chain times beside their bounds (float32
-     on the CUDA cores, and 3xTF32 on the tensor cores); then B3's
+     on the CUDA cores, and 3xTF32 on the tensor cores), B2 also at T = 8;
+     then B3's
      per-phase split at the four VIGOR calls from the timed library (each
      phase's share of the block cycles, and that share of the untimed
      kernel's time), the timed kernel's time beside the untimed one;
@@ -309,6 +314,43 @@ def sass_scan(lib_path):
     return found
 
 
+def ptxas_usage(log):
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report, for the functions whose names hold
+    'kernel'."""
+    import re
+    found, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w.$]+)", line)
+        if m:
+            fn = m.group(1) if "kernel" in m.group(1) else None
+            if fn:
+                found.setdefault(fn, [0, 0, 0])
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in found.items()}
+
+
+def lmu_kernel_name(fn):
+    """'lmu_fwd_kernel<512>' or 'lmu_bwd_kernel<256, T=8>' for a mangled
+    LMU kernel name, else the name cut to 90 characters."""
+    import re
+    m = re.search(r"lmu_fwd_kernelILi(\d+)EE", fn)
+    if m:
+        return f"lmu_fwd_kernel<{m.group(1)}>"
+    m = re.search(r"lmu_bwd_kernelILi(\d+)ELi(\d+)EE", fn)
+    if m:
+        return f"lmu_bwd_kernel<{m.group(1)}, T={m.group(2)}>"
+    return fn[:90]
+
+
 def check_probe(gen):
     """mma_probe (the 3xTF32 primitive alone) against a float64 matmul at
     PROBE_SHAPES, twice for the same bits; one TF32 product's error beside
@@ -350,6 +392,7 @@ def time_probe(gen):
 def time_lmu(shape, gen):
     """Kernel, plain and cuDNN-chain times of B2 and B3 at one shape."""
     import torch.nn.functional as F
+    from ccvpe_tpu_torch.ops import lmu_cuda
     from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
     from ccvpe_tpu_torch.ops.lmu_cuda import fused_stage, fused_stage_bwd
     x, skip, ws = lmu_inputs(shape, gen)
@@ -372,12 +415,16 @@ def time_lmu(shape, gen):
     leaves = [xc] + ([sc] if sc is not None else []) + params
     row = dict(name=shape[0])
     row["fwd_ms"] = time_ms(lambda: fused_stage(x, skip, *ws))
+    row["fwd_t8_ms"] = time_ms(lambda: fused_stage(x, skip, *ws, tile=8))
     row["fwd_plain_ms"] = time_ms(lambda: fused_stage_plain(x, skip, *ws))
     with torch.no_grad():
         row["fwd_chain_ms"] = time_ms(chain)
     row["bwd_ms"] = time_ms(lambda: fused_stage_bwd(x, skip, dy, *ws))
     row["bwd_plain_ms"] = time_ms(lambda: fused_stage_bwd_plain(x, skip, dy, *ws))
     row["bwd_chain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dyc, retain_graph=True))
+    t = lmu_cuda.fwd_tile(*shape[4:], limit=torch.cuda.get_device_properties(0)
+                          .shared_memory_per_block_optin)
+    row["fwd_mma"] = lmu_cuda.fwd_mma_count(*shape[1:], t)
     for key, bwd in (("fwd", False), ("bwd", True)):
         bound, by, nbytes, flops, tc = lmu_bound(shape, bwd)
         row.update({f"{key}_bound_ms": bound, f"{key}_bound_by": by, f"{key}_bytes": nbytes,
@@ -655,16 +702,31 @@ def main() -> int:
         log("FAIL: corr_fwd_kernel holds no HMMA.1688.F32.TF32 instruction")
         return 1
     report["lmu_sass"] = {}
+    report["lmu_ptxas"] = {}
     for lib in ("lmu", "lmu+timer"):
         scan = sass_scan(built[lib].path)
+        usage = ptxas_usage(built[lib].log)
         report["lmu_sass"][lib] = {fn: dict(hmma=len(ops), opcodes=sorted(set(ops)), clocks=clk)
                                    for fn, (ops, clk) in scan.items()}
+        report["lmu_ptxas"][lib] = {lmu_kernel_name(fn): dict(registers=r, spill_stores=st,
+                                                              spill_loads=ld)
+                                    for fn, (r, st, ld) in usage.items()}
         for fn, (ops, clk) in scan.items():
-            log(f"sass {lib} {fn[:90]}: {len(ops)} HMMA {sorted(set(ops))}, {clk} clock reads")
+            # the counts before the tensor-core convs: B2 none; B3 648 at T = 8, 180 at T = 4
+            old = ("0" if "lmu_fwd_kernel" in fn else "648" if "ELi8EE" in fn
+                   else "180" if "ELi4EE" in fn else "-")
+            log(f"sass {lib} {lmu_kernel_name(fn)}: {len(ops)} HMMA (before the tensor-core "
+                f"convs: {old}) {sorted(set(ops))}, {clk} clock reads")
+        for fn, (regs, st, ld) in usage.items():
+            log(f"ptxas {lib} {lmu_kernel_name(fn)}: {regs} registers, {st} bytes spill stores, "
+                f"{ld} bytes spill loads")
+        for kernel in ("lmu_fwd_kernel", "lmu_bwd_kernel"):
+            fns = [fn for fn in scan if kernel in fn]
+            if not fns or not all(any("HMMA.1688.F32.TF32" in op for op in scan[fn][0])
+                                  for fn in fns):
+                log(f"FAIL: {lib}: a {kernel} instantiation holds no HMMA.1688.F32.TF32")
+                return 1
         bwd_fns = [fn for fn in scan if "lmu_bwd_kernel" in fn]
-        if not bwd_fns or not all(any("TF32" in op for op in scan[fn][0]) for fn in bwd_fns):
-            log(f"FAIL: {lib}: lmu_bwd_kernel holds no TF32 HMMA instruction")
-            return 1
         clocks = sum(scan[fn][1] for fn in bwd_fns)
         if (clocks > 0) != (lib == "lmu+timer"):
             log(f"FAIL: {lib}: lmu_bwd_kernel holds {clocks} clock reads (the main path's "
@@ -813,6 +875,10 @@ def main() -> int:
             f"same bits twice {r['deterministic']} {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             return 1
+    report["mma_rate"] = lmu_cuda.mma_rate()
+    log(f"rate mma.sync m16n8k8 TF32 (16 warps an SM, 8 independent products each, no loads): "
+        f"{report['mma_rate']['cycles_per_mma_per_smsp']:.2f} cycles per product per SM "
+        f"sub-partition, {report['mma_rate']['tflops']:.1f} TF32 TFLOP/s ({card})")
     probe_time = time_probe(gen)
     log(f"time mma_probe {'x'.join(map(str, PROBE_SHAPES[0]))}: kernel {probe_time['ms']:.4f} ms, "
         f"plain {probe_time['plain_ms']:.4f}, torch.matmul {probe_time['library_ms']:.4f}, "
@@ -833,6 +899,21 @@ def main() -> int:
         report["lmu_checks"].append(r)
         if not r["ok"]:
             return 1
+    # B2's y at the tile it picks and at B3's T = 8: the same bits, so the g
+    # that B3 recomputes at T = 8 is the forward's (one ReLU mask)
+    smem_optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    report["lmu_fwd_tiles"] = []
+    for shape in lmu_shapes:
+        x, skip, ws = lmu_inputs(shape, gen)
+        t = lmu_cuda.fwd_tile(*shape[4:], limit=smem_optin)
+        same = torch.equal(lmu_cuda.fused_stage(x, skip, *ws),
+                           lmu_cuda.fused_stage(x, skip, *ws, tile=8))
+        nbytes = lmu_cuda.fwd_smem_bytes(*shape[4:], t)
+        log(f"check lmu fwd {shape[0]:18s}: T {t} ({nbytes} B of {smem_optin}) and T 8 give "
+            f"the same bits {same} {'ok' if same else 'FAIL'}")
+        report["lmu_fwd_tiles"].append(dict(name=shape[0], t=t, smem=nbytes, same_bits=same))
+        if not same:
+            return 1
     lmu_fwd_err = max(r["fwd_max_abs"] for r in report["lmu_checks"][:4])
     lmu_bwd_err = max(r["bwd_max_abs"] for r in report["lmu_checks"][:4])
 
@@ -843,17 +924,23 @@ def main() -> int:
         row = time_lmu(shape, gen)
         report["lmu_timing"].append(row)
         for k, v in row.items():
-            if k.endswith(("_ms", "_bytes", "_flops")):
+            if k.endswith(("_ms", "_bytes", "_flops", "_mma")):
                 lmu_tot[k] = lmu_tot.get(k, 0) + v
-        log(f"time lmu {shape[0]:18s}: fwd kernel {row['fwd_ms']:.3f} ms, plain "
+        log(f"time lmu {shape[0]:18s}: fwd kernel {row['fwd_ms']:.3f} ms (at T 8: "
+            f"{row['fwd_t8_ms']:.3f}), plain "
             f"{row['fwd_plain_ms']:.3f}, cuDNN chain {row['fwd_chain_ms']:.3f}, bound "
-            f"{row['fwd_bound_ms']:.3f} ({row['fwd_bound_by']}, {row['fwd_flops'] / 1e9:.1f} GFLOP); "
+            f"{row['fwd_bound_ms']:.3f} ({row['fwd_bound_by']}, {row['fwd_flops'] / 1e9:.1f} GFLOP), "
+            f"3xTF32 bound {row['fwd_tc_bound_ms']:.3f}, {row['fwd_mma'] / 1e6:.1f} M mma.sync "
+            f"({row['fwd_mma'] * 2048 / row['fwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued); "
             f"bwd kernel {row['bwd_ms']:.3f} ms, plain {row['bwd_plain_ms']:.3f}, cuDNN chain "
             f"{row['bwd_chain_ms']:.3f}, bound {row['bwd_bound_ms']:.3f} ({row['bwd_bound_by']}, "
             f"{row['bwd_flops'] / 1e9:.1f} GFLOP), 3xTF32 bound {row['bwd_tc_bound_ms']:.3f}")
-    log(f"time lmu per step (4 + 4 launches): fwd kernel {lmu_tot['fwd_ms']:.3f} ms, plain "
+    log(f"time lmu per step (4 + 4 launches): fwd kernel {lmu_tot['fwd_ms']:.3f} ms (at T 8: "
+        f"{lmu_tot['fwd_t8_ms']:.3f}), plain "
         f"{lmu_tot['fwd_plain_ms']:.3f}, chain {lmu_tot['fwd_chain_ms']:.3f}, bound "
-        f"{lmu_tot['fwd_bound_ms']:.3f}; bwd kernel {lmu_tot['bwd_ms']:.3f} ms, plain "
+        f"{lmu_tot['fwd_bound_ms']:.3f} (f32), {lmu_tot['fwd_tc_bound_ms']:.3f} (3xTF32), "
+        f"{lmu_tot['fwd_mma'] * 2048 / lmu_tot['fwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued; "
+        f"bwd kernel {lmu_tot['bwd_ms']:.3f} ms, plain "
         f"{lmu_tot['bwd_plain_ms']:.3f}, chain {lmu_tot['bwd_chain_ms']:.3f}, bound "
         f"{lmu_tot['bwd_bound_ms']:.3f} (f32), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32) [{card}]")
     # B3 by phase, from the timed library
@@ -1012,8 +1099,9 @@ def main() -> int:
         "bound_ms": lmu_tot["bwd_bound_ms"], "bound_by": by("bwd"),
         "library_ms": lmu_tot["bwd_chain_ms"], "tc_bound_ms": lmu_tot["bwd_tc_bound_ms"],
     }]
-    # B3's tensor-core primitive alone: a check of lmu_bwd's products, on no
-    # path of the model, so it stands beside the kernels and not among them
+    # the LMU kernels' tensor-core primitive alone (its entry "checks" names
+    # the weight gradients it was first added for), on no path of the
+    # model, so it stands beside the kernels and not among them
     probes = [{
         "name": "mma_probe", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "checks": "lmu_bwd (ccvpe_tpu/ops/lmu_pallas.py:196, _conv3x3_wgrad)",
