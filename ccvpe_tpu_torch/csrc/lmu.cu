@@ -40,42 +40,45 @@
 // overlap the weight gradients); see ccvpe_lmu_bwd_plan.
 //
 // Two kinds of product carry the arithmetic. The tensor cores take the
-// forward's convs: the deconv and conv_a (in B2 and in B3's recompute of h
-// and g) and B2's conv_b where Cout >= 5, as implicit GEMMs
-// (tile_conv_tc: M = the box's pixels, N = output channels, K = tap by
-// input channel), and B3's three weight gradients (tile_wgrad: dw2, dw1,
-// dwd, products over a tile's pixels). Both go through mma_3xtf32_step
-// (tf32_mma.cuh), one warp-level m16n8k8 TF32 mma.sync primitive: each
-// float32 operand is split into two TF32 values and three products are
-// summed in float32, so the results stay float32-accurate. On the CUDA
-// cores (67 TFLOP/s) the forward's convs were the kernels' largest cost;
-// the tensor cores give that arithmetic several times the rate even at
-// three products for each float32 one. A conv item splits its A fragments
-// (activations) once for up to five n-tiles and its B fragments (weights)
-// once for its m-tiles (kFwdMTiles, kBwdMTiles); each tap sums in fresh
-// accumulators, because a tensor-core accumulate truncates and a chain of
-// hundreds of products drifts by several float32 ulps. Weights are read as
-// B straight from the operand's layout, activations as A from the planes,
-// so no shared-memory layout changed with them. What bounds the convs is
-// the instructions around the products (loads, four integer and float ops
-// a split) and their latency with 4 warps or fewer on each of an SM's four
-// sub-partitions, not mma.sync's own rate (ops/lmu_cuda.py::mma_rate
-// measures it). A conv's K order is fixed (tile_conv_tc_nt), so B2 at
-// T = 16 and B3 at T = 8 compute the same bits of g, and B3's recomputed
-// ReLU mask is B2's. The other convs are CUDA-core FMAs (tile_conv): B3's
-// da, dh|dskip and dx, and conv_b where Cout <= 4 (the heads: an n-tile of
-// 8 would be mostly empty; fwd_conv states the rule). Each thread keeps a
-// PT-pixel x CT-channel register tile, loads CT weights as float4
-// broadcasts and PT activations per tap. The weight gradients are bound by
+// convs: the deconv and conv_a (in B2 and in B3's recompute of h and g),
+// B2's conv_b where Cout >= 5, and B3's da, dh|dskip and dx but the heads'
+// da and dh|dskip, as implicit GEMMs (tile_conv_tc_nt: M = the box's
+// pixels, N = output channels, K = tap by input channel; dx's taps are
+// dh's four deconv phases, read at step 2),
+// and B3's three weight gradients (tile_wgrad: dw2, dw1, dwd, products over
+// a tile's pixels). Both go through mma_3xtf32_step (tf32_mma.cuh), one
+// warp-level m16n8k8 TF32 mma.sync primitive: each float32 operand is split
+// into two TF32 values and three products are summed in float32, so the
+// results stay float32-accurate. On the CUDA cores (67 TFLOP/s) the convs
+// were the kernels' largest cost; the tensor cores give that arithmetic
+// several times the rate even at three products for each float32 one. A
+// conv item splits its A fragments (activations) once for up to five
+// n-tiles and its B fragments (weights) once for its m-tiles (kFwdMTiles,
+// kBwdMTiles); each tap sums in fresh accumulators, because a tensor-core
+// accumulate truncates and a chain of hundreds of products drifts by
+// several float32 ulps. Weights are read as B straight from the operand's
+// layout (B3's transposed operands w2T, w1T and wdT lie as [tap][K][N]
+// too), activations as A from the planes, so no shared-memory layout
+// changed with them. What bounds the convs is the instructions around the
+// products (loads, four integer and float ops a split) and their latency
+// with 4 warps or fewer on each of an SM's four sub-partitions, not
+// mma.sync's own rate (ops/lmu_cuda.py::mma_rate measures it). A conv's K
+// order is fixed (tile_conv_tc_nt), so B2 at T = 16 and B3 at T = 8 compute
+// the same bits of g, and B3's recomputed ReLU mask is B2's. The other
+// convs are CUDA-core FMAs (tile_conv): the heads' conv_b and da (Cout 1 or
+// 2: an n-tile or a k-step of 8 would be mostly empty) and dh|dskip (two
+// n-tiles, faster on the FMAs); fwd_conv and bwd_tensor_core state the
+// rules. Each thread keeps a PT-pixel x CT-channel register tile, loads CT
+// weights as float4 broadcasts and PT activations per tap. The weight
+// gradients are bound by
 // the instructions around their products (loads, splits, addresses), not
 // by the tensor cores. The backward's tile loop keeps little else in
 // registers (its layouts arrive as kernel parameters, its plane strides
 // are compile-time constants), so the 128 a thread has go to their
 // accumulators. Warps take items in a rotation that continues across calls
 // with no barrier between (the deconv's four phases, the weight gradients
-// and the conv after them); dx walks dh's four phases as groups of planes,
-// with no division per channel. ops/lmu_cuda.py::bwd_phase_cycles times
-// the backward by phase.
+// and the conv after them). ops/lmu_cuda.py::bwd_phase_cycles times the
+// backward by phase.
 //
 // Backward sums: the TPU kernel adds weight gradients into one accumulator
 // across its in-order grid. Here a fixed grid of blocks walks the tiles in
@@ -308,43 +311,60 @@ __device__ __forceinline__ void conv_tc_step(const int (&a_off)[MT][2], int w_of
   mma_3xtf32_step<MT, NT>(av, [&](int j, int h) { return smem[(h ? b2 : b1) + 8 * j]; }, part);
 }
 
-// The function of tile_conv for one group of planes at step 1,
-//   out(r, c)[co] = sum over ky, kx, k < cin of
-//     in[k*ps + (r + ky)*in_side + c + kx] * w[((ky*KS + kx)*cin + k)*coutp + co],
+// Tap offsets of a KS x KS conv over planes of side `side`, tap ky*KS + kx:
+// the input pixel of tap (ky, kx) lies ky rows and kx columns from the
+// output pixel's corner.
+template <int KS>
+struct SquareTaps {
+  int side;
+  __device__ int operator()(int tap) const { return tap / KS * side + tap % KS; }
+};
+
+// The function of tile_conv for one group of planes per tap,
+//   out(r, c)[co] = sum over tap < NTAP, k < cin of
+//     in[k*ps + (r*step)*in_side + c*step + taps(tap)] * w[(tap*cin + k)*coutp + co],
 // on the tensor cores, as an implicit GEMM: M = the out_side^2 output
 // pixels of the box (row r*out_side + c), N = cout, K = (tap, input
-// channel). B is the weight operand as it lies in shared memory, A is read
-// from the planes at each lane's two pixels (a pixel row past the box reads
-// pixel 0 and is not stored). The K order is fixed: tap by tap, and within
-// a tap k-steps of 8 channels (conv_tc_step) summed in fresh accumulators,
-// which are added to the item's in tap order. So an output's sum depends
-// on its own inputs alone, never on T, on the m-tile or fragment row it
-// lands in, or on the warp: the forward (T = 16) and the backward's
-// recompute (T = 8) give the same bits of h and g, and so the same ReLU
-// mask. One warp item is MT m-tiles of 16 pixels by NT
-// n-tiles of 8 channels (each A fragment split once for the NT n-tiles,
-// each B fragment once for the MT m-tiles); item i goes to warp
-// (first + i) % warps, as in tile_conv_impl; returns first + its item
+// channel). A 3x3 conv's taps are SquareTaps<3>; dx's are dh's four deconv
+// phases, read at step 2. B is the weight operand as it lies in shared
+// memory, A is read from the planes at each lane's two pixels (a pixel row
+// past the box reads pixel 0 and is not stored). The K order is fixed: tap
+// by tap, and within a tap k-steps of 8 channels (conv_tc_step) summed in
+// fresh accumulators, which are added to the item's in tap order. So an
+// output's sum depends on its own inputs alone, never on T, on the m-tile
+// or fragment row it lands in, or on the warp: the forward (T = 16) and the
+// backward's recompute (T = 8) give the same bits of h and g, and so the
+// same ReLU mask. One warp item is MT m-tiles of 16 pixels by NT n-tiles of
+// 8 channels (each A fragment split once for the NT n-tiles, each B
+// fragment once for the MT m-tiles). Where NT does not divide the n-tiles
+// (the backward's n-grouping, bwd_conv_tiles), the last group is ragged:
+// it starts NT tiles before the end instead, computes the tiles it shares
+// with the group before again and stores only its own, so every B read
+// lies inside the operand (an output column depends on its own B column
+// alone, so the repeated tiles cannot touch the kept ones). Item i goes to
+// warp (first + i) % warps, as in tile_conv_impl; returns first + its item
 // count.
-template <int KS, int MT, int NT, class Epi>
-__device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, const float* w,
-                               int cout, int out_side, int first, Epi epi) {
+template <int NTAP, int MT, int NT, class Taps, class Epi>
+__device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, int step, Taps taps,
+                               const float* w, int cout, int out_side, int first, Epi epi) {
   const int coutp = pad_co(cout);
   const int npos = out_side * out_side;
-  const int nng = (cout + 8 * NT - 1) / (8 * NT);
+  const int ntiles = (cout + 7) / 8;
+  const int nng = (ntiles + NT - 1) / NT;
   const int items = (npos + 16 * MT - 1) / (16 * MT) * nng;
   const int g = threadIdx.x % 32 / 4;
   const int nwarps = blockDim.x / 32;
   const int in0 = static_cast<int>(in - smem), w0 = static_cast<int>(w - smem);
   for (int it = (threadIdx.x / 32 - first % nwarps + nwarps) % nwarps; it < items; it += nwarps) {
-    const int n0 = it % nng * 8 * NT, m0 = it / nng * 16 * MT;
+    const int n_own = it % nng * 8 * NT, m0 = it / nng * 16 * MT;
+    const int n0 = imin(n_own, (ntiles - NT) * 8);   // a ragged last group starts earlier
     int px[MT][2];   // this lane's two pixels (rows g, g + 8) of each m-tile, as plane offsets
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int p = m0 + 16 * i + g + 8 * r < npos ? m0 + 16 * i + g + 8 * r : 0;
-        px[i][r] = in0 + p / out_side * in_side + p % out_side;
+        px[i][r] = in0 + p / out_side * step * in_side + p % out_side * step;
       }
     float acc[MT][NT][4];
 #pragma unroll
@@ -353,8 +373,8 @@ __device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, co
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    for (int tap = 0; tap < KS * KS; ++tap) {
-      const int toff = tap / KS * in_side + tap % KS;
+    for (int tap = 0; tap < NTAP; ++tap) {
+      const int toff = taps(tap);
       int a_off[MT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -382,18 +402,21 @@ __device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, co
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int2 mn = mma_entry(e, m0 + 16 * i, n0 + 8 * j);
-          if (mn.x < npos && mn.y < cout)
+          if (mn.x < npos && mn.y >= n_own && mn.y < cout)
             epi(mn.x / out_side, mn.x % out_side, mn.y, acc[i][j][e]);
         }
   }
   return first + items;
 }
 
+// A KS x KS conv of the forward's on the tensor cores: tile_conv_tc_nt with
+// NT = wgrad_tiles(cout) n-tiles an item, which divides the tile count.
 template <int KS, int MT, class Epi>
 __device__ int tile_conv_tc(const float* in, int cin, int ps, int in_side, const float* w,
                             int cout, int out_side, int first, Epi epi) {
-#define CCVPE_CONV_TC(NT) \
-  tile_conv_tc_nt<KS, MT, NT>(in, cin, ps, in_side, w, cout, out_side, first, epi)
+#define CCVPE_CONV_TC(NT)                                                                      \
+  tile_conv_tc_nt<KS * KS, MT, NT>(in, cin, ps, in_side, 1, SquareTaps<KS>{in_side}, w, cout, \
+                                   out_side, first, epi)
   switch (wgrad_tiles(cout)) {
     case 5: return CCVPE_CONV_TC(5);
     case 4: return CCVPE_CONV_TC(4);
@@ -405,11 +428,11 @@ __device__ int tile_conv_tc(const float* in, int cin, int ps, int in_side, const
 
 // m-tiles of 16 pixels in one warp item of a tensor-core conv: two in the
 // forward, where each B fragment (weights) split once then serves 32
-// pixels, one in the backward, whose T = 8 boxes hold 7 (conv_a) or 3
-// (each deconv phase) m-tiles, too few items of two for 16 warps. A
-// choice of who computes an output, never of its sum, so the recomputed g
-// stays B2's. (Timed on the card: two made the forward faster at every
-// VIGOR call and the backward slower at stage 5.)
+// pixels, one in the backward, whose T = 8 boxes hold 7 (conv_a, da), 4
+// (dh|dskip), 3 (each deconv phase) or 1 (dx) m-tiles, too few items of two
+// for 16 warps. A choice of who computes an output, never of its sum, so
+// the recomputed g stays B2's. (Timed on the card: two made the forward
+// faster at every VIGOR call and the backward slower at stage 5.)
 constexpr int kFwdMTiles = 2;
 constexpr int kBwdMTiles = 1;
 
@@ -419,13 +442,60 @@ constexpr int kBwdMTiles = 1;
 // ops/lmu_cuda.py::tensor_core_conv): the tensor cores where the padded
 // output count is a multiple of 8 (cout >= 5: every VIGOR and KITTI conv
 // but the heads' conv_b, Cout 1 or 2, where an n-tile of 8 would be mostly
-// empty), else the FMA tile_conv. B3's da, dh|dskip and dx call tile_conv.
+// empty), else the FMA tile_conv. An item takes wgrad_tiles(cout) n-tiles,
+// which divides the tile count. B3's own convs route by bwd_tensor_core.
 template <int KS, int MT, class Epi>
 __device__ int fwd_conv(const float* in, int cin, int ps, int in_side, const float* w, int cout,
                         int out_side, int first, Epi epi) {
   if (pad_co(cout) % 8 == 0)
     return tile_conv_tc<KS, MT>(in, cin, ps, in_side, w, cout, out_side, first, epi);
   return tile_conv<KS>(in, OneGroup{}, 1, cin, ps, in_side, 1, w, cout, out_side, first, epi);
+}
+
+// B3's own convs, da, dh|dskip and dx: a conv with n output channels and
+// k input channels a tap takes the tensor cores where n spans at least 3
+// n-tiles and k pads to a multiple of 8 (k >= 5), else the FMA tile_conv.
+// The heads' da (k = Cout, 1 or 2) would fill a k-step of 8 with zeros;
+// their dh|dskip (n = 16, two n-tiles) ran slower on the tensor cores than
+// on the FMAs when timed on the card, their dx (n = 41 or 32) faster. A
+// rule of the shape alone, the same for every tile (mirrored by
+// ops/lmu_cuda.py::bwd_tensor_core_conv).
+__host__ __device__ inline bool bwd_tensor_core(int n, int k) {
+  return pad_co(n) >= 24 && pad_co(k) % 8 == 0;
+}
+
+// n-tiles of 8 output channels in one warp item of a backward conv whose
+// box holds `mtiles` m-tiles: 4, else 2, the wider that still gives the
+// conv at least kBwdConvItems items (more than half of a 512-thread
+// block's 16 warps), else 1. Where the group does not divide the tile count
+// the last group is ragged (tile_conv_tc_nt), so no divisor is needed, and
+// each call site compiles three tile_conv_tc_nt bodies, not four. The
+// backward's boxes are small (at T = 8: 7 m-tiles for da, 4 for dh|dskip,
+// 1 for dx), so a conv's time is that of a few items on a few warps: wide
+// items leave warps idle, narrow ones split and load each A fragment for
+// fewer products. A choice of who computes an output, never of its sum.
+constexpr int kBwdConvItems = 9;
+
+__host__ __device__ inline int bwd_conv_tiles(int n, int mtiles) {
+  const int tiles = (n + 7) / 8;
+  if (tiles >= 4 && mtiles * ((tiles + 3) / 4) >= kBwdConvItems) return 4;
+  if (tiles >= 2 && mtiles * ((tiles + 1) / 2) >= kBwdConvItems) return 2;
+  return 1;
+}
+
+// A backward conv on the tensor cores, NT = bwd_conv_tiles(cout, m-tiles
+// of the box); the arguments are tile_conv_tc_nt's.
+template <int NTAP, int MT, class Taps, class Epi>
+__device__ int bwd_conv_tc(const float* in, int cin, int ps, int in_side, int step, Taps taps,
+                           const float* w, int cout, int out_side, int first, Epi epi) {
+#define CCVPE_CONV_TC(NT) \
+  tile_conv_tc_nt<NTAP, MT, NT>(in, cin, ps, in_side, step, taps, w, cout, out_side, first, epi)
+  switch (bwd_conv_tiles(cout, (out_side * out_side + 16 * MT - 1) / (16 * MT))) {
+    case 4: return CCVPE_CONV_TC(4);
+    case 2: return CCVPE_CONV_TC(2);
+    default: return CCVPE_CONV_TC(1);
+  }
+#undef CCVPE_CONV_TC
 }
 
 template <int NTAP, int NB, int NT, class In, class G>
@@ -503,9 +573,11 @@ __device__ void tile_bias_grad(const float* g, int g_ps, int g_side, int g_step,
 // The backward's tile loop in twelve phases, named in ops/lmu_cuda.py::
 // BWD_PHASES. In the timed build each phase ends at a barrier, after which
 // thread 0 reads clock64() and adds the cycles since the last mark to its
-// phase; the block's row of sums lands in g_phase_cycles[blockIdx.x] when
-// its tiles are done. The build without the define holds no clock read and
-// no extra barrier: mark() is empty there.
+// phase's sum in shared memory (twelve 64-bit sums in registers pushed the
+// timed kernel into spills that slowed every phase); the block's row of
+// sums lands in g_phase_cycles[blockIdx.x] when its tiles are done. The
+// build without the define holds no clock read and no extra barrier: mark()
+// is empty there.
 enum BwdPhase {
   kPhPlanes, kPhDeconv, kPhW1, kPhConvA, kPhW2t, kPhDa, kPhWgrad21, kPhW1t, kPhDh, kPhWdt,
   kPhDx, kPhWgradD, kBwdPhases
@@ -513,13 +585,12 @@ enum BwdPhase {
 
 #ifdef CCVPE_LMU_PHASE_TIMER
 __device__ unsigned long long* g_phase_cycles;   // [blocks][kBwdPhases], set by the host
+__shared__ unsigned long long s_phase_cycles[kBwdPhases];   // the block's sums
 
 struct PhaseTimer {
-  unsigned long long acc[kBwdPhases];
   long long last;
   __device__ PhaseTimer() : last(0) {
-#pragma unroll
-    for (int p = 0; p < kBwdPhases; ++p) acc[p] = 0;
+    if (threadIdx.x < kBwdPhases) s_phase_cycles[threadIdx.x] = 0;   // start()'s barrier follows
   }
   __device__ void start() {
     __syncthreads();
@@ -529,14 +600,14 @@ struct PhaseTimer {
     __syncthreads();
     if (threadIdx.x == 0) {
       const long long now = clock64();
-      acc[phase] += static_cast<unsigned long long>(now - last);
+      s_phase_cycles[phase] += static_cast<unsigned long long>(now - last);
       last = now;
     }
   }
   __device__ void store() const {
     if (threadIdx.x != 0) return;
-#pragma unroll
-    for (int p = 0; p < kBwdPhases; ++p) g_phase_cycles[blockIdx.x * kBwdPhases + p] = acc[p];
+    for (int p = 0; p < kBwdPhases; ++p)
+      g_phase_cycles[blockIdx.x * kBwdPhases + p] = s_phase_cycles[p];
   }
 };
 #else
@@ -878,11 +949,15 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
       timer.mark(kPhW2t);
     }
     // da = relu'(a) * conv3x3(dy, flipT(w2)) on (T+2)^2
-    tile_conv<3>(s_dy, OneGroup{}, 1, d.cout, hps, hs, 1, wslot(kOpW2t, it), d.c1, gs, 0,
-                 [&](int r, int cc, int co, float v) {
-                   const int i = co * gps + r * gs + cc;
-                   s_da[i] = s_g[i] > 0.f ? v : 0.f;
-                 });
+    auto da_out = [&](int r, int cc, int co, float v) {
+      const int i = co * gps + r * gs + cc;
+      s_da[i] = s_g[i] > 0.f ? v : 0.f;
+    };
+    if (bwd_tensor_core(d.c1, d.cout))
+      bwd_conv_tc<9, kBwdMTiles>(s_dy, d.cout, hps, hs, 1, SquareTaps<3>{hs}, wslot(kOpW2t, it),
+                                 d.c1, gs, 0, da_out);
+    else
+      tile_conv<3>(s_dy, OneGroup{}, 1, d.cout, hps, hs, 1, wslot(kOpW2t, it), d.c1, gs, 0, da_out);
     __syncthreads();
     timer.mark(kPhDa);
     if (two) {
@@ -912,17 +987,20 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
     }
     // [dh | dskip] = conv3x3(da, flipT(w1)) on T^2 (reads s_da, which
     // nothing above writes after da's barrier)
-    first = tile_conv<3>(s_da, OneGroup{}, 1, d.c1, gps, gs, 1, wslot(kOpW1t, it), c, t, first,
-                         [&](int r, int cc, int co, float v) {
-                           const int gy = ty0 + r, gx = tx0 + cc;
-                           const bool in = gy < img_h && gx < img_w;
-                           if (co < cd) {
-                             s_dh[co * dps + r * t + cc] = in ? v : 0.f;
-                           } else if (in) {
-                             dskip[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cs +
-                                   co - cd] = v;
-                           }
-                         });
+    auto dh_out = [&](int r, int cc, int co, float v) {
+      const int gy = ty0 + r, gx = tx0 + cc;
+      const bool in = gy < img_h && gx < img_w;
+      if (co < cd) {
+        s_dh[co * dps + r * t + cc] = in ? v : 0.f;
+      } else if (in) {
+        dskip[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cs + co - cd] = v;
+      }
+    };
+    first = bwd_tensor_core(c, d.c1)
+                ? bwd_conv_tc<9, kBwdMTiles>(s_da, d.c1, gps, gs, 1, SquareTaps<3>{gs},
+                                             wslot(kOpW1t, it), c, t, first, dh_out)
+                : tile_conv<3>(s_da, OneGroup{}, 1, d.c1, gps, gs, 1, wslot(kOpW1t, it), c, t,
+                               first, dh_out);
     __syncthreads();
     timer.mark(kPhDh);
     if (two) {
@@ -947,15 +1025,20 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
       timer.mark(kPhWdt);
     }
     // dx on the T/2 x T/2 owned coarse pixels: sum over the four phases
-    // (groups of Cd dh planes, at fine offset (di, dj)) and Cd
+    // (dh's planes at fine offset (di, dj), read at step 2: the taps of a
+    // tensor-core conv, or groups of Cd planes for the FMAs) and Cd
     const int hc_out = ty0 / 2, wc_out = tx0 / 2;
-    tile_conv<1>(s_dh, [=](int ph) { return (ph / 2) * t + ph % 2; }, 4, cd, dps, t, 2,
-                 wslot(kOpWdt, it), cin, t / 2, first,
-                 [&](int r, int cc, int co, float v) {
-                   const int gy = hc_out + r, gx = wc_out + cc;
-                   if (gy < d.hc && gx < d.wc)
-                     dx[((static_cast<size_t>(b) * d.hc + gy) * d.wc + gx) * cin + co] = v;
-                 });
+    const auto phase = [=](int ph) { return (ph / 2) * t + ph % 2; };
+    auto dx_out = [&](int r, int cc, int co, float v) {
+      const int gy = hc_out + r, gx = wc_out + cc;
+      if (gy < d.hc && gx < d.wc)
+        dx[((static_cast<size_t>(b) * d.hc + gy) * d.wc + gx) * cin + co] = v;
+    };
+    if (bwd_tensor_core(cin, cd))
+      bwd_conv_tc<4, kBwdMTiles>(s_dh, cd, dps, t, 2, phase, wslot(kOpWdt, it), cin, t / 2, first,
+                                 dx_out);
+    else
+      tile_conv<1>(s_dh, phase, 4, cd, dps, t, 2, wslot(kOpWdt, it), cin, t / 2, first, dx_out);
     timer.mark(kPhDx);
   }
   timer.store();

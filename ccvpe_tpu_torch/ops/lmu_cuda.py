@@ -10,9 +10,12 @@ kernel, which recomputes h and g on chip.
 tensors. `fused_stage_split_plain` emulates B2's arithmetic (its convs
 as 3xTF32 products where the kernel takes the tensor cores), and
 `fwd_tile`, `tensor_core_conv`, `conv_tiles`, `conv_items` and
-`fwd_mma_count` mirror its launch rules. `mma_probe` runs the kernels'
-3xTF32 tensor-core primitive alone on one matrix product, for checking it
-against float64 (its plain version is ops/tf32.py::matmul_3xtf32_plain);
+`fwd_mma_count` mirror its launch rules; `fused_stage_bwd_split_plain`
+emulates B3's, and `bwd_tensor_core_conv`, `bwd_conv_tiles`,
+`bwd_conv_items` and `bwd_mma_count` mirror the rules of its own convs.
+`mma_probe` runs the kernels' 3xTF32 tensor-core primitive alone on one
+matrix product, for checking it against float64 (its plain version is
+ops/tf32.py::matmul_3xtf32_plain);
 `mma_rate` measures the card's rate of its mma.sync. `bwd_phase_cycles`
 runs the backward built with its per-phase timer (csrc/lmu.cu,
 -DCCVPE_LMU_PHASE_TIMER, a library of its own) and returns the cycles
@@ -73,7 +76,12 @@ def load_library() -> ctypes.CDLL:
 def load_timed_library() -> ctypes.CDLL:
     """The same source built with the backward's per-phase timer."""
     from ccvpe_tpu_torch.csrc.build import build
-    lib = _bind(build("lmu", (PHASE_TIMER,)).path)
+    return _bind_timed(build("lmu", (PHASE_TIMER,)).path)
+
+
+def _bind_timed(path) -> ctypes.CDLL:
+    """_bind, and the timed build's entries."""
+    lib = _bind(path)
     lib.ccvpe_lmu_bwd_phase_buffer.argtypes = [ctypes.c_void_p] * 2
     lib.ccvpe_lmu_bwd_phase_buffer.restype = ctypes.c_int
     lib.ccvpe_lmu_bwd_phases.restype = ctypes.c_int
@@ -202,6 +210,86 @@ def fwd_mma_count(b: int, hc: int, wc: int, cin: int, cs: int, cd: int, c1: int,
     return b * -(-2 * hc // t) * -(-2 * wc // t) * per_tile
 
 
+def bwd_tensor_core_conv(n: int, k: int) -> bool:
+    """The route of one of B3's own convs (da, dh|dskip, dx) with n output
+    channels and k input channels a tap (csrc/lmu.cu::bwd_tensor_core): the
+    tensor cores where n spans at least 3 n-tiles (pad_co(n) >= 24) and k
+    pads to a multiple of 8 (k >= 5); else the CUDA cores' FMAs (the heads'
+    da, k = Cout 1 or 2, and dh|dskip, n = 16)."""
+    return pad_co(n) >= 24 and pad_co(k) % 8 == 0
+
+
+BWD_CONV_ITEMS = 9   # csrc/lmu.cu::kBwdConvItems
+
+
+def _bwd_mtiles(out_side: int) -> int:
+    return -(-out_side * out_side // (16 * BWD_MTILES))
+
+
+def bwd_conv_tiles(n: int, out_side: int) -> int:
+    """n-tiles of 8 channels in one warp item of a backward conv over an
+    out_side^2 box (csrc/lmu.cu::bwd_conv_tiles): 4, else 2, the wider that
+    still gives the conv at least BWD_CONV_ITEMS items (the last group
+    ragged where it does not divide the tile count), else 1."""
+    tiles, m = -(-n // 8), _bwd_mtiles(out_side)
+    for nt in (4, 2):
+        if tiles >= nt and m * -(-tiles // nt) >= BWD_CONV_ITEMS:
+            return nt
+    return 1
+
+
+def bwd_conv_items(out_side: int, n: int) -> int:
+    """Warp items of a backward tensor-core conv over an out_side^2 box:
+    BWD_MTILES m-tiles of 16 pixels times groups of bwd_conv_tiles n-tiles,
+    the last group ragged."""
+    return _bwd_mtiles(out_side) * -(-(-(-n // 8)) // bwd_conv_tiles(n, out_side))
+
+
+def bwd_convs(cin: int, cs: int, cd: int, c1: int, cout: int, t: int) -> dict:
+    """B3's own convs at fine tile t: name -> (output box side, input
+    channels a tap, output channels, taps)."""
+    return {"da": (t + 2, cout, c1, 9), "dh|dskip": (t, c1, cd + cs, 9),
+            "dx": (t // 2, cd, cin, 4)}
+
+
+def bwd_mma_per_tile(cin: int, cs: int, cd: int, c1: int, cout: int, t: int) -> dict:
+    """The m16n8k8 TF32 mma.sync instructions B3 issues for one fine tile
+    t, by part (three per 16 x 8 x 8 product): the recompute of h (the
+    deconv's four phases on the (t+4)/2 coarse box) and g (conv_a on the
+    (t+2)^2 box) by the forward's route with BWD_MTILES m-tiles an item;
+    the weight gradients dw2, dw1 (9 taps over the t^2 pixels) and dwd (4
+    phases over the (t/2)^2 coarse pixels), items of 16 input channels by
+    conv_tiles n-tiles; and da, dh|dskip and dx where bwd_tensor_core_conv
+    takes the tensor cores, as items x taps x k-steps x n-tiles x 3."""
+    c = cd + cs
+
+    def fwd(out_side, k, n, taps):
+        if not tensor_core_conv(n):
+            return 0
+        return (conv_items(out_side, n, BWD_MTILES) * BWD_MTILES * taps * -(-k // 8)
+                * conv_tiles(n) * 3)
+
+    def wgrad(taps, pixels, m, n):
+        nt = conv_tiles(n)
+        return taps * -(-m // 16) * -(-n // (8 * nt)) * -(-pixels // 8) * nt * 3
+
+    out = {"deconv": 4 * fwd((t + 4) // 2, cin, cd, 1), "conv_a": fwd(t + 2, c, c1, 9),
+           "dw2": wgrad(9, t * t, c1, cout), "dw1": wgrad(9, t * t, c, c1),
+           "dwd": wgrad(4, (t // 2) ** 2, cin, cd)}
+    for name, (side, k, n, taps) in bwd_convs(cin, cs, cd, c1, cout, t).items():
+        out[name] = (bwd_conv_items(side, n) * BWD_MTILES * taps * -(-k // 8)
+                     * bwd_conv_tiles(n, side) * 3 if bwd_tensor_core_conv(n, k) else 0)
+    return out
+
+
+def bwd_mma_count(b: int, hc: int, wc: int, cin: int, cs: int, cd: int, c1: int, cout: int,
+                  t: int) -> int:
+    """The mma.sync instructions B3 issues for one call at fine tile t: the
+    tiles times the sum of bwd_mma_per_tile."""
+    return (b * -(-2 * hc // t) * -(-2 * wc // t)
+            * sum(bwd_mma_per_tile(cin, cs, cd, c1, cout, t).values()))
+
+
 def _padded(t: torch.Tensor) -> torch.Tensor:
     """[..., n] -> contiguous [..., pad_co(n)], zeros in the added columns."""
     return F.pad(t, (0, pad_co(t.shape[-1]) - t.shape[-1])).contiguous()
@@ -227,22 +315,37 @@ def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
         wd.permute(2, 3, 1, 0).reshape(4, cd, cin)))
 
 
-def _product(a: torch.Tensor, b: torch.Tensor, cout: int) -> torch.Tensor:
-    """a [M, K] @ b [K, N] by the route the kernel takes for a conv with
-    cout output channels."""
-    return matmul_3xtf32_plain(a, b) if tensor_core_conv(cout) else a @ b
+def _product(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
+    """a [M, K] @ b [K, N]: as 3xTF32 products where the kernel takes the
+    tensor cores, else in float32."""
+    return matmul_3xtf32_plain(a, b) if tensor_cores else a @ b
 
 
-def _conv3x3_split(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """conv3x3 of NHWC `inp` with zero padding and torch weight w
-    (Cout, C, 3, 3), as im2col with K in the kernel's order (tap ky*3+kx,
-    then channel) and one product."""
-    b, h, wd_, c = inp.shape
+def _im2col3x3(inp: torch.Tensor) -> torch.Tensor:
+    """[B*H*W, 9*C] columns of NHWC `inp` with zero padding, K in the
+    kernel's order (tap ky*3+kx, then channel)."""
+    b, h, w, c = inp.shape
     pad = F.pad(inp, (0, 0, 1, 1, 1, 1))
-    cols = torch.cat([pad[:, ky:ky + h, kx:kx + wd_, :] for ky in range(3) for kx in range(3)],
-                     dim=-1)
+    return torch.cat([pad[:, ky:ky + h, kx:kx + w, :] for ky in range(3) for kx in range(3)],
+                     dim=-1).reshape(-1, 9 * c)
+
+
+def _conv3x3_split(inp: torch.Tensor, w: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
+    """conv3x3 of NHWC `inp` with zero padding and torch weight w
+    (Cout, C, 3, 3), as im2col and one product."""
+    b, h, wd_, c = inp.shape
     wmat = w.permute(2, 3, 1, 0).reshape(9 * c, w.shape[0])
-    return _product(cols.reshape(-1, 9 * c), wmat, w.shape[0]).reshape(b, h, wd_, w.shape[0])
+    return _product(_im2col3x3(inp), wmat, tensor_cores).reshape(b, h, wd_, w.shape[0])
+
+
+def _deconv_split(x: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
+    """h = deconv2x2(x) + bd, NHWC, as one product with the four phases side
+    by side."""
+    b, hc, wc, cin = x.shape
+    cd = wd.shape[1]
+    wmat = wd.permute(0, 2, 3, 1).reshape(cin, 4 * cd)          # columns (di, dj, co)
+    h = _product(x.reshape(-1, cin), wmat, tensor_core_conv(cd)).reshape(b, hc, wc, 2, 2, cd)
+    return h.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * hc, 2 * wc, cd) + bd
 
 
 def fused_stage_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
@@ -255,16 +358,56 @@ def fused_stage_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], wd: t
     in float32; biases added after each sum, the ReLU after conv_a's. Sums
     inside a product run in the matmul's order, not the tensor cores'.
     Same contract as fused_stage_plain."""
-    b, hc, wc, cin = x.shape
-    cd = wd.shape[1]
     x, wd, w1, w2 = (t.detach().float() for t in (x, wd, w1, w2))
-    wmat = wd.permute(0, 2, 3, 1).reshape(cin, 4 * cd)          # columns (di, dj, co)
-    h = _product(x.reshape(-1, cin), wmat, cd).reshape(b, hc, wc, 2, 2, cd)
-    h = h.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * hc, 2 * wc, cd) + bd.detach()
+    h = _deconv_split(x, wd, bd.detach())
     if skip is not None:
         h = torch.cat([h, skip.detach().float()], dim=-1)
-    g = torch.relu(_conv3x3_split(h, w1) + b1.detach())
-    return _conv3x3_split(g, w2) + b2.detach()
+    g = torch.relu(_conv3x3_split(h, w1, tensor_core_conv(w1.shape[0])) + b1.detach())
+    return _conv3x3_split(g, w2, tensor_core_conv(w2.shape[0])) + b2.detach()
+
+
+def fused_stage_bwd_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Tensor,
+                                wd: torch.Tensor, bd: torch.Tensor, w1: torch.Tensor,
+                                b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+                                ) -> Tuple[Optional[torch.Tensor], ...]:
+    """What B3 computes, in plain torch: h and g recomputed as
+    fused_stage_split_plain computes them; da = relu'(a) * conv3x3(dy,
+    flipT(w2)), [dh | dskip] = conv3x3(da, flipT(w1)) and dx (dh's four
+    deconv phases side by side, against wdT) each as one product with K in
+    the kernel's order (tap, then channel), through matmul_3xtf32_plain
+    where bwd_tensor_core_conv takes the tensor cores, else in float32; the
+    weight gradients as products over the pixels in 3xTF32, as the kernel
+    always runs them, the bias gradients as float32 sums. Sums inside a
+    product run in the matmul's order, not the tensor cores'. Same contract
+    as fused_stage_bwd_plain."""
+    b, hc, wc, cin = x.shape
+    cd, c1, cout = wd.shape[1], w1.shape[0], w2.shape[0]
+    x, wd, w1, w2, dy = (t.detach().float() for t in (x, wd, w1, w2, dy))
+    h = _deconv_split(x, wd, bd.detach())
+    if skip is not None:
+        h = torch.cat([h, skip.detach().float()], dim=-1)
+    c = h.shape[-1]
+    a = _conv3x3_split(h, w1, tensor_core_conv(c1)) + b1.detach()
+    g = torch.relu(a)
+    # the transposed convs: torch weights (C_out, C_in, 3, 3) of flipT(w)
+    da = _conv3x3_split(dy, w2.flip(2, 3).transpose(0, 1), bwd_tensor_core_conv(c1, cout))
+    da = torch.where(a > 0, da, torch.zeros_like(da))
+    dhs = _conv3x3_split(da, w1.flip(2, 3).transpose(0, 1), bwd_tensor_core_conv(c, c1))
+    dh, dskip = dhs[..., :cd], (dhs[..., cd:] if skip is not None else None)
+    phases = [dh[:, di::2, dj::2, :] for di in range(2) for dj in range(2)]
+    cols = torch.cat(phases, dim=-1).reshape(-1, 4 * cd)          # K = (phase, channel)
+    wdt = wd.permute(2, 3, 1, 0).reshape(4 * cd, cin)
+    dx = _product(cols, wdt, bwd_tensor_core_conv(cin, cd)).reshape(b, hc, wc, cin)
+
+    def wgrad(inp, out):                                          # inp^T out over pixels
+        return matmul_3xtf32_plain(inp.t().contiguous(), out)
+
+    dw2 = wgrad(_im2col3x3(g), dy.reshape(-1, cout)).reshape(3, 3, c1, cout).permute(3, 2, 0, 1)
+    dw1 = wgrad(_im2col3x3(h), da.reshape(-1, c1)).reshape(3, 3, c, c1).permute(3, 2, 0, 1)
+    xm = x.reshape(-1, cin)
+    dwd = torch.stack([wgrad(xm, ph.reshape(-1, cd)) for ph in phases]).reshape(2, 2, cin, cd)
+    return (dx, dskip, dwd.permute(2, 3, 0, 1), dh.sum((0, 1, 2)), dw1, da.sum((0, 1, 2)), dw2,
+            dy.sum((0, 1, 2)))
 
 
 def _check_operand(name: str, t: torch.Tensor, device) -> None:

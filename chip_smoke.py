@@ -10,8 +10,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      started together, timed, with ptxas' report, and each LMU kernel's
      registers and spill bytes read from it; the tensor-core instructions
      (HMMA) and clock reads of each LMU kernel counted in cuobjdump -sass:
-     B2 and B3 must hold TF32 ones, and the main path's library no clock
-     read; the correlation kernel (B1) must hold TF32 ones too;
+     B2 and B3 must hold TF32 ones, B3 at T = 8 more than before its da,
+     dh|dskip and dx took the tensor cores, and the main path's library no
+     clock read; the correlation kernel (B1) must hold TF32 ones too;
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI (s1 and s6) and
      ori-prior shapes, and at one shape with ragged N and D edges and the
@@ -31,15 +32,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      then the fused LMU stage kernels (forward B2, backward B3) against
      their plain versions at the four VIGOR calls of a step at
      lmu_fused_min_res=256, the four KITTI calls, a ragged no-skip Cout-1
-     case, a large-bias case and a case with no channel count a multiple
-     of 4; B3 twice, for the same bits; B2 at the four VIGOR calls at the
-     tile T it picks and at T = 8 (B3's), for the same bits;
+     case, a large-bias case, a case with no channel count a multiple
+     of 4, and two cases whose da, dh|dskip and dx all take the tensor
+     cores with ragged k-steps and n-groups, one at T = 8 and one whose
+     widths make B3's plan pick T = 4 (the plan and routes checked); B3
+     twice, for the same bits; B2 at the four VIGOR calls at the tile T it
+     picks and at T = 8 (B3's), for the same bits;
   7. their kernel / plain / cuDNN-chain times beside their bounds (float32
-     on the CUDA cores, and 3xTF32 on the tensor cores), B2 also at T = 8;
-     then B3's
+     on the CUDA cores, and 3xTF32 on the tensor cores), B2 also at T = 8,
+     and the mma.sync each issues with its rate; then B3's
      per-phase split at the four VIGOR calls from the timed library (each
      phase's share of the block cycles, and that share of the untimed
-     kernel's time), the timed kernel's time beside the untimed one;
+     kernel's time), the timed kernel's time beside the untimed one, and
+     its da, dh|dskip and dx beside their cycles on the FMAs;
   8. the serving path at full width: vigor() with seeded random weights,
      InferenceEngine(batch_size=8).predict on 20 requests (the last batch
      padded), kernel launches counted; one batch's CVM forward with
@@ -110,6 +115,22 @@ CORR_GRAD_ATOL = 1e-4
 PROBE_RTOL = 1e-5
 PROBE_SHAPES = ((81, 40, 64), (56, 1, 16), (40, 32, 64), (41, 16, 16), (5, 3, 4))  # M, N, K
 OUT_DIR = "chiprun_out"
+# B3's tensor-core convs off the VIGOR widths -> the tile T its plan must
+# pick. At T = 8, da, dh|dskip and dx each with a ragged last k-step (K a
+# tap 6, 37, 21) and a ragged last n-group (N 37, 35, 131: 5, 5, 17
+# n-tiles in groups of 4, 2, 2); at T = 4 (T = 8's planes and one weight
+# buffer pass the card's 227 KB a block), each with a ragged k-step and
+# da's n-groups ragged (9 n-tiles in groups of 4), dx on a 2 x 2 box.
+LMU_TC_CASES = {("tensor cores, ragged K and N", 2, 7, 9, 131, 14, 21, 37, 6): 8,
+                ("tensor cores at T 4", 1, 6, 7, 29, 5, 53, 65, 21): 4}
+
+# HMMA opcodes in the SASS of each lmu_bwd_kernel instantiation, and k
+# cycles a tile of B3's da, dh|dskip and dx phases at the four VIGOR calls,
+# while those convs ran on the FMAs (this script on an NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md gives the run)
+FMA_BWD_HMMA = {8: 804, 4: 336}
+FMA_BWD_PHASES = {"loc stage 5": (46.4, 35.1, 13.4), "ori stage 5": (29.0, 23.8, 9.3),
+                  "loc stage 6+head": (2.3, 7.0, 5.3), "ori stage 6+head": (2.8, 6.9, 4.7)}
 
 
 def log(*parts) -> None:
@@ -425,6 +446,7 @@ def time_lmu(shape, gen):
     t = lmu_cuda.fwd_tile(*shape[4:], limit=torch.cuda.get_device_properties(0)
                           .shared_memory_per_block_optin)
     row["fwd_mma"] = lmu_cuda.fwd_mma_count(*shape[1:], t)
+    row["bwd_mma"] = lmu_cuda.bwd_mma_count(*shape[1:], lmu_cuda.bwd_plan(x, skip, wd, w1, w2)["t"])
     for key, bwd in (("fwd", False), ("bwd", True)):
         bound, by, nbytes, flops, tc = lmu_bound(shape, bwd)
         row.update({f"{key}_bound_ms": bound, f"{key}_bound_by": by, f"{key}_bytes": nbytes,
@@ -712,11 +734,18 @@ def main() -> int:
                                                               spill_loads=ld)
                                     for fn, (r, st, ld) in usage.items()}
         for fn, (ops, clk) in scan.items():
-            # the counts before the tensor-core convs: B2 none; B3 648 at T = 8, 180 at T = 4
-            old = ("0" if "lmu_fwd_kernel" in fn else "648" if "ELi8EE" in fn
-                   else "180" if "ELi4EE" in fn else "-")
-            log(f"sass {lib} {lmu_kernel_name(fn)}: {len(ops)} HMMA (before the tensor-core "
-                f"convs: {old}) {sorted(set(ops))}, {clk} clock reads")
+            # B2's count since its convs took the tensor cores (432); B3's
+            # while da, dh|dskip and dx ran on the FMAs
+            t_bwd = 8 if "ELi8EE" in fn else 4 if "ELi4EE" in fn else None
+            old = ("432" if "lmu_fwd_kernel" in fn
+                   else str(FMA_BWD_HMMA[t_bwd]) if "lmu_bwd_kernel" in fn and t_bwd else "-")
+            log(f"sass {lib} {lmu_kernel_name(fn)}: {len(ops)} HMMA (before B3's da, dh|dskip "
+                f"and dx took the tensor cores: {old}) "
+                f"{sorted(set(ops))}, {clk} clock reads")
+            if "lmu_bwd_kernel" in fn and t_bwd == 8 and len(ops) <= FMA_BWD_HMMA[8]:
+                log(f"FAIL: {lib}: {lmu_kernel_name(fn)} holds {len(ops)} HMMA, no more than "
+                    f"the {FMA_BWD_HMMA[8]} of its FMA da, dh|dskip and dx")
+                return 1
         for fn, (regs, st, ld) in usage.items():
             log(f"ptxas {lib} {lmu_kernel_name(fn)}: {regs} registers, {st} bytes spill stores, "
                 f"{ld} bytes spill loads")
@@ -889,7 +918,7 @@ def main() -> int:
              ("large biases", 2, 10, 12, 12, 5, 8, 16, 3),
              ("ragged channels", 2, 7, 11, 5, 3, 7, 9, 3)]
     report["lmu_checks"] = []
-    for shape in lmu_shapes + kitti_shapes + extra:
+    for shape in lmu_shapes + kitti_shapes + extra + list(LMU_TC_CASES):
         r = check_lmu(shape, gen, bias_scale=5.0 if shape[0] == "large biases" else 0.3)
         log(f"check lmu {shape[0]:24s} {shape[1:]}: fwd max_abs {r['fwd_max_abs']:.3g} "
             f"(rtol {LMU_FWD_RTOL} of max), bwd scaled "
@@ -898,6 +927,23 @@ def main() -> int:
             f"{'ok' if r['ok'] else 'FAIL'}")
         report["lmu_checks"].append(r)
         if not r["ok"]:
+            return 1
+    # B3's plan and routes at those cases: the tile T each names, and da,
+    # dh|dskip and dx all on the tensor cores
+    report["lmu_tc_plans"] = []
+    for shape, want_t in LMU_TC_CASES.items():
+        x, skip, ws = lmu_inputs(shape, gen)
+        plan = lmu_cuda.bwd_plan(x, skip, ws[0], ws[2], ws[4])
+        convs = lmu_cuda.bwd_convs(*shape[4:], plan["t"])
+        groups = {c: lmu_cuda.bwd_conv_tiles(n, side) for c, (side, _, n, _) in convs.items()}
+        routed = all(lmu_cuda.bwd_tensor_core_conv(n, k) for _, k, n, _ in convs.values())
+        ok = plan["t"] == want_t and routed
+        log(f"check lmu bwd plan {shape[0]:24s}: T {plan['t']} (want {want_t}), weights "
+            f"{plan['weights']}, da, dh|dskip and dx on the tensor cores {routed}, n-tiles an "
+            f"item {json.dumps(groups)} {'ok' if ok else 'FAIL'}")
+        report["lmu_tc_plans"].append(dict(name=shape[0], t=plan["t"], weights=plan["weights"],
+                                           routed=routed, n_tiles=groups, ok=ok))
+        if not ok:
             return 1
     # B2's y at the tile it picks and at B3's T = 8: the same bits, so the g
     # that B3 recomputes at T = 8 is the forward's (one ReLU mask)
@@ -934,7 +980,9 @@ def main() -> int:
             f"({row['fwd_mma'] * 2048 / row['fwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued); "
             f"bwd kernel {row['bwd_ms']:.3f} ms, plain {row['bwd_plain_ms']:.3f}, cuDNN chain "
             f"{row['bwd_chain_ms']:.3f}, bound {row['bwd_bound_ms']:.3f} ({row['bwd_bound_by']}, "
-            f"{row['bwd_flops'] / 1e9:.1f} GFLOP), 3xTF32 bound {row['bwd_tc_bound_ms']:.3f}")
+            f"{row['bwd_flops'] / 1e9:.1f} GFLOP), 3xTF32 bound {row['bwd_tc_bound_ms']:.3f}, "
+            f"{row['bwd_mma'] / 1e6:.1f} M mma.sync "
+            f"({row['bwd_mma'] * 2048 / row['bwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued)")
     log(f"time lmu per step (4 + 4 launches): fwd kernel {lmu_tot['fwd_ms']:.3f} ms (at T 8: "
         f"{lmu_tot['fwd_t8_ms']:.3f}), plain "
         f"{lmu_tot['fwd_plain_ms']:.3f}, chain {lmu_tot['fwd_chain_ms']:.3f}, bound "
@@ -942,7 +990,8 @@ def main() -> int:
         f"{lmu_tot['fwd_mma'] * 2048 / lmu_tot['fwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued; "
         f"bwd kernel {lmu_tot['bwd_ms']:.3f} ms, plain "
         f"{lmu_tot['bwd_plain_ms']:.3f}, chain {lmu_tot['bwd_chain_ms']:.3f}, bound "
-        f"{lmu_tot['bwd_bound_ms']:.3f} (f32), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32) [{card}]")
+        f"{lmu_tot['bwd_bound_ms']:.3f} (f32), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32), "
+        f"{lmu_tot['bwd_mma'] * 2048 / lmu_tot['bwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued [{card}]")
     # B3 by phase, from the timed library
     report["lmu_bwd_phases"] = []
     for shape, row in zip(lmu_shapes, report["lmu_timing"]):
@@ -954,6 +1003,10 @@ def main() -> int:
             f"{r['tiles_per_block']:.1f} tiles, same bits as untimed {r['same_bits']} [{card}]")
         log("  " + "; ".join(f"{p['phase']} {p['share']:.1%} {p['ms']:.3f} ms "
                               f"{p['cycles_per_tile']:.0f} cyc/tile" for p in r["phases"]))
+        cyc = {p["phase"]: p["cycles_per_tile"] / 1e3 for p in r["phases"]}
+        log("  " + ", ".join(f"{n} {cyc[n]:.1f} k cyc/tile (on the FMAs: {old})"
+                             for n, old in zip(("da", "dh|dskip", "dx"),
+                                               FMA_BWD_PHASES[shape[0]])))
         if not r["same_bits"]:
             log("FAIL: the timed B3 computes other bits than the untimed one")
             return 1
