@@ -32,14 +32,24 @@ def decode_angle(cos_v: torch.Tensor, sin_v: torch.Tensor) -> torch.Tensor:
     return torch.where(sin_v < 0, torch.remainder(-a, 360.0), a)
 
 
+def _linspace64(n: int, device) -> torch.Tensor:
+    """np.linspace(-n/2, n/2, n) to the bit, on `device`: i * step + start
+    in float64, the last point set to the end, as numpy computes it."""
+    grid = torch.arange(n, dtype=torch.float64, device=device) * (n / (n - 1)) + (-n / 2.0)
+    grid[-1] = n / 2.0
+    return grid
+
+
 def gt_location_device(height: int, width: int, row_offset: torch.Tensor,
                        col_offset: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Torch twin of gt_location on an f32 grid (first minimum on ties)."""
+    """Torch twin of gt_location, on the host's float64 grid, so the two
+    agree at offsets halfway between grid points (first minimum on ties).
+    The JAX twin builds its grid in float32, which can round such a tie the
+    other way; the host function is the reference."""
     dev = row_offset.device
-    ys = torch.linspace(-height / 2.0, height / 2.0, height, device=dev)
-    xs = torch.linspace(-width / 2.0, width / 2.0, width, device=dev)
-    rows = torch.argmin(torch.abs(ys[None, :] - row_offset.float()[:, None]), dim=1)
-    cols = torch.argmin(torch.abs(xs[None, :] + col_offset.float()[:, None]), dim=1)
+    ys, xs = _linspace64(height, dev), _linspace64(width, dev)
+    rows = torch.argmin(torch.abs(ys[None, :] - row_offset.double()[:, None]), dim=1)
+    cols = torch.argmin(torch.abs(xs[None, :] + col_offset.double()[:, None]), dim=1)
     return rows, cols
 
 

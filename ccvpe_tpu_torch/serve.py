@@ -14,7 +14,6 @@ batch runs in float32, TF32 off (core/precision.py).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import List
 
 import numpy as np
@@ -47,13 +46,7 @@ class InferenceEngine:
     def from_checkpoint(cls, model_cfg: ModelConfig, checkpoint: str,
                         batch_size: int = 8, device=None) -> "InferenceEngine":
         """checkpoint: a reference-format .pt/.pth file or an .npz of the
-        same keys. An Orbax run directory needs JAX to read; export it first
-        with ccvpe_tpu.utils.torch_convert.export_cvm."""
-        if os.path.isdir(checkpoint):
-            raise ValueError(
-                f"{checkpoint} is a directory (an Orbax checkpoint?); the port "
-                "reads reference .pt or .npz state dicts. Export one from JAX "
-                "with ccvpe_tpu.utils.torch_convert.export_cvm")
+        same keys (an Orbax run directory raises: utils/convert.py)."""
         from ccvpe_tpu_torch.utils.convert import load_state_dict_file
         return cls(model_cfg, load_state_dict_file(checkpoint), batch_size, device)
 

@@ -1,5 +1,4 @@
-"""Train and eval steps (the port of ccvpe_tpu/train/step.py:28-249,
-268-288).
+"""Train and eval steps (the port of ccvpe_tpu/train/step.py:28-288).
 
 The train step replaces the reference's epoch-loop body (reference
 train_VIGOR.py:112-150): GT rendered on the device from three scalars per
@@ -231,6 +230,22 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         state.optimizer.step()
         state.step += 1
         return state, {k: v / accum for k, v in sums.items()}
+
+    return step
+
+
+def make_eval_step(model: CVM) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """Forward only, returning the full maps (heatmap [B,H,W,1], ori
+    [B,H,W,2]) on the model's device: for where the maps themselves are the
+    product (visualization, golden parity, the stream's decode). Metric
+    loops use make_eval_decode_step, which brings back six [B] vectors in
+    place of the maps. Runs in float32, TF32 off (core/precision.py)."""
+
+    @torch.inference_mode()
+    @float32_matmuls()
+    def step(grd, sat):
+        out = model(device_normalize(grd), device_normalize(sat))
+        return out.heatmap, out.ori
 
     return step
 

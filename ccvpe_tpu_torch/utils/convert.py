@@ -15,6 +15,7 @@ weight/bias/running_mean/running_var.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -137,7 +138,14 @@ def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A reference .pt/.pth state dict, or an .npz archive of the same keys."""
+    """A reference .pt/.pth state dict, or an .npz archive of the same keys.
+    An Orbax run directory needs JAX to read, so it raises: export it first
+    with ccvpe_tpu.utils.torch_convert.export_cvm."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an Orbax checkpoint?); the port reads "
+            "reference .pt or .npz state dicts. Export one from JAX with "
+            "ccvpe_tpu.utils.torch_convert.export_cvm")
     if path.endswith(".npz"):
         with np.load(path) as z:
             return {k: torch.from_numpy(np.array(z[k])) for k in z.files}

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no result line):
-  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions,
+     whether PIL imports and libjpeg's and libpng's headers exist;
   2. build every hand-written kernel from csrc/ with nvcc (sm_90a), and
      lmu.cu once more with B3's per-phase timer, one nvcc per library, all
      started together, timed, with ptxas' report, and each LMU kernel's
@@ -59,8 +60,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cuDNN (lmu_fused_min_res=0) from the same state: losses, every
      gradient, BN running stats; p50 step time, pairs/s and peak memory
      over 8 steps; one step under torch.profiler;
- 10. a {"kernels": [...], "probes": [...]} line (probes: the primitive
-     alone, launched on no path), then the last line
+ 10. the evaluation path at full width, from in-memory splits of 20
+     samples (uint8 images and the sample classes' fields from numpy seed
+     17, no image files or PIL) through the port's ThreadedLoader:
+     eval_over_loader at VIGOR 360, FoV 90 (a 160-column ground image) and
+     the orientation prior (45 degrees), and at KITTI; stream_eval at
+     Oxford; seeded random weights; each loop once to warm up, once
+     counted, then EVAL_TIMED_LOOPS times timed. Each loop's B1 launches
+     (6 a forward, 7 under the prior), its decoded rows, cols and angles
+     against InferenceEngine.predict on the same inputs, its summary in
+     range, its median pairs/s (Oxford: frames/s) over the timed loops
+     with their spread; at each of the five, one batch of the
+     loop's own inputs (the FoV-sliced ground image, the prior's restricted
+     bins) through the forward with the kernel against the plain
+     correlation; the device's idle share over one VIGOR loop under
+     torch.profiler;
+ 11. a {"kernels": [...], "probes": [...]} line (probes: the primitive
+     alone, launched on no path; B1's entry carries eval_launches, its
+     launches in each eval loop), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -115,6 +132,8 @@ CORR_GRAD_ATOL = 1e-4
 PROBE_RTOL = 1e-5
 PROBE_SHAPES = ((81, 40, 64), (56, 1, 16), (40, 32, 64), (41, 16, 16), (5, 3, 4))  # M, N, K
 OUT_DIR = "chiprun_out"
+# Timed repetitions of each eval loop (phase 10), after the counted one.
+EVAL_TIMED_LOOPS = 5
 # B3's tensor-core convs off the VIGOR widths -> the tile T its plan must
 # pick. At T = 8, da, dh|dskip and dx each with a ragged last k-step (K a
 # tap 6, 37, 21) and a ragged last n-group (N 37, 35, 131: 5, 5, 17
@@ -559,6 +578,42 @@ def fused_call_shapes(model, grd, sat):
     return sorted(shapes)
 
 
+def forward_auto_vs_plain(model, g, s):
+    """One batch's CVM forward with corr_impl 'auto' (the kernel) against
+    'plain', the same weights and inputs: max abs differences, and whether
+    they are finite, of the right shapes and within the forward tolerances
+    (the orientation where the raw head output is not near zero)."""
+    cfg = model.config
+    raw = {}
+    hook = model.conv1_ori.register_forward_hook(lambda m, i, o: raw.update(ori=o))
+    outs = {}
+    with torch.inference_mode():
+        for impl in ("auto", "plain"):
+            model.config = dataclasses.replace(cfg, corr_impl=impl)
+            outs[impl] = model(g, s)
+            raw[impl] = torch.linalg.vector_norm(raw["ori"], dim=1)[..., None]
+    hook.remove()
+    model.config = cfg
+    a, p = outs["auto"], outs["plain"]
+    fwd = {
+        "logits": float((a.logits - p.logits).abs().max()),
+        "heatmap": float((a.heatmap - p.heatmap).abs().max()),
+        "scores": [float((x - y).abs().max()) for x, y in
+                   zip(a.matching_scores, p.matching_scores)],
+    }
+    well = (raw["plain"] > ORI_NORM_FLOOR).expand_as(a.ori)
+    fwd["ori_well_posed"] = float((a.ori - p.ori)[well].abs().max())
+    hs, ws = s.shape[1:3]
+    fwd_ok = (all(torch.isfinite(t).all() for t in (a.logits, a.heatmap, a.ori))
+              and torch.allclose(a.logits, p.logits, atol=FWD_LOGIT_ATOL, rtol=FWD_LOGIT_RTOL)
+              and fwd["heatmap"] <= FWD_HEATMAP_ATOL
+              and fwd["ori_well_posed"] <= FWD_ORI_ATOL
+              and all(e <= FWD_SCORE_ATOL for e in fwd["scores"])
+              and len(a.matching_scores) == 6
+              and tuple(a.heatmap.shape) == (g.shape[0], hs, ws, 1))
+    return fwd, fwd_ok
+
+
 def run_training(card, report, lmu_shapes):
     """The training slice at full width: vigor() with lmu_fused_min_res=256,
     batch 8, random weights from torch.Generator seed 17, uint8 images from
@@ -676,6 +731,181 @@ def run_training(card, report, lmu_shapes):
     return launches
 
 
+class InMemorySplit:
+    """An eval split held in memory, made from numpy seed 17: uint8 images
+    and the real sample class's other fields (VIGOR's city, KITTI's
+    heading), so the port's ThreadedLoader and default_collate see what the
+    datasets give them, without image files or PIL."""
+
+    def __init__(self, sample_cls, cfg, n, **extra):
+        rng = np.random.default_rng(17)
+        hg, wg = cfg.grd_size
+        hs, ws = cfg.sat_size
+        self.sample_cls, self.n = sample_cls, n
+        self.grd = rng.integers(0, 256, (n, hg, wg, 3), dtype=np.uint8)
+        self.sat = rng.integers(0, 256, (n, hs, ws, 3), dtype=np.uint8)
+        self.fields = dict(row_offset=rng.uniform(-hs / 4, hs / 4, n).astype(np.float32),
+                           col_offset=rng.uniform(-ws / 4, ws / 4, n).astype(np.float32),
+                           angle_deg=rng.uniform(0, 360, n).astype(np.float32), **extra)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i, rng=None):
+        return self.sample_cls(grd=self.grd[i], sat=self.sat[i],
+                               **{k: v[i] for k, v in self.fields.items()})
+
+
+def run_eval(card, report):
+    """The evaluation path at full width on the card: eval_over_loader at
+    VIGOR 360, FoV 90 and the orientation prior, and at KITTI; stream_eval
+    at Oxford; 20 samples each (batches of 8, the last of 4 padded), random
+    weights from torch.Generator seed 17. For each: one batch's forward
+    with the kernel against the plain correlation, on the loop's own inputs
+    (the FoV-sliced ground image, the prior's restricted bins); the loop
+    run once to warm up, once counted, then EVAL_TIMED_LOOPS times timed;
+    B1's launches in the counted loop, its decoded rows, cols and angles
+    against InferenceEngine.predict on the same inputs, the summary's
+    values in range; the median pairs (frames) per second of the timed
+    loops and their spread, host decoding and copies included; the
+    device's idle share over one profiled VIGOR loop. The entry points take the card as they
+    do by default. Returns B1's launches per configuration, or None on a
+    failure (logged)."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.data import kitti as kitti_data
+    from ccvpe_tpu_torch.data import oxford as oxford_data
+    from ccvpe_tpu_torch.data import vigor as vigor_data
+    from ccvpe_tpu_torch.data.loader import ThreadedLoader
+    from ccvpe_tpu_torch.models.cvm import CVM, build_cvm, random_init_, resolve_device
+    from ccvpe_tpu_torch.ops import corr_cuda, pose
+    from ccvpe_tpu_torch.serve import InferenceEngine
+    from ccvpe_tpu_torch.train.evaluate import eval_over_loader, slice_fov
+    from ccvpe_tpu_torch.train.step import device_normalize, make_eval_decode_step, make_eval_step
+    from ccvpe_tpu_torch.train.stream import stream_eval
+
+    dev = resolve_device(None)
+    n, b = 20, 8
+    cities = [("NewYork", "Seattle", "SanFrancisco", "Chicago")[i % 4] for i in range(n)]
+    vigor, kitti, oxford = cfg_lib.vigor(), cfg_lib.kitti(), cfg_lib.oxford()
+    splits = {
+        "vigor": InMemorySplit(vigor_data.VigorSample, vigor, n, city=cities),
+        "kitti": InMemorySplit(kitti_data.KittiSample, kitti, n,
+                               heading_deg=np.random.default_rng(17).uniform(0, 360, n)
+                               .astype(np.float32)),
+        "oxford": InMemorySplit(oxford_data.OxfordSample, oxford, n),
+    }
+    vigor_mpp = lambda city: vigor_data.METER_PER_PIXEL[city] / vigor.sat_size[0] * 640.0
+    # name -> (config, split, FoV, metres per pixel, B1 launches a forward)
+    runs = {
+        "vigor": (vigor, "vigor", None, vigor_mpp, 6),
+        "vigor FoV 90": (vigor, "vigor", 90, vigor_mpp, 6),
+        # the bottleneck correlates twice under the prior: all K bins, and
+        # the restricted ones that feed the max (models/cvm.py)
+        "vigor ori prior 45": (cfg_lib.vigor(ori_noise=45.0), "vigor", None, vigor_mpp, 7),
+        "kitti": (kitti, "kitti", None, kitti_data.meter_per_pixel(), 6),
+        "oxford stream": (oxford, "oxford", None,
+                          oxford_data.METERS_PER_PIXEL / oxford_data.OUT * oxford_data.CROP, 6),
+    }
+    weights = {}
+    out = {}
+    launches = {}
+    for name, (cfg, split_name, fov, mpp, per_forward) in runs.items():
+        split = splits[split_name]
+        if cfg.name not in weights:
+            weights[cfg.name] = random_init_(CVM(cfg).to_empty(device="cpu"),
+                                             torch.Generator().manual_seed(17)).state_dict()
+        model = build_cvm(cfg, dev, state_dict=weights[cfg.name])
+        grd = slice_fov(split.grd, fov) if fov else split.grd
+        row = dict(n=n, batch=b, grd_width=int(grd.shape[2]))
+        g, s = (device_normalize(torch.from_numpy(a[:b]).to(dev)) for a in (grd, split.sat))
+        fwd, fwd_ok = forward_auto_vs_plain(model, g, s)
+        log(f"eval {name}: forward auto vs plain: {json.dumps(fwd)} "
+            f"{'ok' if fwd_ok else 'FAIL'}")
+        row["forward_auto_vs_plain"] = fwd
+        del g, s
+        if not fwd_ok:
+            return None
+        recorded = []
+        if name == "oxford stream":
+            step = make_eval_step(model)
+
+            def record(*args):
+                maps = step(*args)
+                recorded.append(pose.decode_pose(*maps))
+                return maps
+
+            def loop(eval_step):
+                return stream_eval(model, cfg, split, range(n), batch_size=b,
+                                   meters_per_pixel=mpp, num_workers=4, eval_step=eval_step)
+        else:
+            step = make_eval_decode_step(model)
+
+            def record(*args):
+                vecs = step(*args)
+                recorded.append(vecs[:3])
+                return vecs
+
+            def loop(decode_step):
+                loader = ThreadedLoader(split, b, shuffle=False, num_workers=4, drop_last=False)
+                return eval_over_loader(decode_step, loader, mpp, fov=fov, with_prob_at_gt=True)
+        loop(step)          # a warm-up pass (pinned buffers, cuDNN's plans), uncounted
+        torch.cuda.synchronize()
+        corr_cuda.corr_core.launches = 0
+        summary = loop(record)
+        launches[name] = corr_cuda.corr_core.launches
+        n_batches = -(-n // b)
+        decoded = [torch.cat(col).cpu()[:n] for col in zip(*recorded)]
+        # the same inputs through the serving engine
+        engine = InferenceEngine(cfg, weights[cfg.name], batch_size=b)
+        served = engine.predict(grd, split.sat)
+        same = (decoded[0].tolist() == [p.row for p in served]
+                and decoded[1].tolist() == [p.col for p in served]
+                and decoded[2].tolist() == [p.angle_deg for p in served])
+        hs, ws = cfg.sat_size
+        # no error is longer than the patch's diagonal
+        longest = np.hypot(hs, ws) * (max(map(mpp, cities)) if callable(mpp) else mpp)
+        in_range = (summary.get("frames", n) == n and len(recorded) == n_batches
+                    and all(np.isfinite(v) for v in summary.values())
+                    and bool(((decoded[0] >= 0) & (decoded[0] < hs) & (decoded[1] >= 0)
+                              & (decoded[1] < ws)).all())
+                    and 0.0 <= summary["mean_ori_deg"] <= 180.0
+                    and 0.0 <= summary["mean_distance_m"] <= longest)
+        row.update(summary=summary, b1_launches=launches[name], b1_per_forward=per_forward,
+                   same_as_predict=same)
+        out[name] = row
+        log(f"eval {name}: {n} samples in {n_batches} batches (grd width {row['grd_width']}), "
+            f"B1 launches {launches[name]} (want {per_forward} x {n_batches}), decodes equal "
+            f"InferenceEngine.predict's {same}, summary {json.dumps(summary)}")
+        if launches[name] != per_forward * n_batches or not same or not in_range:
+            log(f"FAIL: eval {name}: launches, identity with predict or summary values")
+            return None
+        # the loop's rate, from loops of the plain step (the counted loop
+        # records and, for the stream, decodes once more): a smoke reading,
+        # the pipeline's fill and drain included
+        walls = []
+        for _ in range(EVAL_TIMED_LOOPS):
+            t0 = time.perf_counter()
+            loop(step)
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        rates = sorted(n / w for w in walls)
+        row.update(loop_s=walls, pairs_per_s=n / wall)
+        unit = "frames/s" if name == "oxford stream" else "pairs/s"
+        log(f"eval {name} batch {b} (f32, TF32 off; {n} samples a loop, fill and drain "
+            f"included): median {n / wall:.2f} {unit} over {EVAL_TIMED_LOOPS} loops (min "
+            f"{rates[0]:.2f}, max {rates[-1]:.2f}), median loop {wall * 1e3:.1f} ms [{card}]")
+        if name == "vigor":
+            prof = profile_call(lambda: loop(step), "one VIGOR eval loop", card, wall * 1e3)
+            row["profile"] = prof
+            row["idle_share"] = 1.0 - prof["busy_ms"] / prof["wall_ms"]
+            log(f"eval vigor: device idle {row['idle_share']:.1%} of one profiled loop "
+                f"({prof['busy_ms']:.2f} ms busy of {prof['wall_ms']:.2f} ms) [{card}]")
+        del model, engine
+        torch.cuda.empty_cache()
+    report["eval"] = out
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -697,6 +927,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"ccvpe_tpu_torch {ccvpe_tpu_torch.__version__} device {kind}")
     report["card"] = card
+    # the data layer reads images with PIL; a C decoder would need libjpeg's
+    # and libpng's headers
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} importable"
+    except ImportError:
+        pil = "PIL not importable"
+    headers = {h: os.path.exists(os.path.join("/usr/include", h)) for h in ("jpeglib.h", "png.h")}
+    log(f"{pil}; headers in /usr/include: {json.dumps(headers)}")
+    report["pil"], report["image_headers"] = pil, headers
 
     # 2. build every kernel, and lmu.cu with B3's phase timer, one nvcc per
     #    library, all started together
@@ -1058,32 +1298,7 @@ def main() -> int:
     model = engine.model
     g = device_normalize(torch.from_numpy(grd[:batch]).cuda())
     s = device_normalize(torch.from_numpy(sat[:batch]).cuda())
-    raw = {}
-    hook = model.conv1_ori.register_forward_hook(lambda m, i, o: raw.update(ori=o))
-    outs = {}
-    with torch.inference_mode():
-        for impl in ("auto", "plain"):
-            model.config = dataclasses.replace(vigor, corr_impl=impl)
-            outs[impl] = model(g, s)
-            raw[impl] = torch.linalg.vector_norm(raw["ori"], dim=1)[..., None]
-    hook.remove()
-    model.config = vigor
-    a, p = outs["auto"], outs["plain"]
-    fwd = {
-        "logits": float((a.logits - p.logits).abs().max()),
-        "heatmap": float((a.heatmap - p.heatmap).abs().max()),
-        "scores": [float((x - y).abs().max()) for x, y in
-                   zip(a.matching_scores, p.matching_scores)],
-    }
-    well = (raw["plain"] > ORI_NORM_FLOOR).expand_as(a.ori)
-    fwd["ori_well_posed"] = float((a.ori - p.ori)[well].abs().max())
-    fwd_ok = (all(torch.isfinite(t).all() for t in (a.logits, a.heatmap, a.ori))
-              and torch.allclose(a.logits, p.logits, atol=FWD_LOGIT_ATOL, rtol=FWD_LOGIT_RTOL)
-              and fwd["heatmap"] <= FWD_HEATMAP_ATOL
-              and fwd["ori_well_posed"] <= FWD_ORI_ATOL
-              and all(e <= FWD_SCORE_ATOL for e in fwd["scores"])
-              and len(a.matching_scores) == 6
-              and tuple(a.heatmap.shape) == (batch, hs, ws, 1))
+    fwd, fwd_ok = forward_auto_vs_plain(model, g, s)
     log(f"forward auto vs plain: {json.dumps(fwd)} {'ok' if fwd_ok else 'FAIL'}")
     report["forward_auto_vs_plain"] = fwd
     if not fwd_ok:
@@ -1124,6 +1339,11 @@ def main() -> int:
     if train_launches is None:
         return 1
 
+    # 10. the evaluation path at full width
+    eval_launches = run_eval(card, report)
+    if eval_launches is None:
+        return 1
+
     def by(key):
         t_b = lmu_tot[f"{key}_bytes"] / HBM_BYTES_PER_S
         t_o = lmu_tot[f"{key}_flops"] / FP32_FLOPS_PER_S
@@ -1137,6 +1357,7 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "yardstick_ms": tot["matmul2_ms"], "r_ms": tot["r_ms"], "r_plain_ms": tot["r_plain_ms"],
         "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
+        "eval_launches": eval_launches,
     }, {
         "name": "lmu_fwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:264",

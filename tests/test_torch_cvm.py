@@ -1,8 +1,9 @@
 """Port vs JAX: the whole CVM forward (eval mode) on tiny(), tiny with an
 orientation prior (bins -1..1), tiny with centre-window matching, and the
 port's fused decoder stages (lmu_fused_min_res=32) against the JAX unfused
-forward, with JAX weights carried across by state_dict_from_jax and loaded
-strictly. A slow case runs the real VIGOR geometry at batch 1."""
+forward, and tiny on a 160-column ground image (a FoV slice), with JAX
+weights carried across by state_dict_from_jax and loaded strictly. Slow
+cases run the real VIGOR, KITTI and Oxford geometries at batch 1."""
 
 import dataclasses
 
@@ -25,6 +26,10 @@ VARIANTS = {
     "ori_prior": ({"ori_noise": 90.0}, {}),
     "center_window": ({"center_window": True}, {}),
     "lmu_fused": ({}, {"lmu_fused_min_res": 32}),
+    # a FoV-sliced panorama: 160 columns, VIGOR's 640 at FoV 90 (static-224
+    # SAME and circular pads at that width), each scale's descriptor shorter
+    # than its D and embedded at offset 0
+    "fov_width_160": ({"grd_size": (64, 160), "grd_desc_channels": (16, 8, 4, 2, 1, 1)}, {}),
 }
 
 
@@ -135,11 +140,35 @@ def test_state_dict_names_are_the_references():
     assert "conv1.0.bias" in names and "conv2_ori.2.weight" in names
 
 
-@pytest.mark.slow
-def test_vigor_geometry_matches_jax():
-    ref, out, raw_norm = run_both("vigor", {}, batch=1, seed=12)
+def assert_geometry_matches(preset, seed):
+    ref, out, raw_norm = run_both(preset, {}, batch=1, seed=seed)
+    errs = {"logits": np.abs(out.logits.numpy() - ref.logits).max(),
+            "heatmap": np.abs(out.heatmap.numpy() - ref.heatmap).max(),
+            "scores": max(np.abs(a.numpy() - b).max()
+                          for a, b in zip(out.matching_scores, ref.matching_scores))}
+    print(f"{preset} geometry, port vs JAX max abs:",
+          {k: float(f"{v:.3g}") for k, v in errs.items()})
     np.testing.assert_allclose(out.logits.numpy(), ref.logits, **OUT_TOL)
     np.testing.assert_allclose(out.heatmap.numpy(), ref.heatmap, atol=HEATMAP_ATOL)
     assert_ori_close(out.ori.numpy(), ref.ori, raw_norm)
+    assert len(out.matching_scores) == len(ref.matching_scores) == 6
     for a, b in zip(out.matching_scores, ref.matching_scores):
         np.testing.assert_allclose(a.numpy(), b, **OUT_TOL)
+
+
+@pytest.mark.slow
+def test_vigor_geometry_matches_jax():
+    assert_geometry_matches("vigor", seed=12)
+
+
+@pytest.mark.slow
+def test_kitti_geometry_matches_jax():
+    """D = 2048, K = 16, the level-6 shift of 8, a 256 x 1024 ground image
+    without circular padding."""
+    assert_geometry_matches("kitti", seed=13)
+
+
+@pytest.mark.slow
+def test_oxford_geometry_matches_jax():
+    """A 154 x 231 ground image, centre-window matching."""
+    assert_geometry_matches("oxford", seed=14)

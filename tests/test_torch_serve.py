@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import HEATMAP_ATOL, jax_variables
+from _torch_helpers import HEATMAP_ATOL, jax_variables, same_peaks
 from ccvpe_tpu.core import config as jcfg
 from ccvpe_tpu.models.cvm import CVM as JaxCVM
 from ccvpe_tpu.ops import pose as jpose
@@ -45,11 +45,9 @@ def setup():
 
 
 def assert_same_peak(heatmap, rows, cols, ref_rows, ref_cols):
-    """Equal argmax, except at near-ties where the two JAX heatmap values
-    differ by less than the heatmap tolerance."""
-    for i, (r, c, rr, rc) in enumerate(zip(rows, cols, ref_rows, ref_cols)):
-        if (r, c) != (rr, rc):
-            assert abs(heatmap[i, r, c] - heatmap[i, rr, rc]) < HEATMAP_ATOL, i
+    """Equal argmax, except at one near-tie where the two JAX heatmap
+    values differ by less than TIE_ATOL (_torch_helpers.same_peaks)."""
+    same_peaks(rows, cols, ref_rows, ref_cols, lambda idx: heatmap[idx])
 
 
 def test_predict_matches_jax_with_padded_tail(setup):
