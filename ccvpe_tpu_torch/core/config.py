@@ -120,8 +120,13 @@ class TrainConfig:
 
     `flatten_optimizer` raveled the parameters into one vector for optax in
     the JAX package, which changes no numbers; the port accepts it and
-    ignores it. The run-management fields (checkpoints, logging, sharding axes,
-    fault injection) belong to the Trainer, which is not ported yet."""
+    ignores it. The run-management fields are read by train/trainer.py:
+    `epochs`, `seed` (the initial weights, and drop-connect's per-step seeds),
+    `pretrained_backbone`, `warm_start`, `checkpoint_dir`, `keep_checkpoints`,
+    `checkpoint_every_steps`, `log_every` and `fake_fail_at_step`.
+    `data_axis` and `model_axis` name the JAX package's sharding axes and
+    have no meaning on one card: they wait for scale-out (ROADMAP.md,
+    queue A6)."""
 
     learning_rate: float = 1e-4
     beta1: float = 0.9

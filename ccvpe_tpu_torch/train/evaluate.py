@@ -20,12 +20,14 @@ device="cpu" to run on the CPU.
 from __future__ import annotations
 
 import collections
+import os
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ccvpe_tpu_torch.core import config as cfg_lib
+from ccvpe_tpu_torch.core.checkpoint import latest_model_state
 from ccvpe_tpu_torch.data.kitti import KittiDataset
 from ccvpe_tpu_torch.data.loader import ThreadedLoader
 from ccvpe_tpu_torch.data.vigor import VIGORDataset
@@ -39,9 +41,14 @@ MULTI_HOST = ("pooling per-sample errors across processes is not ported "
 
 
 def load_model(model_cfg: cfg_lib.ModelConfig, checkpoint: str, device) -> CVM:
-    """A CVM in eval mode on `device` from a reference .pt/.pth state dict
-    or an .npz of the same keys (utils/convert.py::load_state_dict_file)."""
-    return build_cvm(model_cfg, device, state_dict=load_state_dict_file(checkpoint))
+    """A CVM in eval mode on `device` from a reference .pt/.pth state dict,
+    an .npz of the same keys (utils/convert.py::load_state_dict_file), or a
+    directory of the Trainer's checkpoints (core/checkpoint.py), whose
+    newest step gives the model. Any other directory raises."""
+    sd = latest_model_state(checkpoint) if os.path.isdir(checkpoint) else None
+    if sd is None:
+        sd = load_state_dict_file(checkpoint)
+    return build_cvm(model_cfg, device, state_dict=sd)
 
 
 def slice_fov(grd: np.ndarray, fov: int) -> np.ndarray:

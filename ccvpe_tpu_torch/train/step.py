@@ -16,6 +16,7 @@ unless the caller passes device="cpu".
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -234,17 +235,34 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     return step
 
 
+@contextlib.contextmanager
+def eval_mode(model: CVM):
+    """The model in eval mode for the block, then back in the caller's mode:
+    the eval steps apply it with train=False whatever mode it is in, as the
+    JAX package does (ccvpe_tpu/train/step.py:262, :279), so BN reads its
+    running stats and leaves them unchanged, and no drop-connect runs, also
+    on a model that is being trained."""
+    was = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was)
+
+
 def make_eval_step(model: CVM) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """Forward only, returning the full maps (heatmap [B,H,W,1], ori
     [B,H,W,2]) on the model's device: for where the maps themselves are the
     product (visualization, golden parity, the stream's decode). Metric
     loops use make_eval_decode_step, which brings back six [B] vectors in
-    place of the maps. Runs in float32, TF32 off (core/precision.py)."""
+    place of the maps. Runs in float32, TF32 off (core/precision.py), and
+    in eval mode (see eval_mode)."""
 
     @torch.inference_mode()
     @float32_matmuls()
     def step(grd, sat):
-        out = model(device_normalize(grd), device_normalize(sat))
+        with eval_mode(model):
+            out = model(device_normalize(grd), device_normalize(sat))
         return out.heatmap, out.ori
 
     return step
@@ -255,12 +273,14 @@ def make_eval_decode_step(model: CVM) -> Callable[..., Tuple[torch.Tensor, ...]]
     tensors (pred rows, cols, angle deg, GT rows, cols, prob@GT) on the
     model's device; the heatmap never leaves it. Inputs are NHWC tensors on
     that device, images uint8 or normalized f32, offsets [B]. Runs in
-    float32, TF32 off (core/precision.py)."""
+    float32, TF32 off (core/precision.py), and in eval mode (see
+    eval_mode)."""
 
     @torch.inference_mode()
     @float32_matmuls()
     def step(grd, sat, row_offset, col_offset):
-        out = model(device_normalize(grd), device_normalize(sat))
+        with eval_mode(model):
+            out = model(device_normalize(grd), device_normalize(sat))
         rows, cols, angle = pose.decode_pose(out.heatmap, out.ori)
         hs, ws = out.heatmap.shape[1:3]
         gt_rows, gt_cols = pose.gt_location_device(hs, ws, row_offset, col_offset)

@@ -44,7 +44,8 @@ def stream_eval(
     """Evaluate one traversal's frames in order; returns the summary and
     `fps`. `model` must lie on `device` (default the card). `eval_step` is a
     full-map step (train/step.py::make_eval_step), by default that of
-    `model`. One shard only: pooling across processes is not ported."""
+    `model`, which runs it in eval mode whatever mode it is in. One shard
+    only: pooling across processes is not ported."""
     if num_shards > 1:
         raise NotImplementedError(f"stream_eval over {num_shards} shards: " + MULTI_HOST)
     device = resolve_device(device)

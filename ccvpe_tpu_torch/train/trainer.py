@@ -1,0 +1,211 @@
+"""Epoch driver: training, per-epoch validation, checkpoints with exact
+resume (the port of ccvpe_tpu/train/trainer.py:30-201).
+
+Replaces the reference per-script loops (reference train_VIGOR.py:96-244,
+train_KITTI.py, train_OxfordRobotCar.py) with one driver over the config:
+train steps fed by a prefetching copy to the card, the eval decode step over
+named validation sets, asynchronous checkpoints of the full state resumed at
+the exact (epoch, batch), and CSV/JSONL metric rows.
+
+One process on one card: a loader split into shards (num_shards > 1) is
+refused, and TrainConfig.data_axis / model_axis, the JAX package's sharding
+axes, are not read (ROADMAP.md, queue A: scale-out).
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Callable, Dict, Iterable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ccvpe_tpu_torch.core.checkpoint import CheckpointManager
+from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
+from ccvpe_tpu_torch.core.metrics import MetricWriter
+from ccvpe_tpu_torch.models.cvm import resolve_device
+from ccvpe_tpu_torch.train.evaluate import (MULTI_HOST, _host_buffer, _Slot,
+                                            eval_over_loader)
+from ccvpe_tpu_torch.train.step import (Batch, create_train_state, make_eval_decode_step,
+                                        make_optimizer, make_train_step)
+from ccvpe_tpu_torch.utils.convert import init_with_pretrained_backbone, load_state_dict_file
+
+
+def batch_from_numpy(b: Dict[str, np.ndarray]) -> Batch:
+    return Batch(grd=b["grd"], sat=b["sat"], row_offset=b["row_offset"],
+                 col_offset=b["col_offset"], angle_deg=b["angle_deg"])
+
+
+def device_prefetch(loader: Iterable[Dict[str, np.ndarray]], device,
+                    depth: int = 2) -> Iterator[Batch]:
+    """Iterate a host loader `depth` batches ahead of the consumer, as Batches
+    of tensors on `device`. Each batch is staged in a pinned slot of a ring
+    and copied to the card without blocking, on the current stream, behind
+    the steps already queued; a slot is written again only after the event
+    recorded after its copy (train/evaluate.py::pipelined's discipline), so
+    no copy reads a buffer being refilled. On the CPU the batch's own arrays
+    are handed on."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    ring = [_Slot() for _ in range(depth + 1)]
+    pending: collections.deque = collections.deque()
+
+    def stage(slot: _Slot, raw: Dict[str, np.ndarray]) -> Batch:
+        srcs = [torch.as_tensor(np.asarray(a)) for a in batch_from_numpy(raw)]
+        if not pin:
+            return Batch(*srcs)
+        slot.wait()
+        if len(slot.inputs) != len(srcs):
+            slot.inputs = [None] * len(srcs)
+        slot.inputs = [_host_buffer(buf, src.shape, src.dtype, True)
+                       for buf, src in zip(slot.inputs, srcs)]
+        for buf, src in zip(slot.inputs, srcs):
+            buf.copy_(src)
+        batch = Batch(*(buf.to(device, non_blocking=True) for buf in slot.inputs))
+        slot.done = torch.cuda.Event()
+        slot.done.record()
+        return batch
+
+    for i, raw in enumerate(loader):
+        pending.append(stage(ring[i % len(ring)], raw))
+        if len(pending) > depth:
+            yield pending.popleft()
+    while pending:
+        yield pending.popleft()
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of the drop-connect masks of the update that follows `step`
+    earlier ones: a 64-bit mix of (TrainConfig.seed + 1, step), the port's
+    counterpart of JAX's fold_in(PRNGKey(seed + 1), state.step)
+    (ccvpe_tpu/train/step.py:218, trainer.py:190). A function of the step
+    alone, so a resumed run draws the masks an uninterrupted one draws
+    without storing any generator state."""
+    return int(np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)[0])
+
+
+class Trainer:
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 workdir: str = "runs/default", device=None):
+        """Weights drawn from torch.Generator seed train_cfg.seed, on `device`
+        (default the card, which raises without one). The newest checkpoint
+        under workdir/train_cfg.checkpoint_dir, if any, wins over a warm
+        start or a pretrained backbone."""
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.device = resolve_device(device)
+        self.state = create_train_state(model_cfg, train_cfg,
+                                        torch.Generator().manual_seed(train_cfg.seed),
+                                        device=self.device)
+        self.train_step = make_train_step(model_cfg, train_cfg)
+        # the scalar eval step on the model being trained (it runs it in eval
+        # mode); validate() brings back [B] vectors, never the maps
+        self.eval_step = make_eval_decode_step(self.state.model)
+        # drop-connect's masks, re-seeded before every step (step_seed)
+        self.generator = torch.Generator(device=self.device)
+        self.metrics = MetricWriter(workdir, model_cfg.name)
+        self.ckpt = CheckpointManager(f"{workdir}/{train_cfg.checkpoint_dir}",
+                                      keep=train_cfg.keep_checkpoints)
+        self.restored = False
+        self.cursor = {"epoch": 0, "batch": 0}
+        restored = self.ckpt.restore_latest(self.state)
+        if restored is not None:
+            self.state, self.cursor = restored
+            self.restored = True
+            print(f"resumed from step {self.state.step} "
+                  f"(epoch {self.cursor['epoch']}, batch {self.cursor['batch']})")
+        elif train_cfg.warm_start or train_cfg.pretrained_backbone:
+            self._apply_initial_weights()
+
+    def _apply_initial_weights(self) -> None:
+        """Fill weights before the first step: either a full reference CVM
+        warm start (.pt or .npz, loaded strictly), or ImageNet
+        EfficientNet-B0 weights into BOTH encoders (the reference's default
+        init, models.py:55,99 + efficientnet_pytorch/utils.py:729-758, which
+        the published accuracy rests on). The optimizer state is made
+        afresh."""
+        cfg = self.train_cfg
+        model = self.state.model
+        if cfg.warm_start:
+            model.load_state_dict(load_state_dict_file(cfg.warm_start), strict=True)
+            print(f"warm start from {cfg.warm_start}")
+        else:
+            init_with_pretrained_backbone(model, load_state_dict_file(cfg.pretrained_backbone))
+            print(f"pretrained backbone init from {cfg.pretrained_backbone}")
+        self.state.optimizer = make_optimizer(model.parameters(), cfg)
+
+    def _log(self, epoch: int, i: int, running, t_last: float) -> None:
+        """One metric row: the mean of each of the last steps' metrics (one
+        read from the card for the window), and pairs/s over its wall time."""
+        keys = list(running[0])
+        means = torch.stack([torch.stack([m[k] for m in running]) for k in keys])
+        vals = dict(zip(keys, means.double().mean(dim=1).tolist()))
+        n = len(running) * self.train_cfg.batch_size
+        vals["pairs_per_s"] = n / (time.perf_counter() - t_last)
+        self.metrics.write(self.state.step, vals)
+        print(f"[{epoch}, {i + 1}] loss: {vals['loss']:.3f} ({vals['pairs_per_s']:.2f} pairs/s)")
+
+    def train_epoch(self, loader: Iterable[Dict[str, np.ndarray]], epoch: int,
+                    start_batch: int = 0) -> None:
+        """Run one epoch, optionally resuming at `start_batch` within the
+        epoch's deterministic shuffle (exact mid-epoch resume). Checkpoints
+        record the NEXT position to run as an (epoch, batch) cursor. The
+        step's metrics stay on the card until a log row averages them."""
+        if getattr(loader, "num_shards", 1) > 1:
+            raise NotImplementedError(f"training over {loader.num_shards} shards: "
+                                      + MULTI_HOST)
+        cfg = self.train_cfg
+        if start_batch:
+            if hasattr(loader, "start_batch"):
+                loader.start_batch = start_batch   # skip without decoding
+            else:
+                it = iter(loader)
+                for _ in range(start_batch):
+                    next(it)
+                loader = it
+        t_last = time.perf_counter()
+        running = []
+        for j, batch in enumerate(device_prefetch(loader, self.device)):
+            i = start_batch + j   # batch index within the epoch's shuffle
+            self.generator.manual_seed(step_seed(cfg.seed, self.state.step))
+            self.state, m = self.train_step(self.state, batch, self.generator)
+            running.append(m)
+            step = self.state.step
+            if cfg.checkpoint_every_steps and step % cfg.checkpoint_every_steps == 0:
+                self.ckpt.save(step, self.state, cursor={"epoch": epoch, "batch": i + 1})
+            if cfg.fake_fail_at_step is not None and step == cfg.fake_fail_at_step:
+                self.ckpt.wait()
+                raise RuntimeError(f"fake failure injected at step {step}")
+            if (j + 1) % cfg.log_every == 0:
+                self._log(epoch, i, running, t_last)
+                running, t_last = [], time.perf_counter()
+        self.ckpt.save(self.state.step, self.state, cursor={"epoch": epoch + 1, "batch": 0})
+
+    def validate(self, loaders, meters_per_pixel, epoch: int):
+        """Per-epoch evaluation through eval_over_loader. `loaders` is one
+        loader, or a dict of named eval sets evaluated every epoch (the KITTI
+        protocol runs test1 AND test2 each epoch, reference
+        train_KITTI.py:168-279); recalls @1/3/5 m and deg are in every row."""
+        named = loaders if isinstance(loaders, dict) else {"val": loaders}
+        results = {}
+        for name, loader in named.items():
+            summary = eval_over_loader(self.eval_step, loader, meters_per_pixel,
+                                       device=self.device)
+            self.metrics.write(self.state.step, {f"{name}/{k}": v for k, v in summary.items()})
+            print(f"epoch {epoch} {name}: {summary}")
+            results[name] = summary
+        return results if isinstance(loaders, dict) else results["val"]
+
+    def fit(self, train_loader_fn: Callable[[int], Iterable], val_loader_fn: Callable[[int], object],
+            meters_per_pixel, epochs: Optional[int] = None) -> None:
+        total_epochs = epochs or self.train_cfg.epochs
+        # exact resume: the checkpointed cursor names the next (epoch, batch)
+        # to run under each epoch's deterministic shuffle
+        start_epoch = min(self.cursor["epoch"], total_epochs) if self.restored else 0
+        start_batch = self.cursor["batch"] if self.restored else 0
+        for epoch in range(start_epoch, total_epochs):
+            self.train_epoch(train_loader_fn(epoch), epoch,
+                             start_batch=start_batch if epoch == start_epoch else 0)
+            self.validate(val_loader_fn(epoch), meters_per_pixel, epoch)
+        self.ckpt.wait()

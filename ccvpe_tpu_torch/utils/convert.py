@@ -140,13 +140,50 @@ def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """A reference .pt/.pth state dict, or an .npz archive of the same keys.
     An Orbax run directory needs JAX to read, so it raises: export it first
-    with ccvpe_tpu.utils.torch_convert.export_cvm."""
+    with ccvpe_tpu.utils.torch_convert.export_cvm. (The port's own Trainer
+    directories are read by train/evaluate.py::load_model.)"""
     if os.path.isdir(path):
         raise ValueError(
-            f"{path} is a directory (an Orbax checkpoint?); the port reads "
-            "reference .pt or .npz state dicts. Export one from JAX with "
+            f"{path} is a directory without the port's step files (an Orbax "
+            "checkpoint?); the port reads reference .pt or .npz state dicts and "
+            "its own Trainer's checkpoint directories. Export one from JAX with "
             "ccvpe_tpu.utils.torch_convert.export_cvm")
     if path.endswith(".npz"):
         with np.load(path) as z:
             return {k: torch.from_numpy(np.array(z[k])) for k in z.files}
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+@torch.no_grad()
+def init_with_pretrained_backbone(model: torch.nn.Module,
+                                  backbone_sd: Mapping[str, Any]) -> torch.nn.Module:
+    """Fill BOTH encoders of a CVM, in place, from one ImageNet
+    EfficientNet-B0 state dict (the port of
+    ccvpe_tpu/utils/torch_convert.py::init_with_pretrained_backbone, :219).
+
+    The reference initializes the ground and aerial encoders from the same
+    pretrained weights (models.py:55,99), dropping the classifier
+    (efficientnet_pytorch/utils.py:729-758): the `_fc.*` keys are skipped,
+    and so are `num_batches_tracked` counters, which the JAX package's BN
+    does not keep. Every other key must name a tensor of the encoder, of the
+    same shape (KeyError, ValueError otherwise), and every parameter and
+    running stat of the encoder must be given (KeyError). Heads and decoders
+    keep their weights. `backbone_sd` maps the efficientnet_pytorch names to
+    tensors or numpy arrays (e.g. load_state_dict_file of
+    efficientnet-b0-355c32eb.pth)."""
+    src = {k: torch.as_tensor(np.asarray(v)) for k, v in backbone_sd.items()
+           if not k.startswith("_fc.") and not k.endswith("num_batches_tracked")}
+    for encoder in (model.grd_efficientnet, model.sat_efficientnet):
+        dst = {k: v for k, v in encoder.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+        for k, v in src.items():
+            if k not in dst:
+                raise KeyError(f"unexpected backbone key {k}")
+            if tuple(v.shape) != tuple(dst[k].shape):
+                raise ValueError(f"{k}: {tuple(v.shape)} != {tuple(dst[k].shape)}")
+        missing = sorted(set(dst) - set(src))
+        if missing:
+            raise KeyError(f"backbone keys missing: {missing[:5]}")
+        for k, v in src.items():
+            dst[k].copy_(v)
+    return model

@@ -75,11 +75,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bins) through the forward with the kernel against the plain
      correlation; the device's idle share over one VIGOR loop under
      torch.profiler;
- 11. a {"kernels": [...], "probes": [...]} line (probes: the primitive
+ 11. the driver at full width, in a child process (python3 chip_smoke.py
+     --driver <json>) whose environment sets CUBLAS_WORKSPACE_CONFIG=:4096:8
+     and which runs under core/debug.py::deterministic(), so neither
+     touches phases 1-10; its non-zero exit fails the run: vigor() with
+     lmu_fused_min_res=256, batch 8, an in-memory split from numpy seed 17
+     (24 train samples, 12 validation samples), 2 epochs. A control
+     Trainer.fit (its launches per train step and per validation forward
+     counted); a run stopped by fake_fail_at_step=4 with a checkpoint every
+     2 steps; a new Trainer resumed from it, whose parameters, BN buffers,
+     Adam state, last validation summary and metric rows must equal the
+     control run's to the bit; Trainer.validate against eval_over_loader
+     called directly on the same weights, BN buffers unchanged; the
+     Trainer's pairs/s from its log rows beside phase 9's p50, checkpoint
+     size, host copy, write and restore times, the child's wall time;
+ 12. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
-     launches in each eval loop), then the last line
+     launches in each eval loop; each kernel's driver_launches are its
+     launches in phase 11's control Trainer.fit), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Details go to chiprun_out/chip_smoke.json.
+Details go to chiprun_out/chip_smoke.json (phase 11's also to
+chiprun_out/chip_smoke_driver.json).
 
 TF32 is off for matmuls and cuDNN throughout, so every comparison and time
 is strict float32 (the entry points force it too, core/precision.py), but
@@ -906,6 +922,280 @@ def run_eval(card, report):
     return launches
 
 
+# --- phase 11: the driver, in a child process ---
+
+DRIVER_TIMEOUT_S = 300
+# per call on the Trainer's path (vigor(), lmu_fused_min_res=256): a train
+# step launches B1 with r at six scales, B2 and B3 at the four fused stages;
+# a validation forward B1 at six scales and B2 at the same four stages (the
+# fused stages are the model's, in eval as in training), B3 never
+DRIVER_STEP_LAUNCHES = {"corr_fwd": 6, "lmu_fwd": 4, "lmu_bwd": 4}
+DRIVER_VAL_LAUNCHES = {"corr_fwd": 6, "lmu_fwd": 4, "lmu_bwd": 0}
+
+
+def launch_counts() -> dict:
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    return {"corr_fwd": corr_cuda.corr_core.launches, "lmu_fwd": lmu_cuda.fused_stage.launches,
+            "lmu_bwd": lmu_cuda.fused_stage_bwd.launches}
+
+
+def zero_launch_counts() -> None:
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    corr_cuda.corr_core.launches = 0
+    lmu_cuda.fused_stage.launches = 0
+    lmu_cuda.fused_stage_bwd.launches = 0
+
+
+def count_calls(fn, calls):
+    """fn, recording the kernel launches of each call into `calls` (the
+    counters are bumped on the host where each kernel is launched)."""
+    def counted(*args, **kwargs):
+        before = launch_counts()
+        out = fn(*args, **kwargs)
+        after = launch_counts()
+        calls.append({k: after[k] - before[k] for k in after})
+        return out
+    return counted
+
+
+def driver_rows(workdir: str, name: str) -> list:
+    """The Trainer's JSONL metric rows without their wall-clock fields."""
+    with open(os.path.join(workdir, f"{name}.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items() if k not in ("time", "pairs_per_s")}
+                for line in f]
+
+
+def same_bits(a, b) -> list:
+    """Names of the state_dict entries (model or optimizer) that differ."""
+    bad = []
+    for k in a:
+        if torch.is_tensor(a[k]):
+            if not torch.equal(a[k], b[k]):
+                bad.append(k)
+        elif isinstance(a[k], dict):
+            bad += [f"{k}.{x}" for x in same_bits(a[k], b[k])]
+        elif a[k] != b[k]:
+            bad.append(k)
+    return bad
+
+
+def run_driver(card, report) -> bool:
+    """The driver at full width, in deterministic mode: vigor() with
+    lmu_fused_min_res=256, batch 8, weights from torch.Generator seed 17
+    (TrainConfig.seed), an in-memory split from numpy seed 17 of 24 train
+    samples (3 steps an epoch) and 12 validation samples (the last batch of
+    4 padded), 2 epochs, a log row a step, 2 checkpoints kept, workdirs in a
+    temporary directory. A control run of Trainer.fit; a run stopped by
+    fake_fail_at_step=4 with a checkpoint every 2 steps; a new Trainer
+    resumed from it, held to the control run to the bit; the Trainer's
+    validation against eval_over_loader called directly; launches per train
+    step and per validation forward; rates, checkpoint sizes and times."""
+    import gc
+    import tempfile
+
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.data import vigor as vigor_data
+    from ccvpe_tpu_torch.data.loader import ThreadedLoader
+    from ccvpe_tpu_torch.train.evaluate import eval_over_loader
+    from ccvpe_tpu_torch.train.step import make_eval_decode_step
+    from ccvpe_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg_lib.vigor(), lmu_fused_min_res=256)
+    b, n_train, n_val = 8, 24, 12
+    n = n_train + n_val
+    cities = [("NewYork", "Seattle", "SanFrancisco", "Chicago")[i % 4] for i in range(n)]
+    split = InMemorySplit(vigor_data.VigorSample, cfg, n, city=cities)
+    mpp = lambda city: vigor_data.METER_PER_PIXEL[city] / cfg.sat_size[0] * 640.0  # noqa: E731
+
+    def train_loaders(epoch):
+        return ThreadedLoader(split, b, shuffle=True, seed=epoch, num_workers=4,
+                              indices=range(n_train))
+
+    def val_loaders(epoch):
+        return ThreadedLoader(split, b, shuffle=False, num_workers=4, drop_last=False,
+                              indices=range(n_train, n))
+
+    base = dict(batch_size=b, epochs=2, log_every=1, keep_checkpoints=2)
+    out = report["driver"] = {}
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(what)
+            log(f"FAIL: driver: {what}")
+        return ok
+
+    def instrument(trainer):
+        steps, forwards, summaries = [], [], []
+        trainer.train_step = count_calls(trainer.train_step, steps)
+        trainer.eval_step = count_calls(trainer.eval_step, forwards)
+        validate = trainer.validate
+
+        def recorded(*args, **kwargs):
+            summaries.append(validate(*args, **kwargs))
+            return summaries[-1]
+        trainer.validate = recorded
+        return steps, forwards, summaries
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
+        # the control run, counted
+        control = Trainer(cfg, cfg_lib.TrainConfig(**base), workdir=f"{tmp}/control")
+        steps, forwards, summaries = instrument(control)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        control.fit(train_loaders, val_loaders, mpp)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = launch_counts()
+        out.update(fit_s=fit_s, fit_launches=fit_launches, step_launches=steps,
+                   val_forward_launches=forwards)
+        log(f"driver control: Trainer.fit, {control.state.step} steps and {len(summaries)} "
+            f"validations in {fit_s:.2f} s; launches {fit_launches}; per step {steps[0]}, "
+            f"per validation forward {forwards[0]} [{card}]")
+        check(control.state.step == 6 and len(summaries) == 2, "control: 6 steps, 2 validations")
+        check(all(c == DRIVER_STEP_LAUNCHES for c in steps) and len(steps) == 6,
+              f"launches per train step {steps}, want {DRIVER_STEP_LAUNCHES}")
+        check(all(c == DRIVER_VAL_LAUNCHES for c in forwards) and len(forwards) == 4,
+              f"launches per validation forward {forwards}, want {DRIVER_VAL_LAUNCHES}")
+        rows = driver_rows(f"{tmp}/control", cfg.name)
+        check(all(np.isfinite(v) for r in rows for v in r.values()), "finite metric rows")
+        check(all(0.0 <= v <= 1.0 for k, v in summaries[-1].items() if "recall" in k)
+              and np.isfinite(summaries[-1]["mean_distance_m"]), "validation summary in range")
+
+        # the Trainer's pairs/s from its log rows (the first step of a run
+        # pays for the allocator and cuDNN's plans)
+        with open(f"{tmp}/control/{cfg.name}.jsonl") as f:
+            rates = [r["pairs_per_s"] for r in map(json.loads, f) if "pairs_per_s" in r]
+        steady = float(np.median(rates[1:]))
+        out.update(pairs_per_s=rates, steady_pairs_per_s=steady)
+        log(f"driver: Trainer pairs/s per log row {[round(r, 2) for r in rates]}; steady (median "
+            f"of rows 2-6) {steady:.2f} pairs/s, {b / steady * 1e3:.2f} ms a step [{card}]")
+
+        # the Trainer's validation against a direct call, on the same weights
+        model = control.state.model
+        buffers = {k: v.clone() for k, v in model.named_buffers()}
+        via_trainer = control.validate(val_loaders(0), mpp, epoch=2)
+        direct = eval_over_loader(make_eval_decode_step(model), val_loaders(0), mpp)
+        changed = [k for k, v in model.named_buffers() if not torch.equal(v, buffers[k])]
+        check(via_trainer == direct, f"Trainer.validate {via_trainer} != eval_over_loader {direct}")
+        check(not changed and model.training, f"validation moved buffers {changed[:5]} or the mode")
+        log(f"driver: Trainer.validate equals eval_over_loader on the same weights: "
+            f"{via_trainer == direct}; BN buffers unchanged: {not changed}; model.training "
+            f"{model.training}")
+
+        # a run stopped at step 4, then resumed by a new Trainer
+        interrupted = Trainer(cfg, cfg_lib.TrainConfig(**base, checkpoint_every_steps=2,
+                                                      fake_fail_at_step=4),
+                              workdir=f"{tmp}/resumed")
+        raised = ""
+        try:
+            interrupted.fit(train_loaders, val_loaders, mpp)
+        except RuntimeError as e:
+            if "fake failure" not in str(e):
+                raise
+            raised = str(e)
+        check(raised and interrupted.state.step == 4, "fake failure at step 4")
+        timings = control.ckpt.timings + interrupted.ckpt.timings
+        del interrupted
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = Trainer(cfg, cfg_lib.TrainConfig(**base), workdir=f"{tmp}/resumed")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(resumed.restored and resumed.cursor == {"epoch": 1, "batch": 1}
+              and resumed.state.step == 4, f"restored {resumed.restored}, cursor {resumed.cursor}")
+        t0 = time.perf_counter()
+        resumed.ckpt.restore_latest(resumed.state)       # the same file again, timed alone
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        _, _, resumed_summaries = instrument(resumed)
+        resumed.fit(train_loaders, val_loaders, mpp)
+        torch.cuda.synchronize()
+        timings += resumed.ckpt.timings
+        check(resumed.state.step == 6, f"resumed run ends at step {resumed.state.step}")
+        bad_model = same_bits(resumed.state.model.state_dict(), control.state.model.state_dict())
+        bad_opt = same_bits(resumed.state.optimizer.opt.state_dict()["state"],
+                            control.state.optimizer.opt.state_dict()["state"])
+        want_rows = [r for r in rows if not (r["step"] == 4 and "loss" in r)]
+        got_rows = driver_rows(f"{tmp}/resumed", cfg.name)
+        check(not bad_model and not bad_opt, f"resumed != control: {(bad_model + bad_opt)[:10]}")
+        check(resumed_summaries[-1] == summaries[-1], "last validation summaries differ")
+        check(got_rows == want_rows, "metric rows differ")
+        log(f"driver resume: {raised!r}; a new Trainer restored step 4 at cursor "
+            f"{resumed.cursor} and ran to step {resumed.state.step}; its parameters and BN "
+            f"buffers ({len(bad_model)} of {len(control.state.model.state_dict())} differ), Adam "
+            f"state ({len(bad_opt)} differ), last validation summary "
+            f"({resumed_summaries[-1] == summaries[-1]}) and {len(got_rows)} metric rows "
+            f"({got_rows == want_rows}) equal the control run's to the bit")
+
+        sizes = [t["bytes"] for t in timings]
+        copy_s = [t["copy_s"] for t in timings]
+        write_s = [t["write_s"] for t in timings]
+        out.update(checkpoints=timings, restore_s=restore_s, resumed_init_s=init_s,
+                   bitwise=dict(model=bad_model, optimizer=bad_opt))
+        log(f"driver checkpoints: {len(timings)} saves of {np.median(sizes) / 1e6:.1f} MB; host "
+            f"copy median {np.median(copy_s) * 1e3:.1f} ms (max {max(copy_s) * 1e3:.1f}), write "
+            f"median {np.median(write_s) * 1e3:.1f} ms (max {max(write_s) * 1e3:.1f}) on a "
+            f"background thread; restore {restore_s * 1e3:.1f} ms; a resumed Trainer's "
+            f"construction {init_s:.2f} s [{card}]")
+    return not fails
+
+
+def driver_main(out_path: str) -> int:
+    """Phase 11 in its own process: cuBLAS's fixed workspace (set by the
+    parent in the environment) and deterministic mode stay out of phases
+    1-10. The kernels were built by the parent; loading finds them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --driver: no CUDA device", file=sys.stderr)
+        return 2
+    from ccvpe_tpu_torch.core.debug import deterministic
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    corr_cuda.load_library()
+    lmu_cuda.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    report = {}
+    with deterministic():
+        ok = run_driver(card, report)
+    with open(out_path, "w") as f:
+        json.dump(report, f, indent=1)
+    return 0 if ok else 1
+
+
+def run_driver_child(card, report, train_p50_ms):
+    """Phase 11 in a child process with CUBLAS_WORKSPACE_CONFIG=:4096:8;
+    a non-zero exit fails the run. Returns the driver's report, or None."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_path = os.path.abspath(os.path.join(OUT_DIR, "chip_smoke_driver.json"))
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--driver", out_path],
+                              env=env, timeout=DRIVER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        log(f"FAIL: the driver's child process ran over {DRIVER_TIMEOUT_S} s")
+        return None
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        log(f"FAIL: the driver's child process exited with {proc.returncode}")
+        return None
+    with open(out_path) as f:
+        driver = json.load(f)["driver"]
+    driver["child_wall_s"] = wall
+    step_ms = 8 / driver["steady_pairs_per_s"] * 1e3
+    log(f"driver: child process wall {wall:.2f} s; Trainer steady {step_ms:.2f} ms a step "
+        f"(deterministic mode) against phase 9's bare train step p50 {train_p50_ms:.2f} ms "
+        f"[{card}]")
+    report["driver"] = driver
+    return driver
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1344,6 +1634,11 @@ def main() -> int:
     if eval_launches is None:
         return 1
 
+    # 11. the driver at full width, in a child process
+    driver = run_driver_child(card, report, report["train"]["p50_step_ms"])
+    if driver is None:
+        return 1
+
     def by(key):
         t_b = lmu_tot[f"{key}_bytes"] / HBM_BYTES_PER_S
         t_o = lmu_tot[f"{key}_flops"] / FP32_FLOPS_PER_S
@@ -1357,7 +1652,7 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "yardstick_ms": tot["matmul2_ms"], "r_ms": tot["r_ms"], "r_plain_ms": tot["r_plain_ms"],
         "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
-        "eval_launches": eval_launches,
+        "eval_launches": eval_launches, "driver_launches": driver["fit_launches"]["corr_fwd"],
     }, {
         "name": "lmu_fwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:264",
@@ -1365,6 +1660,7 @@ def main() -> int:
         "ms": lmu_tot["fwd_ms"], "plain_ms": lmu_tot["fwd_plain_ms"],
         "bound_ms": lmu_tot["fwd_bound_ms"], "bound_by": by("fwd"),
         "library_ms": lmu_tot["fwd_chain_ms"], "tc_bound_ms": lmu_tot["fwd_tc_bound_ms"],
+        "driver_launches": driver["fit_launches"]["lmu_fwd"],
     }, {
         "name": "lmu_bwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:404",
@@ -1372,6 +1668,7 @@ def main() -> int:
         "ms": lmu_tot["bwd_ms"], "plain_ms": lmu_tot["bwd_plain_ms"],
         "bound_ms": lmu_tot["bwd_bound_ms"], "bound_by": by("bwd"),
         "library_ms": lmu_tot["bwd_chain_ms"], "tc_bound_ms": lmu_tot["bwd_tc_bound_ms"],
+        "driver_launches": driver["fit_launches"]["lmu_bwd"],
     }]
     # the LMU kernels' tensor-core primitive alone (its entry "checks" names
     # the weight gradients it was first added for), on no path of the
@@ -1396,4 +1693,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--driver":
+        sys.exit(driver_main(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,7 @@
 """The port stands alone: no import of jax, flax, optax or ccvpe_tpu, in
-the source (ast) or at run time (a fresh interpreter); the CUDA build
-targets sm_90a into a directory git ignores, and nothing is compiled here."""
+the source (ast, chip_smoke.py included) or at run time (a fresh
+interpreter); the CUDA build targets sm_90a into a directory git ignores,
+and nothing is compiled here."""
 
 import ast
 import os
@@ -29,6 +30,11 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_forbidden_import_in_source(path):
     assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py, the port's smoke run on the card, stands alone too."""
+    assert not set(_imported_roots(ROOT / "chip_smoke.py")) & FORBIDDEN
 
 
 def test_no_forbidden_module_at_run_time():
