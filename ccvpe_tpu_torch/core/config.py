@@ -3,7 +3,7 @@ of ccvpe_tpu/core/config.py (no import of the JAX package).
 
 Every field of the JAX ModelConfig and TrainConfig is kept so that a config
 describes the same model and run in both packages; the port's CVM raises
-NotImplementedError for the fields it does not run yet
+NotImplementedError for the options it does not run yet
 (models/cvm.py::check_supported).
 """
 
@@ -13,6 +13,9 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 CORR_IMPLS = ("auto", "plain", "cuda")
+DECONV_IMPLS = ("einsum", "conv")
+REMAT_POLICIES = ("none", "save_dw")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +31,7 @@ class ModelConfig:
 
     # --- backbone ---
     circular: bool = True        # horizontal circular padding, ground encoder
-    circular_impl: str = "wrap"  # 'edgefix' not ported
+    circular_impl: str = "wrap"  # 'edgefix' not ported yet
     backbone_features: int = 1280
 
     # --- ground descriptor heads: 1x1 compress channels per scale ---
@@ -62,18 +65,34 @@ class ModelConfig:
     # backward (256 fuses the two finest stages of both decoders)
     lmu_fused_min_res: int = 0
 
-    # --- options of the JAX package the port does not run yet ---
+    # bf16 operands in the correlation of a bf16 map with D < 128 (the
+    # scales the JAX package's TPU dispatch leaves to XLA): the ground
+    # descriptor and the squared map round to bf16 (ops/corr.py)
     corr_bf16: bool = False
+    # the 2x2 deconv: 'einsum' (f32 products of bf16-rounded operands, f32
+    # out) or 'conv' (a bf16 transposed conv, rounded, then the f32 bias);
+    # one function in float32 (nn/decoder.py::Deconv2x2)
     deconv_impl: str = "einsum"
+    # the convs of the encoders and decoders: 'float32' or 'bfloat16' (BN
+    # statistics, the descriptor heads and so scale 0 of the correlation,
+    # softmax, GT, losses, parameters and Adam stay float32)
     compute_dtype: str = "float32"
+    # torch.utils.checkpoint around each MBConv block from index
+    # remat_skip_blocks on; 'save_dw' keeps each depthwise conv's output
     remat_backbone: bool = False
     remat_skip_blocks: int = 0
     remat_policy: str = "none"
+    # torch.utils.checkpoint around each decoder stage
     remat_decoder: bool = False
+    # train-time ori-decoder window (px, >= 160, a multiple of 4): the two
+    # finest ori stages decode only a window around the GT, exact because
+    # the sigma-4 Gaussian loss weight underflows to 0.0f beyond ~58 px
+    ori_window: int = 0
+
+    # --- options of the JAX package the port does not run yet ---
     spatial_axis: Optional[str] = None
     ori_axis: Optional[str] = None
     phase_space_min_res: int = 0
-    ori_window: int = 0
 
     # --- ori-prior restricted search: degrees of orientation noise ---
     ori_noise: Optional[float] = None

@@ -8,9 +8,13 @@
 //   den2[t,k] = sum_d S[b,t,d]^2 * M[k,d]
 //   out[b,t,k] = num * rsqrtf(den2)          r[b,t,k] = rsqrtf(den2) (optional)
 //
-// S [B,N,D], G' [B,K,D] (already divided by the ground norm), M [K,D] 0/1
-// window masks (any value exact in TF32), all float32 and contiguous; out,
-// r [B,N,K].
+// S [B,N,D] float32 or bfloat16, G' [B,K,D] (already divided by the ground
+// norm) and M [K,D] 0/1 window masks (any value exact in TF32) float32, all
+// contiguous; out, r [B,N,K] float32. A bf16 S (the decoder's maps under
+// compute_dtype='bfloat16') is read as it is and scored in float32: the
+// same result as on S upcast. With the S^2-rounding type (corr_bf16 at
+// D < 128), den2 takes S^2 rounded to bf16, as the JAX package's XLA path
+// rounds jnp.square of a bf16 map.
 //
 // What bounds it on an H100: bytes. The work is one read of S and one write
 // of out (and r): one VIGOR forward at batch 8 moves about 222 MB, 66 us at
@@ -51,10 +55,20 @@
 //   runs longer than 15 products.
 // - A contiguous epilogue. A tile's out (and r) is a run of rows x K floats
 //   in [B,N,K]: staged in shared memory and stored as 16-byte stores.
+// - A bf16 S halves S's bytes, the bulk of the traffic at the decoder
+//   scales. It lands in the ring as bf16 (16-byte cp.async copies of 8
+//   values; plain loads and stores where D is not a multiple of 8) and is
+//   widened at the fragment loads. A bf16 value is exact in TF32, so it is
+//   its own hi and its lo is 0: num takes two products (S.G' lo, then
+//   S.G' hi), the f32 path's two nonzero ones in its order, so bf16 S and
+//   its f32 upcast give the same bits. S^2 rounded to bf16 is exact in TF32
+//   too: den2 then takes one product.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -64,43 +78,83 @@ constexpr int kRows = 64;                  // T: sat rows per tile
 constexpr int kWarps = 2;                  // 32 rows each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 40;                 // channels per ring stage
-constexpr int kStride = kChunk + 4;        // floats per ring row: A-fragment loads hit 32 banks
 constexpr int kStages = 2;
 constexpr int kMaxBins = 32;
 constexpr int kMinBlocks = 5;             // resident blocks an SM's registers must hold
 constexpr int kMaxSmem = 232448;           // a block's shared memory on sm_90
-constexpr int kRingFloats = kStages * kRows * kStride;
 
 static_assert(kRows == 32 * kWarps, "each warp takes 32 rows");
 static_assert(kChunk % 8 == 0, "a chunk is whole k-steps");
 
+using bf16 = __nv_bfloat16;
+
+// The ring's row of S elements. float: 44 (4 mod 32 words: the A-fragment
+// loads of a warp hit 32 banks). bf16: 56 (112 bytes, a multiple of the
+// 16-byte copy; 28 words a row, so rows g = 0..7 start 4 banks apart and
+// lanes q, q + 1 share a word). Mirrored in ops/corr_cuda.py::RING_STRIDE.
+template <class T> struct SRing;
+template <> struct SRing<float> { static constexpr int kStride = kChunk + 4; };
+template <> struct SRing<bf16> { static constexpr int kStride = kChunk + 16; };
+
+template <class T>
+__host__ __device__ constexpr int ring_bytes() {
+  return kStages * kRows * SRing<T>::kStride * static_cast<int>(sizeof(T));
+}
+
+// S types of the C interface: float, bf16, bf16 with S^2 rounded to bf16
+enum SType { kF32 = 0, kBf16 = 1, kBf16RoundSq = 2 };
+
 __host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
 
-// Shared memory of one block: the ring; G' hi, G' lo and M of the slice,
-// each KP rows of w + 4 floats (w + 4 is 4 mod 8: the 32 lanes of a
+// Shared memory of one block: the ring of T; G' hi, G' lo and M of the
+// slice, each KP rows of w + 4 floats (w + 4 is 4 mod 8: the 32 lanes of a
 // B-fragment load hit 32 banks); the out and r staging of kRows x k floats.
 // Mirrored in ops/corr_cuda.py::smem_bytes.
+template <class T>
 __host__ __device__ inline int smem_bytes(int w, int k, int kp) {
-  return 4 * kRingFloats + 4 * 3 * kp * (w + 4) + 4 * 2 * kRows * k;
+  return ring_bytes<T>() + 4 * 3 * kp * (w + 4) + 4 * 2 * kRows * k;
+}
+
+__host__ __device__ inline int smem_bytes_of(int s_type, int w, int k, int kp) {
+  return s_type == kF32 ? smem_bytes<float>(w, k, kp) : smem_bytes<bf16>(w, k, kp);
+}
+
+__device__ inline float to_float(float v) { return v; }
+__device__ inline float to_float(bf16 v) { return __bfloat162float(v); }
+
+// One element, or a zero when !valid (src then not read): a float by a
+// 4-byte cp.async, a bf16 by a plain load and store (cp.async copies 4
+// bytes at least). Either is visible to the block after the barrier that
+// follows the caller's cp_async_wait.
+__device__ inline void copy_one(float* dst, const float* src, bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ inline void copy_one(bf16* dst, const bf16* src, bool valid) {
+  *dst = valid ? *src : __float2bfloat16(0.f);
 }
 
 // dst[r * ds + c] = src[r * ss + c] for r < rows_ok and c < cols_ok, else 0,
-// for r < rows, c < cols (a multiple of 4), as cp.async copies of 16 bytes
-// when vec (ss, ds and both pointers 16-byte aligned), else of 4. The
-// caller commits. Neighbouring threads copy neighbouring units of a row;
-// each thread steps its (row, unit) with adds, no division per unit.
-__device__ void copy_tile(float* dst, int ds, const float* __restrict__ src, size_t ss, int rows,
+// for r < rows, c < cols (a multiple of 16 bytes' elements), as cp.async
+// copies of 16 bytes when vec (ss, ds and both pointers 16-byte aligned),
+// else element by element. The caller commits. Neighbouring threads copy
+// neighbouring units of a row; each thread steps its (row, unit) with
+// adds, no division per unit.
+template <class T>
+__device__ void copy_tile(T* dst, int ds, const T* __restrict__ src, size_t ss, int rows,
                           int rows_ok, int cols, int cols_ok, bool vec) {
-  const int per = vec ? 4 : 1;                 // floats per copy
+  const int per = vec ? 16 / static_cast<int>(sizeof(T)) : 1;   // elements per copy
   const int nu = cols / per;                   // copies per row
   const int total = rows * nu;
   const int step_r = kThreads / nu, step_u = kThreads % nu;
   int row = threadIdx.x / nu, u = threadIdx.x % nu;
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const bool ok = row < rows_ok && per * u < cols_ok;
-    const float* from = ok ? src + row * ss + per * u : src;
-    float* to = dst + row * ds + per * u;
-    if (vec) cp_async16_zfill(to, from, ok); else cp_async4(to, from, ok);
+    const T* from = ok ? src + row * ss + per * u : src;
+    T* to = dst + row * ds + per * u;
+    if (vec)
+      cp_async16_zfill(reinterpret_cast<float*>(to), reinterpret_cast<const float*>(from), ok);
+    else
+      copy_one(to, from, ok);
     u += step_u;
     row += step_r;
     if (u >= nu) { u -= nu; ++row; }
@@ -110,13 +164,16 @@ __device__ void copy_tile(float* dst, int ds, const float* __restrict__ src, siz
 // This warp's products over one ring stage: cn/cd[mt][j] += the 16 x 8
 // tiles of num and den2 at rows 32 * warp + 16 * mt, bins 8 * j, over the
 // stage's first 8 * nks channels. gh, gl and mm point at the stage's first
-// channel of G' hi, G' lo and M; rs is their row stride.
-template <int NT>
-__device__ void stage_products(const float* slot, const float* gh, const float* gl,
+// channel of G' hi, G' lo and M; rs is their row stride. A bf16 S skips the
+// product of its zero lo; kRoundSq rounds S^2 to bf16, which skips S^2 lo.
+template <int NT, class TS, bool kRoundSq>
+__device__ void stage_products(const TS* slot, const float* gh, const float* gl,
                                const float* mm, int rs, int nks, float (&cn)[2][NT][4],
                                float (&cd)[2][NT][4]) {
+  constexpr int kStride = SRing<TS>::kStride;
+  constexpr bool kSplitS = std::is_same<TS, float>::value;
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const float* a0 = slot + (threadIdx.x / 32 * 32 + g) * kStride + q;
+  const TS* a0 = slot + (threadIdx.x / 32 * 32 + g) * kStride + q;
   const int b0 = g * rs + q;
 #pragma unroll
   for (int ks = 0; ks < kChunk / 8; ++ks) {
@@ -124,12 +181,19 @@ __device__ void stage_products(const float* slot, const float* gh, const float* 
     uint32_t sh[2][4], sl[2][4], qh[2][4], ql[2][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      const float* a = a0 + mt * 16 * kStride + ks * 8;
-      const float v[4] = {a[0], a[8 * kStride], a[4], a[8 * kStride + 4]};
+      const TS* a = a0 + mt * 16 * kStride + ks * 8;
+      const float v[4] = {to_float(a[0]), to_float(a[8 * kStride]), to_float(a[4]),
+                          to_float(a[8 * kStride + 4])};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        split_tf32(v[e], sh[mt][e], sl[mt][e]);
-        split_tf32(v[e] * v[e], qh[mt][e], ql[mt][e]);
+        if constexpr (kSplitS)
+          split_tf32(v[e], sh[mt][e], sl[mt][e]);
+        else
+          sh[mt][e] = __float_as_uint(v[e]);            // a bf16 value is exact in TF32
+        if constexpr (kRoundSq)
+          qh[mt][e] = __float_as_uint(__bfloat162float(__float2bfloat16_rn(v[e] * v[e])));
+        else
+          split_tf32(v[e] * v[e], qh[mt][e], ql[mt][e]);
       }
     }
 #pragma unroll
@@ -140,10 +204,10 @@ __device__ void stage_products(const float* slot, const float* gh, const float* 
       const uint32_t bm[2] = {__float_as_uint(mm[at]), __float_as_uint(mm[at + 4])};
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        mma_tf32(cn[mt][j], sl[mt], bh);
+        if constexpr (kSplitS) mma_tf32(cn[mt][j], sl[mt], bh);
         mma_tf32(cn[mt][j], sh[mt], bl);
         mma_tf32(cn[mt][j], sh[mt], bh);
-        mma_tf32(cd[mt][j], ql[mt], bm);
+        if constexpr (!kRoundSq) mma_tf32(cd[mt][j], ql[mt], bm);
         mma_tf32(cd[mt][j], qh[mt], bm);
       }
     }
@@ -165,17 +229,19 @@ __device__ void store_run(float* dst, const float* src, int count) {
 
 // grid (x, slices, B); blockIdx.x walks tiles blockIdx.x + i * gridDim.x of
 // `tiles`. part is null with one slice, else [slices][B*N][2][KP] partial
-// (num, den2) sums, bins < k written.
-template <int NT>
+// (num, den2) sums, bins < k written. TS: S's type.
+template <int NT, class TS, bool kRoundSq>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-corr_fwd_kernel(const float* __restrict__ s, const float* __restrict__ g,
+corr_fwd_kernel(const TS* __restrict__ s, const float* __restrict__ g,
                 const float* __restrict__ m, float* __restrict__ out, float* __restrict__ r,
                 float* __restrict__ part, int n, int d, int k, int w, int tiles, bool vec) {
   constexpr int kp = 8 * NT;
+  constexpr int kStride = SRing<TS>::kStride;
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
+  TS* ring = reinterpret_cast<TS*>(smem4);
   const int rs = w + 4;
-  float* gh = ring + kRingFloats;                       // G' hi, then G' lo, then M
+  float* gh = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + ring_bytes<TS>());
+                                                        // G' hi, then G' lo, then M
   float* gl = gh + kp * rs;
   float* mm = gl + kp * rs;
   float* stage_out = mm + kp * rs;
@@ -187,7 +253,7 @@ corr_fwd_kernel(const float* __restrict__ s, const float* __restrict__ g,
   const int nchunks = (ws + kChunk - 1) / kChunk;
   const int gx = gridDim.x, t0 = blockIdx.x;
   const int total = (tiles - t0 + gx - 1) / gx * nchunks;
-  const float* s_b = s + static_cast<size_t>(b) * n * d;
+  const TS* s_b = s + static_cast<size_t>(b) * n * d;
 
   // issue side of the ring: stage `issued` of (tile, chunk) pairs
   int issued = 0, is_t = t0, is_c = 0;
@@ -240,8 +306,8 @@ corr_fwd_kernel(const float* __restrict__ s, const float* __restrict__ g,
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) cn[mt][j][e] = cd[mt][j][e] = 0.f;
-    stage_products<NT>(ring + i % kStages * kRows * kStride, gh + c0, gl + c0, mm + c0, rs,
-                       (min(kChunk, ws - c0) + 7) / 8, cn, cd);
+    stage_products<NT, TS, kRoundSq>(ring + i % kStages * kRows * kStride, gh + c0, gl + c0,
+                                     mm + c0, rs, (min(kChunk, ws - c0) + 7) / 8, cn, cd);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -320,81 +386,110 @@ corr_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, floa
   if (r != nullptr) r[e] = rv;
 }
 
-template <int NT>
-cudaError_t launch_fwd(dim3 grid, int smem, cudaStream_t stream, const float* s, const float* g,
+template <int NT, class TS, bool kRoundSq>
+cudaError_t launch_fwd(dim3 grid, int smem, cudaStream_t stream, const TS* s, const float* g,
                        const float* m, float* out, float* r, float* part, int n, int d, int k,
                        int w, int tiles, bool vec) {
-  cudaError_t err = cudaFuncSetAttribute(corr_fwd_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = corr_fwd_kernel<NT, TS, kRoundSq>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  corr_fwd_kernel<NT><<<grid, kThreads, smem, stream>>>(s, g, m, out, r, part, n, d, k, w, tiles,
-                                                        vec);
+  kernel<<<grid, kThreads, smem, stream>>>(s, g, m, out, r, part, n, d, k, w, tiles, vec);
   return cudaGetLastError();
 }
 
-template <int NT>
+// launch_fwd at NT = kp / 8
+template <class TS, bool kRoundSq>
+cudaError_t launch_nt(int kp, dim3 grid, int smem, cudaStream_t stream, const void* s,
+                      const float* g, const float* m, float* out, float* r, float* part, int n,
+                      int d, int k, int w, int tiles, bool vec) {
+  const auto* sp = static_cast<const TS*>(s);
+  switch (kp / 8) {
+    case 1: return launch_fwd<1, TS, kRoundSq>(grid, smem, stream, sp, g, m, out, r, part, n, d, k, w, tiles, vec);
+    case 2: return launch_fwd<2, TS, kRoundSq>(grid, smem, stream, sp, g, m, out, r, part, n, d, k, w, tiles, vec);
+    case 3: return launch_fwd<3, TS, kRoundSq>(grid, smem, stream, sp, g, m, out, r, part, n, d, k, w, tiles, vec);
+    default: return launch_fwd<4, TS, kRoundSq>(grid, smem, stream, sp, g, m, out, r, part, n, d, k, w, tiles, vec);
+  }
+}
+
+template <int NT, class TS, bool kRoundSq>
 int occupancy(int smem) {
+  const auto kernel = corr_fwd_kernel<NT, TS, kRoundSq>;
   int blocks = 0;
-  if (cudaFuncSetAttribute(corr_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, corr_fwd_kernel<NT>, kThreads,
-                                                    smem) != cudaSuccess)
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
 
-bool plan_ok(int k, int kp, int w) {
+template <class TS, bool kRoundSq>
+int occupancy_nt(int kp, int smem) {
+  switch (kp / 8) {
+    case 1: return occupancy<1, TS, kRoundSq>(smem);
+    case 2: return occupancy<2, TS, kRoundSq>(smem);
+    case 3: return occupancy<3, TS, kRoundSq>(smem);
+    default: return occupancy<4, TS, kRoundSq>(smem);
+  }
+}
+
+bool plan_ok(int k, int kp, int w, int s_type) {
   return k >= 1 && k <= kMaxBins && kp == round8(k) && w >= 8 && w % 8 == 0 &&
-         smem_bytes(w, k, kp) <= kMaxSmem;
+         s_type >= kF32 && s_type <= kBf16RoundSq && smem_bytes_of(s_type, w, k, kp) <= kMaxSmem;
 }
 
 }  // namespace
 
-// Resident corr_fwd_kernel blocks per SM at that shared memory (the
-// occupancy API), or -1 for a plan the kernel does not take.
-extern "C" int ccvpe_corr_occupancy(int w, int k, int kp) {
-  if (!plan_ok(k, kp, w)) return -1;
-  const int smem = smem_bytes(w, k, kp);
-  switch (kp / 8) {
-    case 1: return occupancy<1>(smem);
-    case 2: return occupancy<2>(smem);
-    case 3: return occupancy<3>(smem);
-    default: return occupancy<4>(smem);
+// Resident corr_fwd_kernel blocks per SM at that shared memory for an S of
+// s_type (0 float, 1 bf16, 2 bf16 with S^2 rounded; the occupancy API), or
+// -1 for a plan the kernel does not take.
+extern "C" int ccvpe_corr_occupancy(int w, int k, int kp, int s_type) {
+  if (!plan_ok(k, kp, w, s_type)) return -1;
+  const int smem = smem_bytes_of(s_type, w, k, kp);
+  switch (s_type) {
+    case kF32: return occupancy_nt<float, false>(kp, smem);
+    case kBf16: return occupancy_nt<bf16, false>(kp, smem);
+    default: return occupancy_nt<bf16, true>(kp, smem);
   }
 }
 
 // Launch on `stream` (a cudaStream_t passed as a pointer) with the plan of
 // ops/corr_cuda.py::corr_plan: K padded to kp, slices of w channels
-// (slices = ceil(d / w)), grid_x blocks along the row tiles. part: a
+// (slices = ceil(d / w)), grid_x blocks along the row tiles; s of s_type
+// (0 float, 1 bf16, 2 bf16 with S^2 rounded to bf16 in den2). part: a
 // scratch of slices * b * n * 2 * kp floats when slices > 1, else unused;
 // r may be null. Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for sizes or a plan the kernel does not take.
 // Allocates nothing and does not synchronise.
 extern "C" int ccvpe_corr_fwd(const void* s, const void* g, const void* m, void* out, void* r,
                               void* part, int b, int n, int d, int k, int kp, int w, int slices,
-                              int grid_x, void* stream) {
+                              int grid_x, int s_type, void* stream) {
   const int tiles = (n + kRows - 1) / kRows;
-  if (b < 1 || b > 65535 || n < 1 || d < 1 || !plan_ok(k, kp, w) ||
+  if (b < 1 || b > 65535 || n < 1 || d < 1 || !plan_ok(k, kp, w, s_type) ||
       slices != (d + w - 1) / w || slices > 65535 || (slices > 1 && part == nullptr) ||
       grid_x < 1 || grid_x > tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto cs = static_cast<cudaStream_t>(stream);
-  const auto* sp = static_cast<const float*>(s);
   const auto* gp = static_cast<const float*>(g);
   const auto* mp = static_cast<const float*>(m);
-  const bool vec = d % 4 == 0 && ((reinterpret_cast<uintptr_t>(sp) | reinterpret_cast<uintptr_t>(gp) |
-                                   reinterpret_cast<uintptr_t>(mp)) & 15) == 0;
+  // 16-byte copies: rows of S, G' and M start 16-byte aligned
+  const int per16 = s_type == kF32 ? 4 : 8;
+  const bool vec = d % per16 == 0 && ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(gp) |
+                                       reinterpret_cast<uintptr_t>(mp)) & 15) == 0;
   float* pp = slices > 1 ? static_cast<float*>(part) : nullptr;
   float* rp = static_cast<float*>(r);
   const dim3 grid(grid_x, slices, b);
-  const int smem = smem_bytes(w, k, kp);
+  const int smem = smem_bytes_of(s_type, w, k, kp);
   auto* op = static_cast<float*>(out);
   cudaError_t err;
-  switch (kp / 8) {
-    case 1: err = launch_fwd<1>(grid, smem, cs, sp, gp, mp, op, rp, pp, n, d, k, w, tiles, vec); break;
-    case 2: err = launch_fwd<2>(grid, smem, cs, sp, gp, mp, op, rp, pp, n, d, k, w, tiles, vec); break;
-    case 3: err = launch_fwd<3>(grid, smem, cs, sp, gp, mp, op, rp, pp, n, d, k, w, tiles, vec); break;
-    default: err = launch_fwd<4>(grid, smem, cs, sp, gp, mp, op, rp, pp, n, d, k, w, tiles, vec);
+  switch (s_type) {
+    case kF32:
+      err = launch_nt<float, false>(kp, grid, smem, cs, s, gp, mp, op, rp, pp, n, d, k, w, tiles, vec);
+      break;
+    case kBf16:
+      err = launch_nt<bf16, false>(kp, grid, smem, cs, s, gp, mp, op, rp, pp, n, d, k, w, tiles, vec);
+      break;
+    default:
+      err = launch_nt<bf16, true>(kp, grid, smem, cs, s, gp, mp, op, rp, pp, n, d, k, w, tiles, vec);
   }
   if (err != cudaSuccess || pp == nullptr) return static_cast<int>(err);
   const int rows = b * n;

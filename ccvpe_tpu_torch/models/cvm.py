@@ -4,7 +4,10 @@ ccvpe_tpu/models/cvm.py:30-259).
 Forward contract as in the JAX package (NHWC at the boundary):
   logits [B, H*W], heatmap [B, H, W, 1] (softmax over all sat pixels),
   ori [B, H, W, 2] (per-pixel L2-normalized (cos, sin)),
-  matching_scores[s] [B, h_s, w_s, K].
+  matching_scores[s] [B, h_s, w_s, K],
+  ori_offsets [B, 2] or None: with a train-time ori window (ori_window=
+  (r0, c0) and ModelConfig.ori_window), ori is [B, win, win, 2], the field
+  at rows r0.., cols c0.. of the full map.
 Inside, activations are NCHW in channels_last memory, so the NHWC view the
 correlation kernel reads is contiguous without a copy.
 
@@ -18,6 +21,8 @@ With ModelConfig.lmu_fused_min_res set, decoder stages whose output
 resolution reaches it run as fused stages (nn/decoder.py::fused_stage_nchw),
 and a fused final stage takes the head's two convs with it (reference
 models.py:125-127: deconv1 -> conv1 is one chain), as in the JAX package.
+ModelConfig.compute_dtype, deconv_impl and the remat options reach the
+modules of nn/; remat_decoder checkpoints each decoder stage in train mode.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from ccvpe_tpu_torch.core.config import CORR_IMPLS, ModelConfig
+from ccvpe_tpu_torch.core.config import (COMPUTE_DTYPES, CORR_IMPLS, DECONV_IMPLS,
+                                         REMAT_POLICIES, ModelConfig)
 from ccvpe_tpu_torch.nn.decoder import (Deconv2x2, DoubleConv, HeadConv, decoder_stage,
                                         fused_stage_nchw)
 from ccvpe_tpu_torch.nn.efficientnet import B0_BLOCK_SPECS, EfficientNetB0
@@ -39,38 +46,57 @@ from ccvpe_tpu_torch.ops.padding import b0_layer_sizes
 class CVMOutput(NamedTuple):
     logits: torch.Tensor                          # [B, H*W]
     heatmap: torch.Tensor                         # [B, H, W, 1]
-    ori: torch.Tensor                             # [B, H, W, 2]
+    ori: torch.Tensor                             # [B, H, W, 2] (or the window)
     matching_scores: Tuple[torch.Tensor, ...]     # per scale [B, h_s, w_s, K]
+    ori_offsets: Optional[torch.Tensor] = None    # [B, 2] window (row0, col0)
 
 
-# ModelConfig fields the port does not run yet: (field, default, the slice
-# of ROADMAP.md "Next slices" that brings it)
+def _batch_crop(t: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
+                size: int) -> torch.Tensor:
+    """Per-sample spatial window of NCHW t: rows r0.., cols c0.. ([B]
+    integer, clamped to fit as lax.dynamic_slice clamps) -> [B, C, size,
+    size], one gather over the NHWC view."""
+    b, _, h, w = t.shape
+    span = torch.arange(size, device=t.device)
+    rows = r0.long().clamp(0, h - size)[:, None] + span
+    cols = c0.long().clamp(0, w - size)[:, None] + span
+    idx = torch.arange(b, device=t.device)[:, None, None]
+    return t.permute(0, 2, 3, 1)[idx, rows[:, :, None], cols[:, None, :]].permute(0, 3, 1, 2)
+
+
+# ModelConfig fields the port does not run yet: (field, default, the item
+# of ROADMAP.md queue A that brings it)
 _NOT_PORTED = (
-    ("remat_backbone", False, "remaining ModelConfig options"),
-    ("remat_skip_blocks", 0, "remaining ModelConfig options"),
-    ("remat_policy", "none", "remaining ModelConfig options"),
-    ("remat_decoder", False, "remaining ModelConfig options"),
-    ("spatial_axis", None, "remaining ModelConfig options"),
-    ("ori_axis", None, "remaining ModelConfig options"),
-    ("phase_space_min_res", 0, "remaining ModelConfig options"),
-    ("circular_impl", "wrap", "remaining ModelConfig options"),
-    ("deconv_impl", "einsum", "remaining ModelConfig options"),
-    ("compute_dtype", "float32", "remaining ModelConfig options"),
-    ("corr_bf16", False, "remaining ModelConfig options"),
-    ("ori_window", 0, "remaining ModelConfig options"),
+    ("spatial_axis", None, "A6, scale-out"),
+    ("ori_axis", None, "A6, scale-out"),
+    ("phase_space_min_res", 0, "A3, phase_space_min_res"),
+    ("circular_impl", "wrap", "A3, circular_impl='edgefix'"),
 )
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config option the port does not run."""
+    """Raise NotImplementedError for a config option the port does not run,
+    ValueError for a value no package takes."""
     for field, default, item in _NOT_PORTED:
         value = getattr(cfg, field)
         if value != default:
             raise NotImplementedError(
                 f"ModelConfig.{field}={value!r} is not ported yet "
-                f"(ROADMAP.md, next slice: {item})")
-    if cfg.corr_impl not in CORR_IMPLS:
-        raise ValueError(f"corr_impl must be one of {CORR_IMPLS}, got {cfg.corr_impl!r}")
+                f"(ROADMAP.md, queue item {item})")
+    for field, allowed in (("corr_impl", CORR_IMPLS), ("deconv_impl", DECONV_IMPLS),
+                           ("remat_policy", REMAT_POLICIES),
+                           ("compute_dtype", COMPUTE_DTYPES)):
+        if getattr(cfg, field) not in allowed:
+            raise ValueError(f"{field} must be one of {allowed}, got {getattr(cfg, field)!r}")
+    win = cfg.ori_window
+    if win and not (win >= 160 and win % 4 == 0 and win <= cfg.sat_size[0]):
+        raise ValueError(f"ori_window must be 0 or a multiple of 4 from 160 to the aerial "
+                         f"height {cfg.sat_size[0]}, got {win}")
+    if cfg.compute_dtype != "float32" and cfg.lmu_fused_min_res:
+        raise NotImplementedError(
+            f"ModelConfig.compute_dtype={cfg.compute_dtype!r} with lmu_fused_min_res="
+            f"{cfg.lmu_fused_min_res} is not ported yet: the fused LMU kernels take float32 "
+            "only (ROADMAP.md, queue item A3, B2 and B3 with bf16 operands)")
 
 
 class CVM(nn.Module):
@@ -82,9 +108,12 @@ class CVM(nn.Module):
         check_supported(config)
         self.config = cfg = config
         n = cfg.num_scales
+        dtype = getattr(torch, cfg.compute_dtype)
+        remat = dict(compute_dtype=dtype, remat=cfg.remat_backbone,
+                     remat_skip=cfg.remat_skip_blocks, remat_policy=cfg.remat_policy)
         with torch.device("meta"):
-            self.grd_efficientnet = EfficientNetB0(cfg.circular, cfg.backbone_features)
-            self.sat_efficientnet = EfficientNetB0(False, cfg.backbone_features)
+            self.grd_efficientnet = EfficientNetB0(cfg.circular, cfg.backbone_features, **remat)
+            self.sat_efficientnet = EfficientNetB0(False, cfg.backbone_features, **remat)
             grd_h = cfg.grd_feat_hw[0]
             for s, c in enumerate(cfg.grd_desc_channels):
                 self.add_module(f"grd_feature_to_descriptor{s + 1}",
@@ -108,15 +137,15 @@ class CVM(nn.Module):
                 for s in range(n):
                     ref_n = n - s
                     self.add_module(f"deconv{ref_n}{suffix}",
-                                    Deconv2x2(cin, deconv_out[s]))
+                                    Deconv2x2(cin, deconv_out[s], dtype, cfg.deconv_impl))
                     res *= 2
                     if s < n - 1:
                         c_cat = deconv_out[s] + skip_ch.get(res, 0)
                         self.add_module(f"conv{ref_n}{suffix}",
-                                        DoubleConv(c_cat, conv_out[s]))
+                                        DoubleConv(c_cat, conv_out[s], compute_dtype=dtype))
                         cin = conv_out[s] + (1 if branch == "loc" else 0)
                 self.add_module(f"conv1{suffix}",
-                                HeadConv(deconv_out[-1], cfg.head_hidden, head_out))
+                                HeadConv(deconv_out[-1], cfg.head_hidden, head_out, dtype))
 
     def _stage(self, branch_suffix: str, s: int):
         ref_n = self.config.num_scales - s
@@ -124,11 +153,24 @@ class CVM(nn.Module):
         conv = getattr(self, f"conv{ref_n}{branch_suffix}") if ref_n > 1 else None
         return deconv, conv
 
+    def _run_stage(self, branch_suffix: str, s: int, x: torch.Tensor,
+                   skip: Optional[torch.Tensor], fused: bool) -> torch.Tensor:
+        """decoder_stage, checkpointed under remat_decoder in train mode."""
+        args = (*self._stage(branch_suffix, s), x, skip, fused)
+        if self.config.remat_decoder and self.training and torch.is_grad_enabled():
+            return checkpoint(decoder_stage, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return decoder_stage(*args)
+
     def forward(self, grd: torch.Tensor, sat: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> CVMOutput:
+                generator: Optional[torch.Generator] = None,
+                ori_window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> CVMOutput:
         """grd [B, Hg, Wg, 3], sat [B, Hs, Ws, 3], normalized float32 NHWC.
         In train mode `generator` (on the inputs' device) draws the
-        encoders' drop-connect masks."""
+        encoders' drop-connect masks. `ori_window` (r0, c0), [B] integer
+        fine-resolution origins (train/step.py::ori_window_starts), makes
+        the two finest ori stages decode only the ModelConfig.ori_window
+        window there (with ori_window 0, the full field)."""
         cfg = self.config
         n = cfg.num_scales
         grd = grd.permute(0, 3, 1, 2)   # NCHW views of NHWC = channels_last
@@ -145,7 +187,7 @@ class CVM(nn.Module):
         def match(x, s, bins=None):
             return rolled_corr_dispatch(
                 x.permute(0, 2, 3, 1), grd_descs[s], cfg.roll_shifts[s],
-                cfg.num_bins, cfg.center_window, bins, cfg.corr_impl)
+                cfg.num_bins, cfg.center_window, bins, cfg.corr_impl, cfg.corr_bf16)
 
         def fused(res_out: int) -> bool:
             return bool(cfg.lmu_fused_min_res) and res_out >= cfg.lmu_fused_min_res
@@ -172,26 +214,40 @@ class CVM(nn.Module):
             if last and fused(2 * x.shape[2]):
                 logits_map = fused_stage_nchw(self.deconv1, self.conv1, x, None)
             else:
-                x = decoder_stage(*self._stage("", s), x, skip, fused(2 * x.shape[2]))
+                x = self._run_stage("", s, x, skip, fused(2 * x.shape[2]))
                 if last:
                     logits_map = self.conv1(x)                       # [B,1,H,W]
         b, _, h, w = logits_map.shape
         logits = logits_map.reshape(b, h * w)
         heatmap = torch.softmax(logits, dim=-1).reshape(b, h, w, 1)
 
+        # Train-time ori window: from the second-to-last stage on, only a
+        # window around the GT is decoded; the ori loss weight (the sigma-4
+        # Gaussian) is exactly 0.0f outside it, so losses and gradients are
+        # the full field's (train/step.py). Eval never windows.
+        win = cfg.ori_window if ori_window is not None else 0
+        if win:
+            r0, c0 = ori_window
         y = torch.cat([scores_full.permute(0, 3, 1, 2),
                        l2_normalize(sat_desc, dim=1)], dim=1)
         for s in range(n):
-            skip = skip_by_size.get(y.shape[2] * 2) if s < n - 1 else None
+            windowed = bool(win) and s >= n - 2
+            full_res = cfg.sat_grid * 2 ** s if windowed else y.shape[2]
+            if win and s == n - 2:
+                y = _batch_crop(y, r0 // 4, c0 // 4, win // 4)
+            skip = skip_by_size.get(full_res * 2) if s < n - 1 else None
+            if windowed and skip is not None:
+                skip = _batch_crop(skip, r0 // 2, c0 // 2, win // 2)
             last = s == n - 1
             if last and fused(2 * y.shape[2]):
                 ori_raw = fused_stage_nchw(self.deconv1_ori, self.conv1_ori, y, None)
             else:
-                y = decoder_stage(*self._stage("_ori", s), y, skip, fused(2 * y.shape[2]))
+                y = self._run_stage("_ori", s, y, skip, fused(2 * y.shape[2]))
                 if last:
                     ori_raw = self.conv1_ori(y)                      # [B,2,H,W]
         ori = l2_normalize(ori_raw, dim=1).permute(0, 2, 3, 1)
-        return CVMOutput(logits, heatmap, ori, tuple(all_scores))
+        offsets = torch.stack([r0, c0], dim=-1) if win else None
+        return CVMOutput(logits, heatmap, ori, tuple(all_scores), offsets)
 
 
 @torch.no_grad()

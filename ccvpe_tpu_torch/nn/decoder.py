@@ -9,6 +9,11 @@ PyTorch / cuDNN ops, as it is XLA ops in the JAX package; the fused path
 (`fused_stage_nchw`, ModelConfig.lmu_fused_min_res) runs the stage as one
 autograd.Function over the hand-written kernels of ops/lmu_cuda.py, with
 the modules' own weights, so state dicts load either way. Tensors are NCHW.
+
+Mixed precision (ModelConfig.compute_dtype) as in the JAX package: the
+deconv gives float32 (rounded per `impl`, see Deconv2x2), the skip concat
+is float32, and the double conv and the head compute in `compute_dtype`
+(conv outputs and biases in it); the head returns float32.
 """
 
 from __future__ import annotations
@@ -17,32 +22,57 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ccvpe_tpu_torch.nn.efficientnet import Conv2d
 from ccvpe_tpu_torch.ops.lmu_cuda import FusedStage
 
 
 class Deconv2x2(nn.ConvTranspose2d):
     """ConvTranspose2d(in, out, kernel=2, stride=2). The reference weight
     layout (in, out, 2, 2) is used as it is: a zero-overlap transposed conv
-    indexes out[2i+di, 2j+dj] with w[:, :, di, dj], no flip."""
+    indexes out[2i+di, 2j+dj] with w[:, :, di, dj], no flip.
 
-    def __init__(self, cin: int, cout: int):
+    Float32 out for both impls of the JAX package (nn/decoder.py:28-64),
+    which are one function in float32. In bfloat16 they round differently:
+    'einsum' multiplies the bf16-rounded input and weight with float32
+    sums (here the float32 conv of the rounded operands: the products are
+    exact), 'conv' rounds the bf16 transposed conv's output, then adds the
+    float32 bias."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype = torch.float32,
+                 impl: str = "einsum"):
         super().__init__(cin, cout, kernel_size=2, stride=2)
+        self.compute_dtype, self.impl = compute_dtype, impl
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.impl == "conv" and dt != torch.float32:
+            y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, stride=2)
+            return y.float() + self.bias[:, None, None]
+        return F.conv_transpose2d(x.to(dt).float(), self.weight.to(dt).float(), self.bias,
+                                  stride=2)
 
 
 class DoubleConv(nn.Sequential):
-    """Conv3x3(pad 1) -> ReLU -> Conv3x3(pad 1); parameters .0 and .2."""
+    """Conv3x3(pad 1) -> ReLU -> Conv3x3(pad 1) in `compute_dtype`;
+    parameters .0 and .2."""
 
-    def __init__(self, cin: int, hidden: int, cout: Optional[int] = None):
+    def __init__(self, cin: int, hidden: int, cout: Optional[int] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(
-            nn.Conv2d(cin, hidden, 3, padding=1),
+            Conv2d(cin, hidden, 3, padding=1),
             nn.ReLU(),
-            nn.Conv2d(hidden, hidden if cout is None else cout, 3, padding=1),
+            Conv2d(hidden, hidden if cout is None else cout, 3, padding=1),
         )
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.compute_dtype))
 
 
 class HeadConv(DoubleConv):
-    """Final head Conv3x3 -> ReLU -> Conv3x3 to `cout` channels, f32 out."""
+    """Final head Conv3x3 -> ReLU -> Conv3x3 to `cout` channels, float32 out."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x).float()

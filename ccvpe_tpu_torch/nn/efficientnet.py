@@ -16,16 +16,34 @@ with the batch statistics and updates its running stats as
 0.99 * old + 0.01 * batch with the BIASED batch variance (torch's own
 update takes the unbiased one). Drop-connect (stochastic depth) at rate
 DROP_CONNECT_RATE * i / 16 for block i draws its per-sample masks from
-the torch.Generator the caller passes.
+the torch.Generator the caller passes, each block's uniforms before the
+block runs.
+
+Mixed precision follows the JAX package's casts (compute_dtype bfloat16):
+the input is cast once, every conv computes in its input's dtype with its
+float32 weights cast per call, BatchNorm keeps its statistics and running
+stats in float32 and returns its input's dtype, the SE gate's sigmoid runs
+in float32, the residual is added in the block's dtype.
+
+Remat (ModelConfig.remat_backbone): blocks from index `remat_skip` on run
+under torch.utils.checkpoint, 'save_dw' as two checkpointed segments split
+at the depthwise conv's output (JAX's checkpoint_name "dw_out"), so that
+output is kept and the rest recomputed. The recompute leaves the running
+stats alone (flax's remat is functional and has no such update to repeat),
+and the drop-connect uniforms are drawn outside the checkpointed region,
+so remat on and off update the stats once and draw the same masks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ccvpe_tpu_torch.ops.padding import Pad, pad_same, traced_same_pads
 
@@ -44,10 +62,15 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.01   # torch convention; flax's 0.99
 DROP_CONNECT_RATE = 0.2
 
+# set while checkpoint_block recomputes a block on this thread (the
+# backward's): BatchNorm then leaves its running stats alone
+_recompute = threading.local()
+
 
 class BatchNorm(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode running-stat update uses the biased
-    batch variance, as flax's BatchNorm does."""
+    batch variance, as flax's BatchNorm does. Statistics in float32 for any
+    input dtype; the output in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -55,11 +78,12 @@ class BatchNorm(nn.BatchNorm2d):
         # normalisation with batch statistics (biased variance, as torch
         # and flax both normalise); running stats left to the update below
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not getattr(_recompute, "active", False):
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
         return y
 
 
@@ -67,19 +91,49 @@ def batch_norm(channels: int) -> BatchNorm:
     return BatchNorm(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
-def drop_connect(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Per-sample stochastic depth (reference utils.py:129-154):
-    x / keep * floor(keep + U[0, 1)), the uniforms from `generator`."""
+def drop_connect_uniforms(x: torch.Tensor,
+                          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U[0, 1) per sample of x, [B, 1, 1, 1] in x's dtype, from `generator`."""
     if generator is None:
         raise ValueError("train-mode drop-connect needs a torch.Generator")
+    return torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                      device=x.device, dtype=x.dtype)
+
+
+def apply_drop_connect(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
+    """Per-sample stochastic depth (reference utils.py:129-154):
+    x / keep * floor(keep + u)."""
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                   device=x.device, dtype=x.dtype)
     return x / keep * torch.floor(keep + u)
 
 
-class StaticSameConv2d(nn.Conv2d):
+@contextlib.contextmanager
+def _recomputing():
+    prev, _recompute.active = getattr(_recompute, "active", False), True
+    try:
+        yield
+    finally:
+        _recompute.active = prev
+
+
+def checkpoint_block(fn, *args):
+    """fn(*args) under torch.utils.checkpoint (non-reentrant): its
+    intermediates are dropped and recomputed in the backward. The recompute
+    runs with BatchNorm's running-stat update off: the forward made it."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in its input's dtype: the float32 weight and
+    bias are cast per call (a no-op in float32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class StaticSameConv2d(Conv2d):
     """Bias-free conv with the fixed static-224 SAME pads applied by F.pad
     (asymmetric for stride 2), W wrapped when circular."""
 
@@ -103,42 +157,70 @@ class MBConv(nn.Module):
         mid = in_filters * expand_ratio
         self.has_expand = expand_ratio != 1
         if self.has_expand:
-            self._expand_conv = nn.Conv2d(in_filters, mid, 1, bias=False)
+            self._expand_conv = Conv2d(in_filters, mid, 1, bias=False)
             self._bn0 = batch_norm(mid)
         self._depthwise_conv = StaticSameConv2d(
             mid, mid, kernel, stride, pad_h, pad_w, circular, groups=mid)
         self._bn1 = batch_norm(mid)
         # SE width comes from in_filters, not the expanded width
         reduced = max(1, int(in_filters * SE_RATIO))
-        self._se_reduce = nn.Conv2d(mid, reduced, 1)
-        self._se_expand = nn.Conv2d(reduced, mid, 1)
-        self._project_conv = nn.Conv2d(mid, out_filters, 1, bias=False)
+        self._se_reduce = Conv2d(mid, reduced, 1)
+        self._se_expand = Conv2d(reduced, mid, 1)
+        self._project_conv = Conv2d(mid, out_filters, 1, bias=False)
         self._bn2 = batch_norm(out_filters)
         self.residual = stride == 1 and in_filters == out_filters
         self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        inputs = x
+    def uniforms(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """The block's drop-connect uniforms for input x, or None where it
+        drops nothing (eval mode, no residual, rate 0)."""
+        if self.training and self.residual and self.drop_rate > 0:
+            return drop_connect_uniforms(x, generator)
+        return None
+
+    def depthwise(self, x: torch.Tensor) -> torch.Tensor:
+        """[expand 1x1 + BN + swish] -> the depthwise conv's output (dw_out)."""
         if self.has_expand:
             x = F.silu(self._bn0(self._expand_conv(x)))
-        x = F.silu(self._bn1(self._depthwise_conv(x)))
+        return self._depthwise_conv(x)
+
+    def rest(self, dw: torch.Tensor, inputs: torch.Tensor,
+             u: Optional[torch.Tensor]) -> torch.Tensor:
+        """From dw_out to the block's output; u: drop-connect uniforms."""
+        x = F.silu(self._bn1(dw))
         s = x.mean(dim=(2, 3), keepdim=True)
         s = self._se_expand(F.silu(self._se_reduce(s)))
-        x = torch.sigmoid(s) * x
+        x = torch.sigmoid(s.float()).to(x.dtype) * x
         x = self._bn2(self._project_conv(x))
         if self.residual:
-            if self.training and self.drop_rate > 0:
-                x = drop_connect(x, self.drop_rate, generator)
-            x = x + inputs
+            if u is not None:
+                x = apply_drop_connect(x, self.drop_rate, u)
+            x = x + inputs.to(x.dtype)
         return x
+
+    def forward(self, x: torch.Tensor, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rest(self.depthwise(x), x, u)
+
+    def checkpointed(self, x: torch.Tensor, u: Optional[torch.Tensor],
+                     policy: str = "none") -> torch.Tensor:
+        """forward under checkpoint_block; 'save_dw' keeps dw_out."""
+        if policy == "save_dw":
+            return checkpoint_block(self.rest, checkpoint_block(self.depthwise, x), x, u)
+        return checkpoint_block(self.forward, x, u)
 
 
 class EfficientNetB0(nn.Module):
-    """B0 feature extractor: NCHW image -> (head features, [16 block outputs])."""
+    """B0 feature extractor: NCHW image -> (head features, [16 block outputs]),
+    computed in `compute_dtype`; with `remat`, blocks from `remat_skip` on
+    run checkpointed under `remat_policy` in train mode with autograd on."""
 
-    def __init__(self, circular: bool = False, head_features: int = 1280):
+    def __init__(self, circular: bool = False, head_features: int = 1280,
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_skip: int = 0, remat_policy: str = "none"):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        self.remat, self.remat_skip, self.remat_policy = remat, remat_skip, remat_policy
         pads = traced_same_pads()
         (ph, pw) = pads[0]
         self._conv_stem = StaticSameConv2d(3, 32, 3, 2, ph, pw, circular)
@@ -148,17 +230,22 @@ class EfficientNetB0(nn.Module):
             MBConv(e, cin, cout, k, s, *pads[1 + i], circular,
                    drop_rate=DROP_CONNECT_RATE * i / n)      # model.py:262-264
             for i, (e, cin, cout, k, s) in enumerate(B0_BLOCK_SPECS))
-        self._conv_head = nn.Conv2d(B0_BLOCK_SPECS[-1][2], head_features, 1,
-                                    bias=False)
+        self._conv_head = Conv2d(B0_BLOCK_SPECS[-1][2], head_features, 1, bias=False)
         self._bn1 = batch_norm(head_features)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """`generator` feeds drop-connect in train mode; eval mode ignores it."""
+        x = x.to(self.compute_dtype)
         x = F.silu(self._bn0(self._conv_stem(x)))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         multiscale = []
-        for block in self._blocks:
-            x = block(x, generator)
+        for i, block in enumerate(self._blocks):
+            u = block.uniforms(x, generator)
+            if remat and i >= self.remat_skip:
+                x = block.checkpointed(x, u, self.remat_policy)
+            else:
+                x = block(x, u)
             multiscale.append(x)
         x = F.silu(self._bn1(self._conv_head(x)))
         return x, multiscale

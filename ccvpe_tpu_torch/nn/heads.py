@@ -12,6 +12,10 @@ torch's (C, ch, cw) order.
 Module names follow the reference state dict: grd_feature_to_descriptorN is
 Sequential(compress conv, permute, h conv) -> .0 / .2; the sat head is
 Sequential(Flatten, Linear) -> .1.
+
+Both heads compute in float32 whatever their input's dtype: flax's Conv
+and Dense there have no dtype and promote bf16 features to their float32
+parameters.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ class GroundDescriptorHead(nn.Sequential):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x).flatten(1)        # [B, 1, W, C] -> (w, c)
+        return super().forward(x.float()).flatten(1)    # [B, 1, W, C] -> (w, c)
 
 
 class SatDescriptorHead(nn.Sequential):
@@ -49,6 +53,7 @@ class SatDescriptorHead(nn.Sequential):
         self.grid = grid
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         b, f, gh, gw = x.shape
         g = self.grid
         ch, cw = gh // g, gw // g

@@ -16,6 +16,13 @@ two products against small [K, D] matrices of K rolls:
 `rolled_corr` is that plain formulation; ops/corr_cuda.py fuses both
 products and the normalisation into one CUDA kernel.
 
+A bfloat16 map (ModelConfig.compute_dtype) is scored as the JAX package
+scores it on its TPU. At D >= BF16_ROUND_MAX_D its Pallas kernel upcasts
+the map: the float32 cosine of the bf16 values. Below, its XLA path with
+`allow_bf16` (ModelConfig.corr_bf16) rounds the ground descriptor and the
+squared map to bf16 before their products; the ground norm stays the
+float32 norm of the unrounded descriptor (`bf16_rounding`).
+
 Shapes: sat [B, h, w, D] (NHWC), grd [B, L], output [B, h, w, K].
 """
 
@@ -26,6 +33,21 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ccvpe_tpu_torch.core.config import CORR_IMPLS
+
+# the JAX package's TPU dispatch sends D >= 128 to its Pallas kernel
+# (ccvpe_tpu/ops/corr.py:168), which ignores allow_bf16
+BF16_ROUND_MAX_D = 128
+
+
+def bf16_rounding(sat: torch.Tensor, allow_bf16: bool) -> bool:
+    """Whether the correlation of `sat` rounds the ground descriptor and
+    the squared map to bf16: allow_bf16, a bf16 map and D < 128."""
+    return (allow_bf16 and sat.dtype == torch.bfloat16
+            and sat.shape[-1] < BF16_ROUND_MAX_D)
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.bfloat16().float()
 
 
 def _window_offset(total: int, length: int, center: bool) -> int:
@@ -62,17 +84,22 @@ def rolled_corr(
     num_bins: int,
     center: bool = False,
     bins: Optional[Sequence[int]] = None,
+    allow_bf16: bool = False,
 ) -> torch.Tensor:
     """Cosine matching scores for all orientation bins, plain torch (two
-    einsums, f32). Returns [B, h, w, K], K = len(bins) or num_bins."""
+    einsums, f32; a bf16 map rounds as `bf16_rounding` says). Returns
+    [B, h, w, K], K = len(bins) or num_bins."""
     if bins is None:
         bins = tuple(range(num_bins))
+    rnd = bf16_rounding(sat, allow_bf16)
     sat = sat.float()
     grd = grd.float()
     g_norm = torch.linalg.vector_norm(grd, dim=-1)
-    g_mat, m_mat = build_roll_matrices(grd, sat.shape[-1], shift, bins, center)
+    g_mat, m_mat = build_roll_matrices(round_bf16(grd) if rnd else grd, sat.shape[-1], shift,
+                                       bins, center)
     num = torch.einsum("bhwd,bkd->bhwk", sat, g_mat)
-    den_sq = torch.einsum("bhwd,kd->bhwk", sat * sat, m_mat)
+    sq = sat * sat
+    den_sq = torch.einsum("bhwd,kd->bhwk", round_bf16(sq) if rnd else sq, m_mat)
     return num / (torch.sqrt(den_sq) * g_norm[:, None, None, None])
 
 
@@ -84,20 +111,21 @@ def rolled_corr_dispatch(
     center: bool = False,
     bins: Optional[Sequence[int]] = None,
     impl: str = "auto",
+    allow_bf16: bool = False,
 ) -> torch.Tensor:
     """Route by `impl` and the tensor's device: 'auto' takes the CUDA kernel
-    for a CUDA tensor and the plain version for a CPU tensor, at every D;
-    'plain' always the plain version; 'cuda' the kernel, raising on a CPU
-    tensor."""
+    for a CUDA tensor and the plain version for a CPU tensor, at every D
+    and for a float32 or bf16 map; 'plain' always the plain version; 'cuda'
+    the kernel, raising on a CPU tensor. `allow_bf16`: ModelConfig.corr_bf16."""
     if impl not in CORR_IMPLS:
         raise ValueError(f"corr_impl must be one of {CORR_IMPLS}, got {impl!r}")
     if impl == "cuda" and not sat.is_cuda:
         raise ValueError("corr_impl='cuda' needs a CUDA tensor; got one on "
                          f"{sat.device}")
     if impl == "plain" or (impl == "auto" and not sat.is_cuda):
-        return rolled_corr(sat, grd, shift, num_bins, center, bins)
+        return rolled_corr(sat, grd, shift, num_bins, center, bins, allow_bf16)
     from ccvpe_tpu_torch.ops.corr_cuda import rolled_corr_cuda
-    return rolled_corr_cuda(sat, grd, shift, num_bins, center, bins)
+    return rolled_corr_cuda(sat, grd, shift, num_bins, center, bins, allow_bf16)
 
 
 def rolled_corr_reference(

@@ -6,7 +6,6 @@ angle_deg) and the GT maps are rendered on the device, in float32. Bin
 order is dataset-specific (SURVEY.md 2.3.9): VIGOR and KITTI count bins in
 REVERSED order (index 0 -> (ch 0, ch K-1), index i > 0 -> (ch K-i,
 ch K-i-1)), Oxford forward (wrapping at K-1). All outputs NHWC.
-`gaussian_heatmap_window` comes with ModelConfig.ori_window.
 """
 
 from __future__ import annotations
@@ -30,6 +29,25 @@ def gaussian_heatmap(height: int, width: int, row_offset: torch.Tensor,
     ys = torch.linspace(-height / 2.0, height / 2.0, height, device=dev)
     x = xs[None, None, :] + col_offset.float()[:, None, None]
     y = ys[None, :, None] - row_offset.float()[:, None, None]
+    d2 = x * x + y * y
+    return torch.exp(-d2 / (2.0 * sigma * sigma))[..., None]
+
+
+def gaussian_heatmap_window(height: int, width: int, win: int, row0: torch.Tensor,
+                            col0: torch.Tensor, row_offset: torch.Tensor,
+                            col_offset: torch.Tensor, sigma: float = SIGMA) -> torch.Tensor:
+    """gaussian_heatmap restricted to a per-sample [row0:row0+win,
+    col0:col0+win] window (ModelConfig.ori_window): the same linspace
+    coordinates gathered, so equal to the sliced full map bit for bit.
+    row0/col0 [B] integer; returns [B, win, win, 1] float32."""
+    dev = row_offset.device
+    xs = torch.linspace(-width / 2.0, width / 2.0, width, device=dev)
+    ys = torch.linspace(-height / 2.0, height / 2.0, height, device=dev)
+    span = torch.arange(win, device=dev)
+    xs_w = xs[col0.long()[:, None] + span]                  # [B, win]
+    ys_w = ys[row0.long()[:, None] + span]
+    x = xs_w[:, None, :] + col_offset.float()[:, None, None]
+    y = ys_w[:, :, None] - row_offset.float()[:, None, None]
     d2 = x * x + y * y
     return torch.exp(-d2 / (2.0 * sigma * sigma))[..., None]
 

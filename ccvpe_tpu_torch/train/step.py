@@ -28,7 +28,8 @@ from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
 from ccvpe_tpu_torch.core.precision import float32_matmuls
 from ccvpe_tpu_torch.models.cvm import CVM, CVMOutput, build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
-from ccvpe_tpu_torch.ops.gt import gaussian_heatmap, maxpool_pyramid, orientation_bin_weights
+from ccvpe_tpu_torch.ops.gt import (gaussian_heatmap, gaussian_heatmap_window, maxpool_pyramid,
+                                    orientation_bin_weights)
 from ccvpe_tpu_torch.train.losses import cross_entropy_loss, infonce_loss, orientation_loss
 
 # ImageNet normalization constants (ccvpe_tpu/data/transforms.py)
@@ -162,7 +163,17 @@ def compute_losses(model_cfg: ModelConfig, train_cfg: TrainConfig, out: CVMOutpu
     gt_flat = gt.reshape(b, -1)
     gt_flat = gt_flat / gt_flat.sum(dim=1, keepdim=True)
     loss_ce = cross_entropy_loss(out.logits, gt_flat)
-    loss_ori = orientation_loss(out.ori, gt_ori.expand(*gt.shape[:3], 2), gt)
+    if out.ori_offsets is not None:
+        # the windowed ori field (ModelConfig.ori_window) against the same
+        # Gaussian restricted to the window: exactly 0 outside it, so the
+        # weighted sum is the full field's
+        win = out.ori.shape[1]
+        gt_win = gaussian_heatmap_window(hs, ws, win, out.ori_offsets[:, 0],
+                                         out.ori_offsets[:, 1], batch.row_offset,
+                                         batch.col_offset)
+        loss_ori = orientation_loss(out.ori, gt_ori.expand(b, win, win, 2), gt_win)
+    else:
+        loss_ori = orientation_loss(out.ori, gt_ori.expand(*gt.shape[:3], 2), gt)
 
     nce_terms = []
     for s in out.matching_scores:
@@ -182,11 +193,29 @@ def compute_losses(model_cfg: ModelConfig, train_cfg: TrainConfig, out: CVMOutpu
     return total, metrics
 
 
+def ori_window_starts(model_cfg: ModelConfig, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample fine-resolution origin of the ori window: the GT pixel
+    (the Gaussian's argmax on ops/gt.py's inclusive-linspace grid) centred
+    in a ModelConfig.ori_window box, clamped to the image and snapped down
+    to a multiple of 4, so the crop at 1/4 resolution starts on a pixel.
+    Returns (r0, c0), [B] int64."""
+    h, w = model_cfg.sat_size
+    win = model_cfg.ori_window
+    i_star = (batch.row_offset.float() + h / 2.0) * (h - 1) / h
+    j_star = (-batch.col_offset.float() + w / 2.0) * (w - 1) / w
+    r0 = torch.clamp(torch.round(i_star - win / 2.0), 0, h - win).long()
+    c0 = torch.clamp(torch.round(j_star - win / 2.0), 0, w - win).long()
+    return r0 // 4 * 4, c0 // 4 * 4
+
+
 def make_loss_fn(model: CVM, model_cfg: ModelConfig, train_cfg: TrainConfig):
     """(batch, generator) -> (total, metrics): the train-mode forward (BN on
-    batch statistics, running stats updated) and compute_losses."""
+    batch statistics, running stats updated), with the ori window around
+    the GT when ModelConfig.ori_window is set, and compute_losses."""
     def loss_fn(batch: Batch, generator: Optional[torch.Generator]):
-        out = model(device_normalize(batch.grd), device_normalize(batch.sat), generator)
+        window = ori_window_starts(model_cfg, batch) if model_cfg.ori_window else None
+        out = model(device_normalize(batch.grd), device_normalize(batch.sat), generator,
+                    window)
         return compute_losses(model_cfg, train_cfg, out, batch)
     return loss_fn
 

@@ -89,17 +89,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
      called directly on the same weights, BN buffers unchanged; the
      Trainer's pairs/s from its log rows beside phase 9's p50, checkpoint
      size, host copy, write and restore times, the child's wall time;
- 12. a {"kernels": [...], "probes": [...]} line (probes: the primitive
+ 12. bench.py's mixed-precision train configuration at full width, in a
+     child process (python3 chip_smoke.py --bench-config <json>, the same
+     environment as phase 11's): B1 on a bf16 S at the five decoder scales
+     of a VIGOR forward (batch 8) and a ragged shape, with and without r,
+     S^2 rounded and not, each twice for the same bits, against its plain
+     version and, unrounded, against the float32 kernel on S.float() to the
+     bit; its times beside the float32 kernel's and the bound from 2-byte S;
+     in deterministic mode, float32, batch 8: the ori_window=160 step
+     against the full field (losses, every gradient) and three remat
+     combinations against none (losses and BN buffers to the bit,
+     gradients to the bit or within float32 roundoff), drop-connect on;
+     vigor() with bench.py's options through create_train_state and
+     make_train_step at batch 8 and 96: B1's launches a step (bf16 and
+     float32 S apart), p50 step time, pairs/s, peak memory, one step of
+     each under torch.profiler, beside the
+     float32 unfused step at batch 8 on the same weights, whose loss the
+     bf16 step's must be near; one InferenceEngine.predict batch under the
+     bf16 configuration (launches, finite maps, the decode step's rows,
+     heatmap peaks against the float32 model's);
+ 13. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
      launches in each eval loop; each kernel's driver_launches are its
-     launches in phase 11's control Trainer.fit), then the last line
+     launches in phase 11's control Trainer.fit; corr_fwd_bf16 is B1 on a
+     bf16 S, its launches from phase 12's train step), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke.json (phase 11's also to
-chiprun_out/chip_smoke_driver.json).
+chiprun_out/chip_smoke_driver.json, phase 12's to
+chiprun_out/chip_smoke_bench.json).
 
 TF32 is off for matmuls and cuDNN throughout, so every comparison and time
 is strict float32 (the entry points force it too, core/precision.py), but
-for the one forward timed with TF32 on.
+for the one forward timed with TF32 on and phase 12's bf16 configuration.
 """
 
 from __future__ import annotations
@@ -205,11 +226,29 @@ def corr_inputs(b, n, d, length, shift, bins, center, gen):
     return s, g_mat, m_mat.contiguous()
 
 
-def corr_bound(b, n, d, k, need_r=False):
-    nbytes = 4 * (b * n * d + b * k * d + k * d + (2 if need_r else 1) * b * n * k)
-    flops = 4 * b * n * k * d + b * n * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+def corr_products(s_bytes=4, round_sq=False):
+    """TF32 products B1 issues for each of num's and den2's multiply-adds:
+    a float32 S is split into hi and lo, so num takes three (S lo.G' hi,
+    S hi.G' lo, S hi.G' hi); a bf16 S is its own hi, so num takes two. den2
+    takes two (S^2 lo.M, S^2 hi.M; M is 0/1, exact in TF32), or one where
+    S^2 is rounded to bf16 and so exact in TF32."""
+    return (3 if s_bytes == 4 else 2), (1 if round_sq else 2)
+
+
+def corr_bound(b, n, d, k, need_r=False, s_bytes=4, round_sq=False):
+    """The least time of one corr_core call: each input read once and each
+    output written once at HBM_BYTES_PER_S, or its operations, whichever
+    is longer. The operations are the TF32 products the kernel issues
+    (corr_products; den2 counted as the dense K x D product it issues) at
+    TF32_FLOPS_PER_S and S^2 on the CUDA cores at FP32_FLOPS_PER_S.
+    Returns (ms, bound_by, bytes, flops, ms of the operations)."""
+    nbytes = s_bytes * b * n * d + 4 * (b * k * d + k * d + (2 if need_r else 1) * b * n * k)
+    tc_flops = 2 * b * n * k * d * sum(corr_products(s_bytes, round_sq))
+    flops = tc_flops + b * n * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (tc_flops / TF32_FLOPS_PER_S + b * n * d / FP32_FLOPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops,
+            t_ops)
 
 
 def vigor_corr_shapes(cfg, batch):
@@ -929,19 +968,22 @@ DRIVER_TIMEOUT_S = 300
 # step launches B1 with r at six scales, B2 and B3 at the four fused stages;
 # a validation forward B1 at six scales and B2 at the same four stages (the
 # fused stages are the model's, in eval as in training), B3 never
-DRIVER_STEP_LAUNCHES = {"corr_fwd": 6, "lmu_fwd": 4, "lmu_bwd": 4}
-DRIVER_VAL_LAUNCHES = {"corr_fwd": 6, "lmu_fwd": 4, "lmu_bwd": 0}
+DRIVER_STEP_LAUNCHES = {"corr_fwd": 6, "corr_fwd_bf16": 0, "lmu_fwd": 4, "lmu_bwd": 4}
+DRIVER_VAL_LAUNCHES = {"corr_fwd": 6, "corr_fwd_bf16": 0, "lmu_fwd": 4, "lmu_bwd": 0}
 
 
 def launch_counts() -> dict:
+    """Each kernel's launch count; B1's float32 and bf16 S apart."""
     from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
-    return {"corr_fwd": corr_cuda.corr_core.launches, "lmu_fwd": lmu_cuda.fused_stage.launches,
-            "lmu_bwd": lmu_cuda.fused_stage_bwd.launches}
+    return {"corr_fwd": corr_cuda.corr_core.launches,
+            "corr_fwd_bf16": corr_cuda.corr_core.bf16_launches,
+            "lmu_fwd": lmu_cuda.fused_stage.launches, "lmu_bwd": lmu_cuda.fused_stage_bwd.launches}
 
 
 def zero_launch_counts() -> None:
     from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
     corr_cuda.corr_core.launches = 0
+    corr_cuda.corr_core.bf16_launches = 0
     lmu_cuda.fused_stage.launches = 0
     lmu_cuda.fused_stage_bwd.launches = 0
 
@@ -1165,28 +1207,13 @@ def driver_main(out_path: str) -> int:
 
 
 def run_driver_child(card, report, train_p50_ms):
-    """Phase 11 in a child process with CUBLAS_WORKSPACE_CONFIG=:4096:8;
-    a non-zero exit fails the run. Returns the driver's report, or None."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    out_path = os.path.abspath(os.path.join(OUT_DIR, "chip_smoke_driver.json"))
-    if os.path.exists(out_path):
-        os.remove(out_path)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--driver", out_path],
-                              env=env, timeout=DRIVER_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        log(f"FAIL: the driver's child process ran over {DRIVER_TIMEOUT_S} s")
+    """Phase 11 in a child process; a non-zero exit fails the run. Returns
+    the driver's report, or None."""
+    res = run_child("--driver", "chip_smoke_driver.json", DRIVER_TIMEOUT_S)
+    if res is None:
         return None
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0 or not os.path.exists(out_path):
-        log(f"FAIL: the driver's child process exited with {proc.returncode}")
-        return None
-    with open(out_path) as f:
-        driver = json.load(f)["driver"]
+    wall, data = res
+    driver = data["driver"]
     driver["child_wall_s"] = wall
     step_ms = 8 / driver["steady_pairs_per_s"] * 1e3
     log(f"driver: child process wall {wall:.2f} s; Trainer steady {step_ms:.2f} ms a step "
@@ -1194,6 +1221,397 @@ def run_driver_child(card, report, train_p50_ms):
         f"[{card}]")
     report["driver"] = driver
     return driver
+
+
+# --- phase 12: bench.py's mixed-precision configuration, in a child process ---
+
+BENCH_TIMEOUT_S = 400
+BENCH_BATCHES = (8, 96)        # bench.py:45 trains VIGOR at 96
+# bench.py:30-75's train configuration: vigor() with these options
+# (phase_space_min_res and circular_impl='edgefix' stay at their defaults
+# there, remat_policy 'none'; lmu_fused_min_res=0, bench.py:50)
+BENCH_OPTIONS = dict(remat_backbone=True, remat_skip_blocks=2, remat_policy="none",
+                     deconv_impl="conv", compute_dtype="bfloat16", ori_window=160,
+                     lmu_fused_min_res=0, corr_bf16=True)
+# the remat combinations held to no remat on the card
+REMAT_CASES = {"backbone skip 2": dict(remat_backbone=True, remat_skip_blocks=2),
+               "backbone save_dw skip 2": dict(remat_backbone=True, remat_skip_blocks=2,
+                                               remat_policy="save_dw"),
+               "decoder": dict(remat_decoder=True)}
+# the windowed step against the full field (tests/test_ori_window.py:64-81):
+# losses in float32 sums of another order, gradients as the JAX suite holds
+# them (encoder-side sums of large terms in another reduction order)
+WINDOW_LOSS_RTOL, WINDOW_GRAD_ATOL, WINDOW_GRAD_RTOL = 1e-5, 1e-2, 3e-4
+# remat against no remat in deterministic mode: the recompute runs the same
+# kernels on the same inputs, so the bits; a gradient that is not the same
+# bits must be within float32 roundoff of sums in another order, scaled by
+# its max abs
+REMAT_GRAD_ATOL = 1e-6
+# the bf16 step's loss against the float32 step's on the same weights, batch
+# and masks: bf16 keeps 8 significant bits (~4e-3 relative a rounding); the
+# loss, a mean of many terms, moved 8e-4 at tiny() on the CPU
+BF16_LOSS_RTOL = 1e-2
+BENCH_LAUNCHES = {"corr_fwd": 1, "corr_fwd_bf16": 5, "lmu_fwd": 0, "lmu_bwd": 0}
+
+
+def bench_batch(cfg, b):
+    """uint8 images and GT scalars from numpy seed 17; the last two samples'
+    GT near opposite corners, where the ori window clamps to the border."""
+    from ccvpe_tpu_torch.train.step import Batch
+    rng = np.random.default_rng(17)
+    hg, wg = cfg.grd_size
+    hs, ws = cfg.sat_size
+    row = rng.uniform(-100, 100, b).astype(np.float32)
+    col = rng.uniform(-100, 100, b).astype(np.float32)
+    row[-2:], col[-2:] = (-(hs / 2 - 6), hs / 2 - 6), (ws / 2 - 6, -(ws / 2 - 6))
+    return Batch(*(torch.from_numpy(a).cuda() for a in (
+        rng.integers(0, 256, (b, hg, wg, 3), dtype=np.uint8),
+        rng.integers(0, 256, (b, hs, ws, 3), dtype=np.uint8),
+        row, col, rng.uniform(0, 360, b).astype(np.float32))))
+
+
+def check_bf16_corr(card, out) -> bool:
+    """B1 on a bf16 S at the five decoder scales of a VIGOR forward (batch 8)
+    and at one ragged shape (N not a multiple of the tile, D not of 8, so S
+    takes the element copies, K at the maximum, centre mode): against its
+    plain version with and without r, with S^2 rounded and not, each twice
+    for the same bits; against the float32 kernel on S.float() without the
+    rounding, to the bit (a bf16 value is its own TF32 hi: the same
+    products); the plans' blocks per SM against the occupancy API. Then
+    timed at the five scales, on the rounding the bench configuration takes
+    there (D < 128), beside the float32 kernel on S.float() and the bound."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.ops import corr_cuda
+    from ccvpe_tpu_torch.ops.corr import BF16_ROUND_MAX_D
+    from ccvpe_tpu_torch.ops.corr_cuda import corr_core, corr_core_plain
+    vigor, b = cfg_lib.vigor(), 8
+    k20 = tuple(range(vigor.num_bins))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(f"vigor s{s + 2}", b, n, d, length, shift, k20, False)
+             for s, (n, d, length, shift) in enumerate(vigor_corr_shapes(vigor, b)[1:])]
+    cases.append(("ragged K=32 D=70", 3, 1000, 70, 50, 3, tuple(range(corr_cuda.MAX_BINS)), True))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows, max_err = [], 0.0
+    for name, bb, n, d, length, shift, bins, center in cases:
+        s32, g_mat, m_mat = corr_inputs(bb, n, d, length, shift, bins, center, gen)
+        s = s32.bfloat16()
+        k = len(bins)
+        plan = corr_cuda.corr_plan(bb, n, d, k, sms, 2)
+        for rnd in (False, True):
+            occ = corr_cuda.kernel_occupancy(plan, k, corr_cuda.S_BF16_ROUND_SQ if rnd
+                                             else corr_cuda.S_BF16)
+            bare, bare2 = corr_core(s, g_mat, m_mat, round_sq=rnd), corr_core(s, g_mat, m_mat,
+                                                                               round_sq=rnd)
+            o, r = corr_core(s, g_mat, m_mat, need_r=True, round_sq=rnd)
+            o2, r2 = corr_core(s, g_mat, m_mat, need_r=True, round_sq=rnd)
+            ref, ref_r = corr_core_plain(s, g_mat, m_mat, need_r=True, round_sq=rnd)
+            f32 = None if rnd else corr_core(s.float(), g_mat, m_mat)
+            torch.cuda.synchronize()
+            same = (torch.equal(bare, bare2) and torch.equal(o, o2) and torch.equal(r, r2)
+                    and torch.equal(bare, o))
+            err = float((o - ref).abs().max())
+            r_rel = float(((r - ref_r).abs() / ref_r.abs()).max())
+            as_f32 = None if rnd else float((bare - f32).abs().max())
+            ok = (same and occ >= plan.blocks_per_sm
+                  and torch.allclose(o, ref, atol=CORR_ATOL, rtol=CORR_RTOL)
+                  and torch.allclose(bare, ref, atol=CORR_ATOL, rtol=CORR_RTOL)
+                  and torch.allclose(r, ref_r, atol=0.0, rtol=CORR_RTOL)
+                  and (rnd or torch.equal(bare, f32)))
+            rows.append(dict(name=name, b=bb, n=n, d=d, k=k, round_sq=rnd, max_abs=err,
+                             r_max_rel=r_rel, same_bits=same, vs_f32_max_abs=as_f32,
+                             occupancy=occ, plan=dataclasses.asdict(plan), ok=ok))
+            log(f"check bf16 {name:16s} B={bb} N={n} D={d} K={k} S^2 rounded {rnd!s:5}: out "
+                f"max_abs={err:.3g} r max_rel={r_rel:.3g} (atol {CORR_ATOL} rtol {CORR_RTOL}), "
+                f"without and with r, same bits twice {same}"
+                + ("" if rnd else f"; against the float32 kernel on S.float() {as_f32:.3g} "
+                   "(tolerance 0: the same products)")
+                + f"; {plan.slices} slices of {plan.width}, {plan.blocks_per_sm} blocks per SM "
+                f"assumed ({occ} fit) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                return False
+            max_err = max(max_err, err)
+    out["bf16_checks"] = rows
+    out["bf16_max_abs_err"] = max_err
+
+    keys = ("ms", "r_ms", "plain_ms", "r_plain_ms", "f32_ms", "f32_r_ms", "bound_ms",
+            "r_bound_ms", "f32_bound_ms", "f32_r_bound_ms", "bytes", "f32_bytes", "ops_ms",
+            "f32_ops_ms")
+    tot, timing = dict.fromkeys(keys, 0.0), []
+    for name, bb, n, d, length, shift, bins, center in cases[:5]:
+        s32, g_mat, m_mat = corr_inputs(bb, n, d, length, shift, bins, center, gen)
+        s, k, rnd = s32.bfloat16(), len(bins), d < BF16_ROUND_MAX_D
+        row = dict(name=name, n=n, d=d, k=k, round_sq=rnd)
+        row["ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, round_sq=rnd))
+        row["f32_ms"] = time_ms(lambda: corr_core(s32, g_mat, m_mat))
+        row["plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, round_sq=rnd))
+        row["r_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True, round_sq=rnd))
+        row["f32_r_ms"] = time_ms(lambda: corr_core(s32, g_mat, m_mat, need_r=True))
+        row["r_plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True,
+                                                            round_sq=rnd))
+        (row["bound_ms"], row["bound_by"], row["bytes"], _,
+         row["ops_ms"]) = corr_bound(bb, n, d, k, False, 2, rnd)
+        row["r_bound_ms"] = corr_bound(bb, n, d, k, True, 2, rnd)[0]
+        (row["f32_bound_ms"], _, row["f32_bytes"], _,
+         row["f32_ops_ms"]) = corr_bound(bb, n, d, k)
+        row["f32_r_bound_ms"] = corr_bound(bb, n, d, k, True)[0]
+        log(f"time bf16 {name:8s} N={n:6d} D={d:4d} S^2 rounded {rnd!s:5}: kernel "
+            f"{row['ms']:.4f} ms (float32 S {row['f32_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}; {row['bytes'] / 1e6:.1f} MB, "
+            f"TF32 products {row['ops_ms']:.4f}; float32 S {row['f32_bound_ms']:.4f} / "
+            f"{row['f32_bytes'] / 1e6:.1f} MB / products {row['f32_ops_ms']:.4f}); with r: "
+            f"kernel {row['r_ms']:.4f} (float32 S {row['f32_r_ms']:.4f}), plain "
+            f"{row['r_plain_ms']:.4f}, bound {row['r_bound_ms']:.4f} [{card}]")
+        timing.append(row)
+        for key in keys:
+            tot[key] += row[key]
+    tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S * 1e3 >= tot["ops_ms"]
+                       else "operations")
+    log(f"time bf16 S, the five decoder scales (5 launches): kernel {tot['ms']:.4f} ms (float32 "
+        f"S {tot['f32_ms']:.4f}), plain {tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+        f"({tot['bound_by']}; {tot['bytes'] / 1e6:.1f} MB, TF32 products "
+        f"{tot['ops_ms']:.4f}; float32 S {tot['f32_bound_ms']:.4f}, "
+        f"{tot['f32_bytes'] / 1e6:.1f} MB); with r: kernel {tot['r_ms']:.4f} (float32 S "
+        f"{tot['f32_r_ms']:.4f}), plain {tot['r_plain_ms']:.4f}, bound {tot['r_bound_ms']:.4f} "
+        f"[{card}]")
+    out["bf16_timing"], out["bf16_timing_total"] = timing, tot
+    return True
+
+
+def one_step(cfg, sd, batch, grads=False):
+    """A new train state from sd, one step with drop-connect from a CUDA
+    generator of seed 17: (state, step, generator, metrics[, grads,
+    buffers])."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.train.step import create_train_state, make_train_step
+    state = create_train_state(cfg, cfg_lib.TrainConfig(), state_dict=sd)
+    step = make_train_step(cfg, cfg_lib.TrainConfig())
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not grads:
+        return state, step, gen, metrics
+    g = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    bufs = {n: t.detach().clone() for n, t in state.model.named_buffers()}
+    return state, step, gen, metrics, g, bufs
+
+
+def check_window_and_remat(card, out, sd) -> bool:
+    """In deterministic mode, float32, vigor() at batch 8 on the same
+    weights, batch and drop-connect seed: the ori-window step against the
+    full field (losses, every gradient), and each remat combination against
+    no remat (losses and BN buffers to the bit, gradients to the bit or
+    within REMAT_GRAD_ATOL)."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core.debug import deterministic
+    vigor = cfg_lib.vigor()
+    batch = bench_batch(vigor, 8)
+    res = out["deterministic"] = {}
+    with deterministic():
+        _, _, _, m0, g0, b0 = one_step(vigor, sd, batch, grads=True)
+        _, _, _, mw, gw, _ = one_step(dataclasses.replace(vigor, ori_window=160), sd, batch,
+                                      grads=True)
+        loss_rel = {k: abs(mw[k] - m0[k]) / abs(m0[k]) for k in ("loss", "loss_ori")}
+        bad = [n for n, g in g0.items()
+               if not torch.allclose(gw[n], g, atol=WINDOW_GRAD_ATOL, rtol=WINDOW_GRAD_RTOL)]
+        worst = max(float(((gw[n] - g).abs() / (WINDOW_GRAD_ATOL + WINDOW_GRAD_RTOL * g.abs()))
+                          .max()) for n, g in g0.items())
+        ok = all(e <= WINDOW_LOSS_RTOL for e in loss_rel.values()) and not bad
+        res["ori_window"] = dict(loss_rel=loss_rel, grads_outside=bad, worst_share=worst,
+                                 full=m0, windowed=mw, ok=ok)
+        log(f"ori_window 160 vs full field (f32, batch 8, deterministic): loss rel {loss_rel['loss']:.3g}, "
+            f"loss_ori rel {loss_rel['loss_ori']:.3g} (rtol {WINDOW_LOSS_RTOL}); {len(g0) - len(bad)}/"
+            f"{len(g0)} gradients within atol {WINDOW_GRAD_ATOL} rtol {WINDOW_GRAD_RTOL} (worst "
+            f"at {worst:.3g} of the bound) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            log(f"FAIL: windowed gradients {bad[:10]}")
+            return False
+        del gw
+        for name, over in REMAT_CASES.items():
+            _, _, _, mr, gr, br = one_step(dataclasses.replace(vigor, **over), sd, batch,
+                                           grads=True)
+            bufs_bad = [n for n, t in b0.items() if not torch.equal(br[n], t)]
+            not_bits = [n for n, g in g0.items() if not torch.equal(gr[n], g)]
+            worst = max([scaled_err(gr[n], g0[n]) for n in not_bits], default=0.0)
+            ok = mr == m0 and not bufs_bad and worst <= REMAT_GRAD_ATOL
+            res[f"remat {name}"] = dict(metrics_equal=mr == m0, buffers_differ=bufs_bad,
+                                        grads_not_bitwise=not_bits, worst_scaled=worst, ok=ok)
+            log(f"remat {name} vs none (f32, batch 8, drop-connect on, deterministic): losses "
+                f"equal {mr == m0}; BN buffers {len(b0) - len(bufs_bad)}/{len(b0)} to the bit; "
+                f"gradients {len(g0) - len(not_bits)}/{len(g0)} to the bit, worst scaled "
+                f"{worst:.3g} (atol {REMAT_GRAD_ATOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                return False
+            del gr, br
+    torch.cuda.empty_cache()
+    return True
+
+
+def time_steps(step, state, batch, gen, n):
+    """p50 of n steps (each read back), peak memory over them, losses."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        _, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), torch.cuda.max_memory_allocated(), times, losses
+
+
+def run_bench_steps(card, out, sd) -> bool:
+    """bench.py's configuration through create_train_state and
+    make_train_step at batch 8 and 96: B1's launches in a step (bf16 and
+    float32 S apart), p50 step time, pairs/s, peak memory, one step under
+    torch.profiler; beside the
+    float32, no-remat, unwindowed step at batch 8 on the same weights, whose
+    loss the bf16 step's must be within BF16_LOSS_RTOL of."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    vigor = cfg_lib.vigor()
+    bench = dataclasses.replace(vigor, **BENCH_OPTIONS)
+    res = out["steps"] = {}
+    for b in BENCH_BATCHES:
+        batch = bench_batch(bench, b)
+        zero_launch_counts()
+        state, step, gen, first = one_step(bench, sd, batch)
+        launches = launch_counts()
+        step(state, batch, gen)                              # warm-up
+        p50, peak, times, losses = time_steps(step, state, batch, gen, 6 if b == 8 else 3)
+        ok = (launches == BENCH_LAUNCHES and np.isfinite(list(first.values())).all()
+              and np.isfinite(losses).all())
+        res[f"bf16 batch {b}"] = dict(first=first, launches=launches, p50_step_ms=p50 * 1e3,
+                                      pairs_per_s=b / p50, peak_bytes=peak,
+                                      step_ms=[t * 1e3 for t in times], losses=losses)
+        log(f"train bench.py config batch {b} (bf16, remat skip 2, ori_window 160, conv "
+            f"deconv, corr_bf16): launches {launches} (want {BENCH_LAUNCHES}); p50 step "
+            f"{p50 * 1e3:.2f} ms, {b / p50:.2f} pairs/s, peak memory {peak / 2 ** 30:.2f} GiB, "
+            f"first loss {first['loss']:.6g}, losses {[round(x, 1) for x in losses]} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            return False
+        res[f"bf16 batch {b}"]["profile"] = profile_call(
+            lambda: step(state, batch, gen), f"one bench.py config step at batch {b}", card,
+            p50 * 1e3)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    batch = bench_batch(vigor, 8)
+    state, step, gen, first = one_step(vigor, sd, batch)
+    step(state, batch, gen)
+    p50, peak, times, losses = time_steps(step, state, batch, gen, 6)
+    want = first["loss"]
+    got = res["bf16 batch 8"]["first"]["loss"]
+    rel = abs(got - want) / abs(want)
+    res["f32 batch 8"] = dict(first=first, p50_step_ms=p50 * 1e3, pairs_per_s=8 / p50,
+                              peak_bytes=peak, step_ms=[t * 1e3 for t in times], losses=losses)
+    res["bf16_loss_rel"] = rel
+    ok = rel <= BF16_LOSS_RTOL and np.isfinite(losses).all()
+    log(f"train vigor batch 8 float32 (TF32 off, no remat, no window, unfused), the same weights "
+        f"and batch: p50 step {p50 * 1e3:.2f} ms, {8 / p50:.2f} pairs/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; the bf16 step's first loss {got:.6g} against its {want:.6g}: "
+        f"rel {rel:.3g} (rtol {BF16_LOSS_RTOL}) {'ok' if ok else 'FAIL'} [{card}]")
+    del state, step
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_bench_predict(card, out, sd) -> bool:
+    """One InferenceEngine.predict batch of 8 under bench.py's configuration
+    (eval: no window, no remat): B1's launches, its decode step's rows equal
+    predict's, finite maps, and the heatmap peaks against the float32
+    model's on the same weights."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.serve import InferenceEngine
+    from ccvpe_tpu_torch.train.step import make_eval_decode_step, make_eval_step
+    vigor = cfg_lib.vigor()
+    bench = dataclasses.replace(vigor, **BENCH_OPTIONS)
+    batch = bench_batch(vigor, 8)
+    grd, sat = batch.grd.cpu().numpy(), batch.sat.cpu().numpy()
+    engine = InferenceEngine(bench, sd, batch_size=8)
+    zero_launch_counts()
+    results = engine.predict(grd, sat)
+    launches = launch_counts()
+    maps = {}
+    for name, model in (("bf16", engine.model), ("f32", InferenceEngine(vigor, sd).model)):
+        maps[name] = make_eval_step(model)(batch.grd, batch.sat)
+    decoded = make_eval_decode_step(engine.model)(batch.grd, batch.sat, batch.row_offset,
+                                                  batch.col_offset)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in maps["bf16"])
+
+    def peaks(heatmap):
+        flat = heatmap.reshape(heatmap.shape[0], -1).argmax(dim=1)
+        return torch.stack([flat // heatmap.shape[2], flat % heatmap.shape[2]], 1).float()
+
+    dist = (peaks(maps["bf16"][0]) - peaks(maps["f32"][0])).norm(dim=1).cpu()
+    same_rows = decoded[0].tolist() == [p.row for p in results]
+    want = BENCH_LAUNCHES
+    ok = launches == want and finite and same_rows and len(results) == 8
+    out["predict"] = dict(launches=launches, finite=finite, decode_equals_predict=same_rows,
+                          peak_px_to_f32=dist.tolist(), same_peak=int((dist == 0).sum()),
+                          heatmap_max_abs_to_f32=float((maps["bf16"][0] - maps["f32"][0])
+                                                       .abs().max()), ok=ok)
+    log(f"predict bench.py config batch 8 (bf16, eval): launches {launches} (want {want}); maps "
+        f"finite {finite}; decode step rows equal predict's {same_rows}; heatmap peaks equal "
+        f"the float32 model's in {int((dist == 0).sum())}/8 samples (pixels apart "
+        f"{[round(x, 1) for x in dist.tolist()]}), heatmap max abs difference "
+        f"{out['predict']['heatmap_max_abs_to_f32']:.3g} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def bench_main(out_path: str) -> int:
+    """Phase 12 in its own process (cuBLAS's fixed workspace for the
+    deterministic checks, set by the parent in the environment). The
+    kernels were built by the parent; loading finds them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --bench-config: no CUDA device", file=sys.stderr)
+        return 2
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.models.cvm import CVM, random_init_
+    from ccvpe_tpu_torch.ops import corr_cuda
+    corr_cuda.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    out = {}
+    sd = random_init_(CVM(cfg_lib.vigor()).to_empty(device="cpu"),
+                      torch.Generator().manual_seed(17)).state_dict()
+    t0 = time.perf_counter()
+    ok = check_bf16_corr(card, out)
+    ok = ok and check_window_and_remat(card, out, sd)
+    ok = ok and run_bench_steps(card, out, sd)
+    ok = ok and run_bench_predict(card, out, sd)
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"bench_config": out}, f, indent=1)
+    return 0 if ok else 1
+
+
+def run_child(flag: str, name: str, timeout_s: int):
+    """`python3 chip_smoke.py <flag> chiprun_out/<name>` as a child process
+    with CUBLAS_WORKSPACE_CONFIG=:4096:8; returns its wall time and JSON, or
+    None where it fails (logged)."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_path = os.path.abspath(os.path.join(OUT_DIR, name))
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, out_path],
+                              env=env, timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        log(f"FAIL: the {flag} child process ran over {timeout_s} s")
+        return None
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        log(f"FAIL: the {flag} child process exited with {proc.returncode}")
+        return None
+    with open(out_path) as f:
+        return wall, json.load(f)
 
 
 def main() -> int:
@@ -1360,7 +1778,8 @@ def main() -> int:
     # 4. timing at the VIGOR shapes, without r (serving) and with r (training)
     report["timing"] = []
     tot = dict.fromkeys(("ms", "plain_ms", "matmul2_ms", "bound_ms", "bytes", "flops", "r_ms",
-                         "r_plain_ms", "r_bound_ms", "r_bytes", "r_flops"), 0)
+                         "r_plain_ms", "r_bound_ms", "r_bytes", "r_flops", "ops_ms",
+                         "r_ops_ms"), 0)
     for name, b, n, d, length, shift, bins, center in cases[:6]:
         s, g_mat, m_mat = corr_inputs(b, n, d, length, shift, bins, center, gen)
         k = len(bins)
@@ -1383,23 +1802,23 @@ def main() -> int:
         row["r_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True))
         row["r_plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True))
         for p, need_r in (("", False), ("r_", True)):
-            bound, by, nbytes, flops = corr_bound(b, n, d, k, need_r)
+            bound, by, nbytes, flops, ops_ms = corr_bound(b, n, d, k, need_r)
             row.update({f"{p}bound_ms": bound, f"{p}bound_by": by, f"{p}bytes": nbytes,
-                        f"{p}flops": flops})
+                        f"{p}flops": flops, f"{p}ops_ms": ops_ms})
         log(f"plan {name:10s}: T {plan.rows}, {plan.slices} slices of {plan.width}, K padded "
             f"to {plan.kp}, grid {plan.grid_x} x {plan.slices} x {b} = {plan.blocks} blocks, "
             f"{plan.blocks_per_sm} per SM assumed ({occ} fit, {smem} B each)")
         log(f"time {name:10s} N={n:6d} D={d:5d}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, two-matmul yardstick {row['matmul2_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {row['bytes'] / 1e6:.1f} MB at "
-            f"3.35 TB/s, {row['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s f32); with r: kernel "
+            f"3.35 TB/s, {row['flops'] / 1e9:.2f} GFLOP of TF32 products {row['ops_ms']:.4f} "
+            f"ms); with r: kernel "
             f"{row['r_ms']:.4f} ms, plain {row['r_plain_ms']:.4f} ms, bound "
             f"{row['r_bound_ms']:.4f} ms ({row['r_bytes'] / 1e6:.1f} MB) [{card}]")
         report["timing"].append(row)
         for key in tot:
             tot[key] += row[key]
-    t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = tot["flops"] / FP32_FLOPS_PER_S * 1e3
+    t_bytes, t_ops = tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["ops_ms"]
     log(f"time per VIGOR forward (6 launches): kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, two-matmul {tot['matmul2_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms; with r: kernel {tot['r_ms']:.4f} ms, plain "
@@ -1545,9 +1964,7 @@ def main() -> int:
             log("FAIL: the weights are resident, yet tiles spent cycles loading them")
             return 1
     # the checks and timings above do not count
-    corr_core.launches = 0
-    lmu_cuda.fused_stage.launches = 0
-    lmu_cuda.fused_stage_bwd.launches = 0
+    zero_launch_counts()
     lmu_cuda.mma_probe.launches = 0
 
     # 8. the serving path at full width
@@ -1639,6 +2056,17 @@ def main() -> int:
     if driver is None:
         return 1
 
+    # 12. bench.py's mixed-precision configuration at full width, in a child
+    res = run_child("--bench-config", "chip_smoke_bench.json", BENCH_TIMEOUT_S)
+    if res is None:
+        return 1
+    bench = report["bench_config"] = res[1]["bench_config"]
+    bench["child_wall_s"] = res[0]
+    log(f"bench config: child process wall {res[0]:.2f} s, {bench['seconds']:.2f} s of checks "
+        f"and runs [{card}]")
+    bench8 = bench["steps"]["bf16 batch 8"]
+    bt = bench["bf16_timing_total"]
+
     def by(key):
         t_b = lmu_tot[f"{key}_bytes"] / HBM_BYTES_PER_S
         t_o = lmu_tot[f"{key}_flops"] / FP32_FLOPS_PER_S
@@ -1653,6 +2081,19 @@ def main() -> int:
         "yardstick_ms": tot["matmul2_ms"], "r_ms": tot["r_ms"], "r_plain_ms": tot["r_plain_ms"],
         "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
         "eval_launches": eval_launches, "driver_launches": driver["fit_launches"]["corr_fwd"],
+        "bench_launches": bench8["launches"]["corr_fwd"],
+    }, {
+        # B1 on a bf16 S: the decoder's maps in bench.py's configuration;
+        # launches from its train step at batch 8, times at those five scales
+        "name": "corr_fwd_bf16", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/corr.cu",
+        "replaces": "ccvpe_tpu/ops/corr_pallas.py:31",
+        "launches": bench8["launches"]["corr_fwd_bf16"], "max_abs_err": bench["bf16_max_abs_err"],
+        "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
+        "bound_by": bt["bound_by"], "library_ms": None, "r_ms": bt["r_ms"],
+        "r_plain_ms": bt["r_plain_ms"], "r_bound_ms": bt["r_bound_ms"], "ops_ms": bt["ops_ms"],
+        "f32_ms": bt["f32_ms"],
+        "f32_r_ms": bt["f32_r_ms"], "f32_bound_ms": bt["f32_bound_ms"],
+        "eval_launches": bench["predict"]["launches"]["corr_fwd_bf16"],
     }, {
         "name": "lmu_fwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:264",
@@ -1695,4 +2136,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--driver":
         sys.exit(driver_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--bench-config":
+        sys.exit(bench_main(sys.argv[2]))
     sys.exit(main())

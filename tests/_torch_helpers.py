@@ -3,6 +3,7 @@ variables filled from a numpy seed, carried into torch modules."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from ccvpe_tpu.utils.torch_convert import flatten, unflatten
@@ -19,6 +20,18 @@ HEATMAP_ATOL = 1e-6
 # 2e-8 and more, so 1e-9 tells a tie from a wrong decode (HEATMAP_ATOL is
 # ten times the heatmap's own top-2 gaps and would not).
 TIE_ATOL = 1e-9
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One torch intra-op thread for a module's tests (imported by the
+    modules that use it): tiny() steps run as fast on one thread, and the
+    suite's parallel workers share the machine's cores, where spinning
+    thread pools of every worker slow each other down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def fill_variables(shapes, seed: int):

@@ -82,4 +82,24 @@ def test_constants_match_the_kernel_source():
     assert const("kMaxBins") == corr_cuda.MAX_BINS
     assert const("kMinBlocks") == corr_cuda.MAX_BLOCKS_PER_SM
     assert const("kMaxSmem") == corr_cuda.MAX_BLOCK_SMEM
-    assert "return 4 * kRingFloats + 4 * 3 * kp * (w + 4) + 4 * 2 * kRows * k;" in src
+    assert "return ring_bytes<T>() + 4 * 3 * kp * (w + 4) + 4 * 2 * kRows * k;" in src
+    assert ("return kStages * kRows * SRing<T>::kStride * static_cast<int>(sizeof(T));"
+            in src)
+    for ctype, nbytes in (("float", 4), ("bf16", 2)):
+        stride = int(re.search(rf"struct SRing<{ctype}> {{ static constexpr int kStride = "
+                               rf"kChunk \+ (\d+); }};", src).group(1))
+        assert corr_cuda.CHUNK + stride == corr_cuda.RING_STRIDE[nbytes]
+    assert ("enum SType { kF32 = 0, kBf16 = 1, kBf16RoundSq = 2 };" in src
+            and (corr_cuda.S_F32, corr_cuda.S_BF16, corr_cuda.S_BF16_ROUND_SQ) == (0, 1, 2))
+
+
+@pytest.mark.parametrize("b, n, d, k", SHAPES)
+def test_bf16_plans_fit(b, n, d, k):
+    """A bf16 S rings in 2-byte elements: the same slices, at least as many
+    blocks per SM, each block within the card's shared memory."""
+    f32, half = corr_plan(b, n, d, k), corr_plan(b, n, d, k, s_bytes=2)
+    assert (half.slices, half.width, half.kp) == (f32.slices, f32.width, f32.kp)
+    assert half.blocks_per_sm >= f32.blocks_per_sm
+    assert smem_bytes(half.width, k, half.kp, 2) < smem_bytes(f32.width, k, f32.kp)
+    assert half.blocks_per_sm * (smem_bytes(half.width, k, half.kp, 2)
+                                 + corr_cuda.BLOCK_SMEM_RESERVED) <= corr_cuda.SM_SMEM

@@ -108,17 +108,19 @@ def test_ori_prior_returns_full_bottleneck_stack():
     assert ks == [4, 3, 3, 3, 3, 3]
 
 
-UNPORTED = [("remat_backbone", True), ("remat_skip_blocks", 2),
-            ("remat_policy", "save_dw"), ("remat_decoder", True),
-            ("spatial_axis", "model"), ("ori_axis", "model"),
-            ("phase_space_min_res", 256),
-            ("circular_impl", "edgefix"), ("deconv_impl", "conv"),
-            ("compute_dtype", "bfloat16"), ("corr_bf16", True), ("ori_window", 224)]
+# (test id, ModelConfig overrides, the field the message names)
+UNPORTED = [("spatial_axis", {"spatial_axis": "model"}, "spatial_axis"),
+            ("ori_axis", {"ori_axis": "model"}, "ori_axis"),
+            ("phase_space_min_res", {"phase_space_min_res": 256}, "phase_space_min_res"),
+            ("circular_impl", {"circular_impl": "edgefix"}, "circular_impl"),
+            # the fused LMU kernels take float32 only
+            ("bf16_with_lmu_fused", {"compute_dtype": "bfloat16", "lmu_fused_min_res": 256},
+             "compute_dtype")]
 
 
-@pytest.mark.parametrize("field,value", UNPORTED, ids=[f for f, _ in UNPORTED])
-def test_unported_options_raise(field, value):
-    cfg = dataclasses.replace(tcfg.tiny(), **{field: value})
+@pytest.mark.parametrize("over,field", [u[1:] for u in UNPORTED], ids=[u[0] for u in UNPORTED])
+def test_unported_options_raise(over, field):
+    cfg = dataclasses.replace(tcfg.tiny(), **over)
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
         CVM(cfg)
 
@@ -126,6 +128,27 @@ def test_unported_options_raise(field, value):
 def test_bad_corr_impl_raises():
     with pytest.raises(ValueError, match="corr_impl"):
         check_supported(dataclasses.replace(tcfg.tiny(), corr_impl="pallas"))
+
+
+@pytest.mark.parametrize("field,value", [("deconv_impl", "pallas"), ("remat_policy", "save_all"),
+                                         ("compute_dtype", "float16"), ("ori_window", 156),
+                                         ("ori_window", 162), ("ori_window", 260)])
+def test_bad_option_values_raise(field, value):
+    with pytest.raises(ValueError, match=field):
+        check_supported(dataclasses.replace(tcfg.tiny(sat=256), **{field: value}))
+
+
+@pytest.mark.parametrize("policy", ["none", "save_dw"])
+def test_bench_configuration_is_accepted(policy):
+    """bench.py:64-75's train configuration (vigor() with remat, the conv
+    deconv, bf16, the ori window and corr_bf16), remat_decoder on too."""
+    cfg = dataclasses.replace(tcfg.vigor(), remat_backbone=True, deconv_impl="conv",
+                              compute_dtype="bfloat16", remat_skip_blocks=2,
+                              remat_policy=policy, ori_window=160, lmu_fused_min_res=0,
+                              corr_bf16=True, remat_decoder=True)
+    model = CVM(cfg)
+    assert model.grd_efficientnet.remat and model.sat_efficientnet.remat_policy == policy
+    assert model.deconv6.impl == "conv" and model.conv1.compute_dtype == torch.bfloat16
 
 
 def test_state_dict_names_are_the_references():

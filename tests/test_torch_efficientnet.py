@@ -130,16 +130,16 @@ def test_unbiased_variance_update_would_fail(train_outputs):
 
 
 def test_drop_connect_masks_whole_samples():
-    from ccvpe_tpu_torch.nn.efficientnet import drop_connect
+    from ccvpe_tpu_torch.nn.efficientnet import apply_drop_connect, drop_connect_uniforms
 
     x = torch.ones(4000, 2, 3, 3)
-    y = drop_connect(x, 0.2, torch.Generator().manual_seed(0))
+    y = apply_drop_connect(x, 0.2, drop_connect_uniforms(x, torch.Generator().manual_seed(0)))
     per_sample = y.reshape(4000, -1)
     kept = per_sample[:, 0] > 0
     assert torch.all(per_sample[kept] == 1.0 / 0.8) and torch.all(per_sample[~kept] == 0)
     assert abs(float(kept.float().mean()) - 0.8) < 0.03
     with pytest.raises(ValueError, match="Generator"):
-        drop_connect(x, 0.2, None)
+        drop_connect_uniforms(x, None)
 
 
 def test_drop_rates_follow_block_index():
