@@ -16,6 +16,7 @@ CORR_IMPLS = ("auto", "plain", "cuda")
 DECONV_IMPLS = ("einsum", "conv")
 REMAT_POLICIES = ("none", "save_dw")
 COMPUTE_DTYPES = ("float32", "bfloat16")
+CIRCULAR_IMPLS = ("wrap", "edgefix")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +32,7 @@ class ModelConfig:
 
     # --- backbone ---
     circular: bool = True        # horizontal circular padding, ground encoder
-    circular_impl: str = "wrap"  # 'edgefix' not ported yet
+    circular_impl: str = "wrap"  # or 'edgefix' (value-equal, no wrapped copy)
     backbone_features: int = 1280
 
     # --- ground descriptor heads: 1x1 compress channels per scale ---
@@ -89,10 +90,14 @@ class ModelConfig:
     # the sigma-4 Gaussian loss weight underflows to 0.0f beyond ~58 px
     ori_window: int = 0
 
+    # phase-space (space-to-depth) fine stages: 0 = off, else the stages
+    # (and the final head) whose output resolution reaches it run on 2x2
+    # packed maps (ops/phase_space.py); exclusive with lmu_fused_min_res
+    phase_space_min_res: int = 0
+
     # --- options of the JAX package the port does not run yet ---
     spatial_axis: Optional[str] = None
     ori_axis: Optional[str] = None
-    phase_space_min_res: int = 0
 
     # --- ori-prior restricted search: degrees of orientation noise ---
     ori_noise: Optional[float] = None

@@ -9,7 +9,7 @@ they are part of the hash, so each define set is a library of its own.
 Nothing is compiled when this module is imported. A failed build raises
 with nvcc's output.
 
-    python -m ccvpe_tpu_torch.csrc.build      # build every kernel, print ptxas
+    python -m ccvpe_tpu_torch.csrc.build      # build every library, print ptxas
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ from typing import List, Sequence
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "_build"
 KERNELS = ("corr", "lmu")
+# every library the port loads: each kernel, and lmu.cu's bf16 instantiations
+# (ops/lmu_cuda.py::BF16_BUILD)
+LIBRARIES = (("corr", ()), ("lmu", ()), ("lmu", ("CCVPE_LMU_BF16",)))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -93,6 +96,6 @@ def build(name: str, defines: Sequence[str] = ()) -> Built:
 
 
 if __name__ == "__main__":
-    for kernel in KERNELS:
-        b = build(kernel)
-        print(f"{kernel}: {b.path} ({b.seconds:.1f} s)\n{b.log}")
+    for kernel, defines in LIBRARIES:
+        b = build(kernel, defines)
+        print(f"{kernel} {' '.join(defines)}: {b.path} ({b.seconds:.1f} s)\n{b.log}")

@@ -10,7 +10,9 @@
 //   y = conv3x3(g, w2) + b2
 //
 // x [B,Hc,Wc,Cin], skip [B,2Hc,2Wc,Cs] or none, y [B,2Hc,2Wc,Cout], all
-// float32 NHWC and contiguous. Weights in the kernel's layouts, made by the
+// NHWC and contiguous; y is float32, x and skip (and the backward's dy, dx
+// and dskip) float32 or, under compute_dtype='bfloat16', bf16 (see "bf16
+// stages" below). Weights in the kernel's layouts, made by the
 // wrapper (ops/lmu_cuda.py) from torch's: wd [4][Cin][Cd] (phase di*2+dj),
 // w1 [9][Cd+Cs][C1], w2 [9][C1][Cout] (tap ky*3+kx); the backward also
 // takes the flipped-transposed w2T [9][Cout][C1], w1T [9][C1][Cd+Cs] and
@@ -87,7 +89,29 @@
 // slices in block order. No float atomics anywhere, so two runs give the
 // same bits. dx and dskip are owned by one tile each (the deconv has no
 // overlap), so no two blocks write the same element.
+//
+// bf16 stages (the TPU kernels take the activations' type, lmu_pallas.py
+// :332, :527): x, skip and dy are bf16 in device memory and widened to
+// float32 as they are copied into shared memory (by a plain load and store:
+// cp.async copies bytes and cannot widen), so every shared-memory layout,
+// plan and tile choice is the float32 kernels'. The wrapper rounds the
+// weights to bf16; biases stay float32. Where the TPU kernel rounds to bf16
+// the kernels round too, to nearest even: h = deconv + bd (:251), conv_a +
+// b1 before the ReLU (:192), da after the mask (:465), dh for dx and dwd
+// (:483-487; dbd sums it unrounded, :488), dskip and dx as they are stored
+// (:491-492). y and the weight and bias gradients stay float32. So every
+// product operand is a bf16 value, its own TF32 hi: the tensor-core convs
+// and weight gradients issue one TF32 product where float32 takes three
+// (mma_3xtf32_step's kOne), exact, with float32 sums as before. The bf16
+// instantiations are a library of their own, this source built with
+// -DCCVPE_LMU_BF16 (its entries carry a _bf16 suffix), so that the two
+// compile side by side.
 
+#if defined(CCVPE_LMU_BF16) && defined(CCVPE_LMU_PHASE_TIMER)
+#error "the phase timer times the float32 backward only"
+#endif
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -128,23 +152,45 @@ __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 // padded output-channel count of a weight operand in shared memory
 __host__ __device__ inline int pad_co(int c) { return c <= 4 ? 4 : (c + 7) / 8 * 8; }
 
+using bf16 = __nv_bfloat16;
+
+// The activations' type E in device memory: float, or bf16 (see "bf16
+// stages" above). act_round is where a bf16 stage rounds a float32 value
+// to bf16 (nearest even) and keeps it as a float32; a float32 stage keeps v.
+template <class E>
+__host__ __device__ constexpr bool is_bf16() { return sizeof(E) == 2; }
+
+template <class E>
+__device__ inline float act_round(float v) {
+  return is_bf16<E>() ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+__device__ inline void act_store(float* p, float v) { *p = v; }
+__device__ inline void act_store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // dst[c*ps + r*side + col] = src[b, y0+r, x0+col, c] inside the image, else
-// 0, as 4-byte cp.async copies (zero-filled outside); the caller commits.
+// 0: float32 as 4-byte cp.async copies (zero-filled outside; the caller
+// commits), bf16 widened by a load and a store (done when the call returns).
 // Element i = (r*side + col)*nc + c of the box, so neighbouring threads read
 // neighbouring channels of a pixel; each thread steps its (c, col, r) by
 // blockDim.x elements with adds and compares, no division per element.
-__device__ void load_planes(float* dst, int ps, int side, const float* __restrict__ src,
+template <class E>
+__device__ void load_planes(float* dst, int ps, int side, const E* __restrict__ src,
                             int b, int h, int w, int nc, int y0, int x0) {
   const int n = side * side * nc;
   const int step_p = blockDim.x / nc, step_c = blockDim.x % nc;
   const int step_r = step_p / side, step_col = step_p % side;
   int c = threadIdx.x % nc, col = threadIdx.x / nc % side, r = threadIdx.x / nc / side;
-  const float* img = src + static_cast<size_t>(b) * h * w * nc;
+  const E* img = src + static_cast<size_t>(b) * h * w * nc;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int gy = y0 + r, gx = x0 + col;
     const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    cp_async4(dst + c * ps + r * side + col,
-              in ? img + (static_cast<size_t>(gy) * w + gx) * nc + c : src, in);
+    float* d = dst + c * ps + r * side + col;
+    const E* g = img + (static_cast<size_t>(gy) * w + gx) * nc + c;
+    if constexpr (is_bf16<E>())
+      *d = in ? __bfloat162float(*g) : 0.f;
+    else
+      cp_async4(d, in ? g : src, in);
     c += step_c;
     col += step_col;
     r += step_r;
@@ -290,8 +336,9 @@ __host__ __device__ inline int wgrad_tiles(int n) {
 // part += the products of this lane's pixels (plane offsets a_off, tap
 // included) and weight rows from w_off (this lane's column, tap included).
 // TAIL: the last, ragged step, zero past cin (the weight row is clamped
-// there; its product with the zero is 0).
-template <int MT, int NT, bool TAIL>
+// there; its product with the zero is 0). ONE: bf16 operands, one TF32
+// product (mma_3xtf32_step's kOne).
+template <int MT, int NT, bool TAIL, bool ONE>
 __device__ __forceinline__ void conv_tc_step(const int (&a_off)[MT][2], int w_off, int k0,
                                              int cin, int ps, int coutp,
                                              float (&part)[MT][NT][4]) {
@@ -308,7 +355,8 @@ __device__ __forceinline__ void conv_tc_step(const int (&a_off)[MT][2], int w_of
   }
   const int b1 = w_off + (TAIL ? imin(k1, cin - 1) : k1) * coutp;
   const int b2 = w_off + (TAIL ? imin(k2, cin - 1) : k2) * coutp;
-  mma_3xtf32_step<MT, NT>(av, [&](int j, int h) { return smem[(h ? b2 : b1) + 8 * j]; }, part);
+  mma_3xtf32_step<MT, NT, ONE>(av, [&](int j, int h) { return smem[(h ? b2 : b1) + 8 * j]; },
+                               part);
 }
 
 // Tap offsets of a KS x KS conv over planes of side `side`, tap ky*KS + kx:
@@ -343,8 +391,8 @@ struct SquareTaps {
 // lies inside the operand (an output column depends on its own B column
 // alone, so the repeated tiles cannot touch the kept ones). Item i goes to
 // warp (first + i) % warps, as in tile_conv_impl; returns first + its item
-// count.
-template <int NTAP, int MT, int NT, class Taps, class Epi>
+// count. ONE as in conv_tc_step.
+template <int NTAP, int MT, int NT, bool ONE, class Taps, class Epi>
 __device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, int step, Taps taps,
                                const float* w, int cout, int out_side, int first, Epi epi) {
   const int coutp = pad_co(cout);
@@ -386,8 +434,8 @@ __device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, in
       float part[MT][NT][4] = {};
       int k0 = 0;
       for (; k0 + 8 <= cin; k0 += 8)
-        conv_tc_step<MT, NT, false>(a_off, w_off, k0, cin, ps, coutp, part);
-      if (k0 < cin) conv_tc_step<MT, NT, true>(a_off, w_off, k0, cin, ps, coutp, part);
+        conv_tc_step<MT, NT, false, ONE>(a_off, w_off, k0, cin, ps, coutp, part);
+      if (k0 < cin) conv_tc_step<MT, NT, true, ONE>(a_off, w_off, k0, cin, ps, coutp, part);
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -411,12 +459,12 @@ __device__ int tile_conv_tc_nt(const float* in, int cin, int ps, int in_side, in
 
 // A KS x KS conv of the forward's on the tensor cores: tile_conv_tc_nt with
 // NT = wgrad_tiles(cout) n-tiles an item, which divides the tile count.
-template <int KS, int MT, class Epi>
+template <int KS, int MT, bool ONE, class Epi>
 __device__ int tile_conv_tc(const float* in, int cin, int ps, int in_side, const float* w,
                             int cout, int out_side, int first, Epi epi) {
-#define CCVPE_CONV_TC(NT)                                                                      \
-  tile_conv_tc_nt<KS * KS, MT, NT>(in, cin, ps, in_side, 1, SquareTaps<KS>{in_side}, w, cout, \
-                                   out_side, first, epi)
+#define CCVPE_CONV_TC(NT)                                                                \
+  tile_conv_tc_nt<KS * KS, MT, NT, ONE>(in, cin, ps, in_side, 1, SquareTaps<KS>{in_side}, w, \
+                                        cout, out_side, first, epi)
   switch (wgrad_tiles(cout)) {
     case 5: return CCVPE_CONV_TC(5);
     case 4: return CCVPE_CONV_TC(4);
@@ -444,11 +492,12 @@ constexpr int kBwdMTiles = 1;
 // but the heads' conv_b, Cout 1 or 2, where an n-tile of 8 would be mostly
 // empty), else the FMA tile_conv. An item takes wgrad_tiles(cout) n-tiles,
 // which divides the tile count. B3's own convs route by bwd_tensor_core.
-template <int KS, int MT, class Epi>
+// ONE as in conv_tc_step.
+template <int KS, int MT, bool ONE, class Epi>
 __device__ int fwd_conv(const float* in, int cin, int ps, int in_side, const float* w, int cout,
                         int out_side, int first, Epi epi) {
   if (pad_co(cout) % 8 == 0)
-    return tile_conv_tc<KS, MT>(in, cin, ps, in_side, w, cout, out_side, first, epi);
+    return tile_conv_tc<KS, MT, ONE>(in, cin, ps, in_side, w, cout, out_side, first, epi);
   return tile_conv<KS>(in, OneGroup{}, 1, cin, ps, in_side, 1, w, cout, out_side, first, epi);
 }
 
@@ -485,11 +534,12 @@ __host__ __device__ inline int bwd_conv_tiles(int n, int mtiles) {
 
 // A backward conv on the tensor cores, NT = bwd_conv_tiles(cout, m-tiles
 // of the box); the arguments are tile_conv_tc_nt's.
-template <int NTAP, int MT, class Taps, class Epi>
+template <int NTAP, int MT, bool ONE, class Taps, class Epi>
 __device__ int bwd_conv_tc(const float* in, int cin, int ps, int in_side, int step, Taps taps,
                            const float* w, int cout, int out_side, int first, Epi epi) {
-#define CCVPE_CONV_TC(NT) \
-  tile_conv_tc_nt<NTAP, MT, NT>(in, cin, ps, in_side, step, taps, w, cout, out_side, first, epi)
+#define CCVPE_CONV_TC(NT)                                                                    \
+  tile_conv_tc_nt<NTAP, MT, NT, ONE>(in, cin, ps, in_side, step, taps, w, cout, out_side, first, \
+                                     epi)
   switch (bwd_conv_tiles(cout, (out_side * out_side + 16 * MT - 1) / (16 * MT))) {
     case 4: return CCVPE_CONV_TC(4);
     case 2: return CCVPE_CONV_TC(2);
@@ -498,7 +548,7 @@ __device__ int bwd_conv_tc(const float* in, int cin, int ps, int in_side, int st
 #undef CCVPE_CONV_TC
 }
 
-template <int NTAP, int NB, int NT, class In, class G>
+template <int NTAP, int NB, int NT, bool ONE, class In, class G>
 __device__ int tile_wgrad_nt(In in, G g, int cin, int cout, int first, float* __restrict__ part) {
   const int nmt = (cin + 15) / 16, nng = (cout + 8 * NT - 1) / (8 * NT);
   const int items = NTAP * nmt * nng;
@@ -516,7 +566,7 @@ __device__ int tile_wgrad_nt(In in, G g, int cin, int cout, int first, float* __
         prev[j][e] = mn.x < cin && mn.y < cout ? dst[mn.x * cout + mn.y] : 0.f;
         acc[j][e] = 0.f;
       }
-    mma_3xtf32<NT>([=](int ci, int k) { return in(tap, ci, k); },
+    mma_3xtf32<NT, ONE>([=](int ci, int k) { return in(tap, ci, k); },
                    [=](int k, int co) { return g(tap, co, k); }, m0, n0, cin, cout, NB * NB, acc);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -545,14 +595,14 @@ __device__ int tile_wgrad_nt(In in, G g, int cin, int cout, int first, float* __
 // gradients then lose more than an order of magnitude of accuracy.)
 // Item i goes to warp (first + i) % warps, so that back-to-back calls
 // continue where the last one stopped; returns first + its item count for
-// the next call.
-template <int NTAP, int NB, class In, class G>
+// the next call. ONE as in conv_tc_step.
+template <int NTAP, int NB, bool ONE, class In, class G>
 __device__ int tile_wgrad(In in, G g, int cin, int cout, int first, float* __restrict__ part) {
   switch (wgrad_tiles(cout)) {
-    case 5: return first + tile_wgrad_nt<NTAP, NB, 5>(in, g, cin, cout, first, part);
-    case 4: return first + tile_wgrad_nt<NTAP, NB, 4>(in, g, cin, cout, first, part);
-    case 2: return first + tile_wgrad_nt<NTAP, NB, 2>(in, g, cin, cout, first, part);
-    default: return first + tile_wgrad_nt<NTAP, NB, 1>(in, g, cin, cout, first, part);
+    case 5: return first + tile_wgrad_nt<NTAP, NB, 5, ONE>(in, g, cin, cout, first, part);
+    case 4: return first + tile_wgrad_nt<NTAP, NB, 4, ONE>(in, g, cin, cout, first, part);
+    case 2: return first + tile_wgrad_nt<NTAP, NB, 2, ONE>(in, g, cin, cout, first, part);
+    default: return first + tile_wgrad_nt<NTAP, NB, 1, ONE>(in, g, cin, cout, first, part);
   }
 }
 
@@ -736,9 +786,10 @@ __device__ void tile_origin(const Dims& d, int tile, int* b, int* ty0, int* tx0)
 
 // h planes on the (T+4)^2 fine region at (fy0, fx0) = deconv of the coarse
 // x planes (region side xs = hs/2 at (fy0/2, fx0/2)), one phase at a time
-// so a warp's weights are one broadcast; 0 outside the image. The phases
-// continue one warp rotation (no barrier between them); returns its end.
-template <int MT>
+// so a warp's weights are one broadcast; 0 outside the image; a bf16 stage
+// rounds h to bf16. The phases continue one warp rotation (no barrier
+// between them); returns its end.
+template <int MT, class E>
 __device__ int deconv_tile(float* h, int hps, int hs, const float* xpl, int xps, int xs,
                            const float* wsm, const float* __restrict__ bd, int cin, int cd,
                            int img_h, int img_w, int fy0, int fx0) {
@@ -746,32 +797,37 @@ __device__ int deconv_tile(float* h, int hps, int hs, const float* xpl, int xps,
   int first = 0;
   for (int ph = 0; ph < 4; ++ph) {
     const int di = ph / 2, dj = ph % 2;
-    first = fwd_conv<1, MT>(xpl, cin, xps, xs, wsm + ph * cin * cdp, cd, xs, first,
-                        [&](int r, int c, int co, float v) {
-                          const int rr = 2 * r + di, cc = 2 * c + dj;
-                          const int gy = fy0 + rr, gx = fx0 + cc;
-                          const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
-                          h[co * hps + rr * hs + cc] = in ? v + bd[co] : 0.f;
-                        });
+    first = fwd_conv<1, MT, is_bf16<E>()>(xpl, cin, xps, xs, wsm + ph * cin * cdp, cd, xs, first,
+                                          [&](int r, int c, int co, float v) {
+                                            const int rr = 2 * r + di, cc = 2 * c + dj;
+                                            const int gy = fy0 + rr, gx = fx0 + cc;
+                                            const bool in =
+                                                gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
+                                            h[co * hps + rr * hs + cc] =
+                                                in ? act_round<E>(v + bd[co]) : 0.f;
+                                          });
   }
   return first;
 }
 
-// g = relu(conv3x3(hc, w1) + b1) on the (T+2)^2 region at (gy0, gx0); 0 outside.
-template <int MT>
+// g = relu(conv3x3(hc, w1) + b1) on the (T+2)^2 region at (gy0, gx0); 0
+// outside; a bf16 stage rounds conv_a + b1 to bf16 before the ReLU.
+template <int MT, class E>
 __device__ void conv_a_tile(float* g, int gps, int gs, const float* hc, int hps, int hs,
                             const float* wsm, const float* __restrict__ b1, int c, int c1,
                             int img_h, int img_w, int gy0, int gx0) {
-  fwd_conv<3, MT>(hc, c, hps, hs, wsm, c1, gs, 0, [&](int r, int cc, int co, float v) {
-    const int gy = gy0 + r, gx = gx0 + cc;
-    const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
-    g[co * gps + r * gs + cc] = in ? fmaxf(v + b1[co], 0.f) : 0.f;
-  });
+  fwd_conv<3, MT, is_bf16<E>()>(hc, c, hps, hs, wsm, c1, gs, 0,
+                                [&](int r, int cc, int co, float v) {
+                                  const int gy = gy0 + r, gx = gx0 + cc;
+                                  const bool in = gy >= 0 && gy < img_h && gx >= 0 && gx < img_w;
+                                  g[co * gps + r * gs + cc] =
+                                      in ? fmaxf(act_round<E>(v + b1[co]), 0.f) : 0.f;
+                                });
 }
 
-template <int kThreads>
+template <int kThreads, class E>
 __global__ void __launch_bounds__(kThreads, kThreads == kSmallBlock ? kFwdSmallBlocks : 1)
-lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ skip,
+lmu_fwd_kernel(Dims d, const E* __restrict__ x, const E* __restrict__ skip,
                const float* __restrict__ wd, const float* __restrict__ bd,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2, const float* __restrict__ b2,
@@ -792,26 +848,26 @@ lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
   copy_weights(sw, wd, 4 * d.cin * pad_co(d.cd));
   cp_async_wait<0>();
   __syncthreads();
-  deconv_tile<kFwdMTiles>(sa, hps, hs, sb, xps, xs, sw, bd, d.cin, d.cd, img_h, img_w, ty0 - 2,
-                          tx0 - 2);
+  deconv_tile<kFwdMTiles, E>(sa, hps, hs, sb, xps, xs, sw, bd, d.cin, d.cd, img_h, img_w,
+                             ty0 - 2, tx0 - 2);
   __syncthreads();
   copy_weights(sw, w1, 9 * c * pad_co(d.c1));
   cp_async_wait<0>();
   __syncthreads();
-  conv_a_tile<kFwdMTiles>(sb, gps, gs, sa, hps, hs, sw, b1, c, d.c1, img_h, img_w, ty0 - 1,
-                          tx0 - 1);
+  conv_a_tile<kFwdMTiles, E>(sb, gps, gs, sa, hps, hs, sw, b1, c, d.c1, img_h, img_w, ty0 - 1,
+                             tx0 - 1);
   __syncthreads();
   copy_weights(sa, w2, 9 * d.c1 * pad_co(d.cout));
   cp_async_wait<0>();
   __syncthreads();
   const int cout = d.cout;
-  fwd_conv<3, kFwdMTiles>(sb, d.c1, gps, gs, sa, cout, d.t, 0,
-                          [&](int r, int cc, int co, float v) {
-                            const int gy = ty0 + r, gx = tx0 + cc;
-                            if (gy < img_h && gx < img_w)
-                              y[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cout +
-                                co] = v + b2[co];
-                          });
+  fwd_conv<3, kFwdMTiles, is_bf16<E>()>(sb, d.c1, gps, gs, sa, cout, d.t, 0,
+                                        [&](int r, int cc, int co, float v) {
+                                          const int gy = ty0 + r, gx = tx0 + cc;
+                                          if (gy < img_h && gx < img_w)
+                                            y[((static_cast<size_t>(b) * img_h + gy) * img_w +
+                                               gx) * cout + co] = v + b2[co];
+                                        });
 }
 
 // T, the fine tile side, is d.t: a template argument, so that the weight
@@ -835,15 +891,16 @@ lmu_fwd_kernel(Dims d, const float* __restrict__ x, const float* __restrict__ sk
 //                 tile's wd
 //   wdT load, dx
 // Resident, no tile waits for weights or marks a weight phase.
-template <int kThreads, int T>
+template <int kThreads, int T, class E>
 __global__ void __launch_bounds__(kThreads, kLargeBlock / kThreads)
-lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __restrict__ x,
-               const float* __restrict__ skip,
-               const float* __restrict__ dy, const float* __restrict__ wd,
+lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const E* __restrict__ x,
+               const E* __restrict__ skip,
+               const E* __restrict__ dy, const float* __restrict__ wd,
                const float* __restrict__ bd, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2t,
                const float* __restrict__ w1t, const float* __restrict__ wdt,
-               float* __restrict__ dx, float* __restrict__ dskip, float* __restrict__ part) {
+               E* __restrict__ dx, E* __restrict__ dskip, float* __restrict__ part) {
+  constexpr bool kOne = is_bf16<E>();
   float* s_hc = smem + l.hc;
   float* s_g = smem + l.g;
   float* s_da = smem + l.da;
@@ -918,8 +975,8 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
     __syncthreads();
     timer.mark(kPhPlanes);
     // recompute h and g exactly as the forward does
-    deconv_tile<kBwdMTiles>(s_hc, hps, hs, s_x, xps, xs, wslot(kOpWd, it), bd, cin, cd, img_h,
-                            img_w, ty0 - 2, tx0 - 2);
+    deconv_tile<kBwdMTiles, E>(s_hc, hps, hs, s_x, xps, xs, wslot(kOpWd, it), bd, cin, cd, img_h,
+                               img_w, ty0 - 2, tx0 - 2);
     __syncthreads();
     timer.mark(kPhDeconv);
     if (!resident) {
@@ -933,8 +990,8 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
       __syncthreads();
       timer.mark(kPhW1);
     }
-    conv_a_tile<kBwdMTiles>(s_g, gps, gs, s_hc, hps, hs, wslot(kOpW1, it), b1, c, d.c1, img_h,
-                            img_w, ty0 - 1, tx0 - 1);
+    conv_a_tile<kBwdMTiles, E>(s_g, gps, gs, s_hc, hps, hs, wslot(kOpW1, it), b1, c, d.c1, img_h,
+                               img_w, ty0 - 1, tx0 - 1);
     __syncthreads();
     timer.mark(kPhConvA);
     if (!resident) {
@@ -948,14 +1005,14 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
       __syncthreads();
       timer.mark(kPhW2t);
     }
-    // da = relu'(a) * conv3x3(dy, flipT(w2)) on (T+2)^2
+    // da = relu'(a) * conv3x3(dy, flipT(w2)) on (T+2)^2 (bf16: rounded)
     auto da_out = [&](int r, int cc, int co, float v) {
       const int i = co * gps + r * gs + cc;
-      s_da[i] = s_g[i] > 0.f ? v : 0.f;
+      s_da[i] = s_g[i] > 0.f ? act_round<E>(v) : 0.f;
     };
     if (bwd_tensor_core(d.c1, d.cout))
-      bwd_conv_tc<9, kBwdMTiles>(s_dy, d.cout, hps, hs, 1, SquareTaps<3>{hs}, wslot(kOpW2t, it),
-                                 d.c1, gs, 0, da_out);
+      bwd_conv_tc<9, kBwdMTiles, kOne>(s_dy, d.cout, hps, hs, 1, SquareTaps<3>{hs},
+                                       wslot(kOpW2t, it), d.c1, gs, 0, da_out);
     else
       tile_conv<3>(s_dy, OneGroup{}, 1, d.cout, hps, hs, 1, wslot(kOpW2t, it), d.c1, gs, 0, da_out);
     __syncthreads();
@@ -967,12 +1024,12 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
     }
     // conv_b and conv_a weight and bias grads over the T x T owned pixels
     // (tap = ky*3 + kx: the input box shifted by (ky, kx); pixel k = (k / T, k % T))
-    int first = tile_wgrad<9, T>(
+    int first = tile_wgrad<9, T, kOne>(
         [=](int tap, int ci, int k) { return s_g[ci * gps + (k / T + tap / 3) * gs + k % T + tap % 3]; },
         [=](int, int co, int k) { return s_dy[co * hps + (k / T + 2) * hs + k % T + 2]; }, d.c1,
         d.cout, 0, mine + pl.dw2);
     tile_bias_grad(s_dy, hps, hs, 1, 2 * hs + 2, d.cout, t, mine + pl.db2);
-    first = tile_wgrad<9, T>(
+    first = tile_wgrad<9, T, kOne>(
         [=](int tap, int ci, int k) {
           return s_hc[ci * hps + (k / T + tap / 3 + 1) * hs + k % T + tap % 3 + 1];
         },
@@ -986,19 +1043,20 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
       timer.mark(kPhW1t);
     }
     // [dh | dskip] = conv3x3(da, flipT(w1)) on T^2 (reads s_da, which
-    // nothing above writes after da's barrier)
+    // nothing above writes after da's barrier); dh unrounded (bf16: rounded
+    // below, after dbd's sums)
     auto dh_out = [&](int r, int cc, int co, float v) {
       const int gy = ty0 + r, gx = tx0 + cc;
       const bool in = gy < img_h && gx < img_w;
       if (co < cd) {
         s_dh[co * dps + r * t + cc] = in ? v : 0.f;
       } else if (in) {
-        dskip[((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cs + co - cd] = v;
+        act_store(dskip + ((static_cast<size_t>(b) * img_h + gy) * img_w + gx) * cs + co - cd, v);
       }
     };
     first = bwd_tensor_core(c, d.c1)
-                ? bwd_conv_tc<9, kBwdMTiles>(s_da, d.c1, gps, gs, 1, SquareTaps<3>{gs},
-                                             wslot(kOpW1t, it), c, t, first, dh_out)
+                ? bwd_conv_tc<9, kBwdMTiles, kOne>(s_da, d.c1, gps, gs, 1, SquareTaps<3>{gs},
+                                                   wslot(kOpW1t, it), c, t, first, dh_out)
                 : tile_conv<3>(s_da, OneGroup{}, 1, d.c1, gps, gs, 1, wslot(kOpW1t, it), c, t,
                                first, dh_out);
     __syncthreads();
@@ -1008,16 +1066,24 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
     } else if (!resident) {
       fetch(kOpWdt, wdt, it);
     }
+    if (kOne) {
+      // dbd sums dh in float32 (lmu_pallas.py:488); dwd and dx take it
+      // rounded to bf16 (:483-487), in place
+      tile_bias_grad(s_dh, dps, t, 1, 0, cd, t, mine + pl.dbd);
+      __syncthreads();
+      for (int i = threadIdx.x; i < cd * dps; i += blockDim.x) s_dh[i] = act_round<E>(s_dh[i]);
+      __syncthreads();
+    }
     // deconv weight and bias grads: x (owned coarse) against dh, by phase
     // (tap = phase di*2 + dj: dh at fine pixel (2r + di, 2c + dj) of coarse pixel k = (r, c))
     constexpr int TC = T / 2;
-    first = tile_wgrad<4, TC>(
+    first = tile_wgrad<4, TC, kOne>(
         [=](int, int ci, int k) { return s_x[ci * xps + (k / TC + 1) * xs + k % TC + 1]; },
         [=](int ph, int co, int k) {
           return s_dh[co * dps + (2 * (k / TC) + ph / 2) * t + 2 * (k % TC) + ph % 2];
         },
         cin, cd, first, mine + pl.dwd);
-    tile_bias_grad(s_dh, dps, t, 1, 0, cd, t, mine + pl.dbd);
+    if (!kOne) tile_bias_grad(s_dh, dps, t, 1, 0, cd, t, mine + pl.dbd);
     timer.mark(kPhWgradD);
     if (!resident) {
       if (two && next) cp_async_wait<1>(); else cp_async_wait<0>();
@@ -1032,11 +1098,11 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
     auto dx_out = [&](int r, int cc, int co, float v) {
       const int gy = hc_out + r, gx = wc_out + cc;
       if (gy < d.hc && gx < d.wc)
-        dx[((static_cast<size_t>(b) * d.hc + gy) * d.wc + gx) * cin + co] = v;
+        act_store(dx + ((static_cast<size_t>(b) * d.hc + gy) * d.wc + gx) * cin + co, v);
     };
     if (bwd_tensor_core(cin, cd))
-      bwd_conv_tc<4, kBwdMTiles>(s_dh, cd, dps, t, 2, phase, wslot(kOpWdt, it), cin, t / 2, first,
-                                 dx_out);
+      bwd_conv_tc<4, kBwdMTiles, kOne>(s_dh, cd, dps, t, 2, phase, wslot(kOpWdt, it), cin,
+                                       t / 2, first, dx_out);
     else
       tile_conv<1>(s_dh, phase, 4, cd, dps, t, 2, wslot(kOpWdt, it), cin, t / 2, first, dx_out);
     timer.mark(kPhDx);
@@ -1044,11 +1110,13 @@ lmu_bwd_kernel(Dims d, int mode, BwdLayout l, PartLayout pl, const float* __rest
   timer.store();
 }
 
-using BwdKernel = decltype(&lmu_bwd_kernel<kSmallBlock, 8>);
+template <class E>
+using BwdKernel = decltype(&lmu_bwd_kernel<kSmallBlock, 8, E>);
 
-BwdKernel bwd_kernel(bool large, int t) {
-  if (t == 8) return large ? lmu_bwd_kernel<kLargeBlock, 8> : lmu_bwd_kernel<kSmallBlock, 8>;
-  return large ? lmu_bwd_kernel<kLargeBlock, 4> : lmu_bwd_kernel<kSmallBlock, 4>;
+template <class E>
+BwdKernel<E> bwd_kernel(bool large, int t) {
+  if (t == 8) return large ? lmu_bwd_kernel<kLargeBlock, 8, E> : lmu_bwd_kernel<kSmallBlock, 8, E>;
+  return large ? lmu_bwd_kernel<kLargeBlock, 4, E> : lmu_bwd_kernel<kSmallBlock, 4, E>;
 }
 
 // out[e] = sum over blocks k = 0, 1, ... of part[k][e], in that order.
@@ -1150,6 +1218,7 @@ bool dims_ok(int b, int hc, int wc, int cin, int cs, int cd, int c1, int cout) {
 
 // Blocks of the backward an SM keeps resident with this layout, and its
 // threads per block; both 0 where the layout exceeds `limit` bytes.
+template <class E>
 cudaError_t bwd_occupancy(const Dims& d, int mode, bool ahead, int limit, int* blocks,
                           int* threads) {
   *blocks = 0;
@@ -1157,7 +1226,7 @@ cudaError_t bwd_occupancy(const Dims& d, int mode, bool ahead, int limit, int* b
   const int bytes = bwd_layout(d, mode, ahead).total * static_cast<int>(sizeof(float));
   if (bytes > limit) return cudaSuccess;
   const bool large = large_block(bytes);
-  const BwdKernel kernel = bwd_kernel(large, d.t);
+  const BwdKernel<E> kernel = bwd_kernel<E>(large, d.t);
   *threads = large ? kLargeBlock : kSmallBlock;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
@@ -1166,16 +1235,12 @@ cudaError_t bwd_occupancy(const Dims& d, int mode, bool ahead, int limit, int* b
 
 }  // namespace
 
-// Forward: y = the stage of x (and skip, null when cs = 0). With t = 0,
-// picks the largest fine tile T in {16, 8, 4} whose shared memory fits
-// (ops/lmu_cuda.py::fwd_tile mirrors the rule); t in {16, 8, 4} forces
-// that T, for the checks that y's bits do not depend on it. Launches on
-// `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for sizes it does not take.
-extern "C" int ccvpe_lmu_fwd(const void* x, const void* skip, const void* wd, const void* bd,
-                             const void* w1, const void* b1, const void* w2, const void* b2,
-                             void* y, int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                             int cout, int t_force, void* stream) {
+namespace {
+
+template <class E>
+int lmu_fwd(const void* x, const void* skip, const void* wd, const void* bd, const void* w1,
+            const void* b1, const void* w2, const void* b2, void* y, int b, int hc, int wc,
+            int cin, int cs, int cd, int c1, int cout, int t_force, void* stream) {
   if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout) || (cs > 0) != (skip != nullptr) ||
       (t_force != 0 && t_force != 16 && t_force != 8 && t_force != 4))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1186,11 +1251,11 @@ extern "C" int ccvpe_lmu_fwd(const void* x, const void* skip, const void* wd, co
     const int bytes = fwd_layout(d).total * static_cast<int>(sizeof(float));
     if (bytes > limit) continue;
     const bool large = large_block(bytes);
-    auto kernel = large ? lmu_fwd_kernel<kLargeBlock> : lmu_fwd_kernel<kSmallBlock>;
+    auto kernel = large ? lmu_fwd_kernel<kLargeBlock, E> : lmu_fwd_kernel<kSmallBlock, E>;
     return static_cast<int>(launch(
         kernel, d.ntiles, large ? kLargeBlock : kSmallBlock, bytes,
-        static_cast<cudaStream_t>(stream), d, static_cast<const float*>(x),
-        static_cast<const float*>(skip), static_cast<const float*>(wd),
+        static_cast<cudaStream_t>(stream), d, static_cast<const E*>(x),
+        static_cast<const E*>(skip), static_cast<const float*>(wd),
         static_cast<const float*>(bd), static_cast<const float*>(w1),
         static_cast<const float*>(b1), static_cast<const float*>(w2),
         static_cast<const float*>(b2), static_cast<float*>(y)));
@@ -1198,18 +1263,9 @@ extern "C" int ccvpe_lmu_fwd(const void* x, const void* skip, const void* wd, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Plan of the backward: the tile T (8, else 4), the weight mode, whether
-// the next tile's x and dy planes are copied ahead, the number of blocks
-// (as many as the card keeps resident, at most one per tile) and the
-// floats of one block's partial slice. The weights stay resident where all
-// five fit beside the planes and an SM keeps at least as many of the
-// kernel's threads as with one buffer; else two buffers on the same
-// condition; else one. Then the planes go ahead on the same condition. The
-// caller allocates nblk * part_floats zeroed floats of partials and
-// part_floats floats of reduced sums.
-extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                                  int cout, int* t_out, int* mode_out, int* ahead_out,
-                                  int* nblk, int* part_floats) {
+template <class E>
+int lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd, int c1, int cout, int* t_out,
+                 int* mode_out, int* ahead_out, int* nblk, int* part_floats) {
   if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout))
     return static_cast<int>(cudaErrorInvalidValue);
   const int limit = max_smem_bytes();
@@ -1220,14 +1276,14 @@ extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd
   for (int t : {8, 4}) {
     const Dims d = make_dims(b, hc, wc, cin, cs, cd, c1, cout, t);
     int blocks = 0, threads = 0;
-    e = bwd_occupancy(d, kStreamOne, false, limit, &blocks, &threads);
+    e = bwd_occupancy<E>(d, kStreamOne, false, limit, &blocks, &threads);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (threads == 0) continue;
     const int floor = blocks * threads;
     int mode = kStreamOne;
     for (int m : {kResident, kStreamTwo}) {
       int mb = 0, mt = 0;
-      e = bwd_occupancy(d, m, false, limit, &mb, &mt);
+      e = bwd_occupancy<E>(d, m, false, limit, &mb, &mt);
       if (e != cudaSuccess) return static_cast<int>(e);
       if (mt > 0 && mb * mt >= floor) {
         mode = m;
@@ -1236,7 +1292,7 @@ extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd
       }
     }
     int ab = 0, at = 0;
-    e = bwd_occupancy(d, mode, true, limit, &ab, &at);
+    e = bwd_occupancy<E>(d, mode, true, limit, &ab, &at);
     if (e != cudaSuccess) return static_cast<int>(e);
     const bool ahead = at > 0 && ab * at >= floor;
     if (ahead) blocks = ab;
@@ -1250,14 +1306,11 @@ extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Backward with the plan above: dx [B,Hc,Wc,Cin], dskip [B,2Hc,2Wc,Cs] (null
-// when cs = 0) and the weight/bias grads reduced into `sums` in
-// part_layout's order. `part` must hold nblk * part_floats zeros.
-extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, const void* wd,
-                             const void* bd, const void* w1, const void* b1, const void* w2t,
-                             const void* w1t, const void* wdt, void* dx, void* dskip, void* part,
-                             void* sums, int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                             int cout, int t, int mode, int ahead, int nblk, void* stream) {
+template <class E>
+int lmu_bwd(const void* x, const void* skip, const void* dy, const void* wd, const void* bd,
+            const void* w1, const void* b1, const void* w2t, const void* w1t, const void* wdt,
+            void* dx, void* dskip, void* part, void* sums, int b, int hc, int wc, int cin, int cs,
+            int cd, int c1, int cout, int t, int mode, int ahead, int nblk, void* stream) {
   if (!dims_ok(b, hc, wc, cin, cs, cd, c1, cout) || (t != 8 && t != 4) || nblk < 1 ||
       mode < kStreamOne || mode > kResident || (cs > 0) != (skip != nullptr) ||
       (cs > 0) != (dskip != nullptr))
@@ -1268,14 +1321,13 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
   const bool large = large_block(bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch(
-      bwd_kernel(large, t), nblk,
+      bwd_kernel<E>(large, t), nblk,
       large ? kLargeBlock : kSmallBlock, bytes, s, d, mode, l, part_layout(d),
-      static_cast<const float*>(x),
-      static_cast<const float*>(skip), static_cast<const float*>(dy),
+      static_cast<const E*>(x), static_cast<const E*>(skip), static_cast<const E*>(dy),
       static_cast<const float*>(wd), static_cast<const float*>(bd),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2t), static_cast<const float*>(w1t),
-      static_cast<const float*>(wdt), static_cast<float*>(dx), static_cast<float*>(dskip),
+      static_cast<const float*>(wdt), static_cast<E*>(dx), static_cast<E*>(dskip),
       static_cast<float*>(part));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int psize = part_layout(d).total;
@@ -1283,6 +1335,82 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
                                                          psize, static_cast<float*>(sums));
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#ifndef CCVPE_LMU_BF16
+// Forward: y = the stage of x (and skip, null when cs = 0). With t = 0,
+// picks the largest fine tile T in {16, 8, 4} whose shared memory fits
+// (ops/lmu_cuda.py::fwd_tile mirrors the rule); t in {16, 8, 4} forces
+// that T, for the checks that y's bits do not depend on it. Launches on
+// `stream`; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for sizes it does not take. x and skip float32.
+extern "C" int ccvpe_lmu_fwd(const void* x, const void* skip, const void* wd, const void* bd,
+                             const void* w1, const void* b1, const void* w2, const void* b2,
+                             void* y, int b, int hc, int wc, int cin, int cs, int cd, int c1,
+                             int cout, int t_force, void* stream) {
+  return lmu_fwd<float>(x, skip, wd, bd, w1, b1, w2, b2, y, b, hc, wc, cin, cs, cd, c1, cout,
+                        t_force, stream);
+}
+
+// Plan of the backward: the tile T (8, else 4), the weight mode, whether
+// the next tile's x and dy planes are copied ahead, the number of blocks
+// (as many as the card keeps resident, at most one per tile) and the
+// floats of one block's partial slice. The weights stay resident where all
+// five fit beside the planes and an SM keeps at least as many of the
+// kernel's threads as with one buffer; else two buffers on the same
+// condition; else one. Then the planes go ahead on the same condition. The
+// caller allocates nblk * part_floats zeroed floats of partials and
+// part_floats floats of reduced sums. For float32 activations.
+extern "C" int ccvpe_lmu_bwd_plan(int b, int hc, int wc, int cin, int cs, int cd, int c1,
+                                  int cout, int* t_out, int* mode_out, int* ahead_out,
+                                  int* nblk, int* part_floats) {
+  return lmu_bwd_plan<float>(b, hc, wc, cin, cs, cd, c1, cout, t_out, mode_out, ahead_out, nblk,
+                             part_floats);
+}
+
+// Backward with the plan above: dx [B,Hc,Wc,Cin], dskip [B,2Hc,2Wc,Cs] (null
+// when cs = 0) and the weight/bias grads reduced into `sums` in
+// part_layout's order. `part` must hold nblk * part_floats zeros. x, skip,
+// dy, dx and dskip float32.
+extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, const void* wd,
+                             const void* bd, const void* w1, const void* b1, const void* w2t,
+                             const void* w1t, const void* wdt, void* dx, void* dskip, void* part,
+                             void* sums, int b, int hc, int wc, int cin, int cs, int cd, int c1,
+                             int cout, int t, int mode, int ahead, int nblk, void* stream) {
+  return lmu_bwd<float>(x, skip, dy, wd, bd, w1, b1, w2t, w1t, wdt, dx, dskip, part, sums, b, hc,
+                        wc, cin, cs, cd, c1, cout, t, mode, ahead, nblk, stream);
+}
+
+#else
+// The same three entries for bf16 activations (x, skip, dy, dx, dskip bf16;
+// weights bf16 values in float32 operands; y and the sums float32), in the
+// build with -DCCVPE_LMU_BF16.
+extern "C" int ccvpe_lmu_fwd_bf16(const void* x, const void* skip, const void* wd,
+                                  const void* bd, const void* w1, const void* b1, const void* w2,
+                                  const void* b2, void* y, int b, int hc, int wc, int cin, int cs,
+                                  int cd, int c1, int cout, int t_force, void* stream) {
+  return lmu_fwd<bf16>(x, skip, wd, bd, w1, b1, w2, b2, y, b, hc, wc, cin, cs, cd, c1, cout,
+                       t_force, stream);
+}
+
+extern "C" int ccvpe_lmu_bwd_plan_bf16(int b, int hc, int wc, int cin, int cs, int cd, int c1,
+                                       int cout, int* t_out, int* mode_out, int* ahead_out,
+                                       int* nblk, int* part_floats) {
+  return lmu_bwd_plan<bf16>(b, hc, wc, cin, cs, cd, c1, cout, t_out, mode_out, ahead_out, nblk,
+                            part_floats);
+}
+
+extern "C" int ccvpe_lmu_bwd_bf16(const void* x, const void* skip, const void* dy, const void* wd,
+                                  const void* bd, const void* w1, const void* b1, const void* w2t,
+                                  const void* w1t, const void* wdt, void* dx, void* dskip,
+                                  void* part, void* sums, int b, int hc, int wc, int cin, int cs,
+                                  int cd, int c1, int cout, int t, int mode, int ahead, int nblk,
+                                  void* stream) {
+  return lmu_bwd<bf16>(x, skip, dy, wd, bd, w1, b1, w2t, w1t, wdt, dx, dskip, part, sums, b, hc,
+                       wc, cin, cs, cd, c1, cout, t, mode, ahead, nblk, stream);
+}
+#endif
 
 #ifdef CCVPE_LMU_PHASE_TIMER
 // The timed build only: where the backward's blocks write their phase

@@ -95,22 +95,37 @@ __device__ inline void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
 // Each entry of acc gets the same sequence of products whatever its tile,
 // row or column, so its sum is a function of its own row of A and column
 // of B alone.
-template <int MT, int NT, class BV>
+// kOne: every operand is a bf16 value (8 significant bits), which is its
+// own TF32 hi with lo = 0, so the two lo products are exact zeros: one
+// hi*hi product gives the same sums, with no split.
+template <int MT, int NT, bool kOne = false, class BV>
 __device__ inline void mma_3xtf32_step(const float (&a)[MT][4], BV bv, float (&acc)[MT][NT][4]) {
   uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(a[i][e], ah[i][e], al[i][e]);
+    for (int e = 0; e < 4; ++e) {
+      if (kOne)
+        ah[i][e] = __float_as_uint(a[i][e]);
+      else
+        split_tf32(a[i][e], ah[i][e], al[i][e]);
+    }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     uint32_t bh[2], bl[2];
-    split_tf32(bv(j, 0), bh[0], bl[0]);
-    split_tf32(bv(j, 1), bh[1], bl[1]);
+    if (kOne) {
+      bh[0] = __float_as_uint(bv(j, 0));
+      bh[1] = __float_as_uint(bv(j, 1));
+    } else {
+      split_tf32(bv(j, 0), bh[0], bl[0]);
+      split_tf32(bv(j, 1), bh[1], bl[1]);
+    }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      mma_tf32(acc[i][j], al[i], bh);
-      mma_tf32(acc[i][j], ah[i], bl);
+      if (!kOne) {
+        mma_tf32(acc[i][j], al[i], bh);
+        mma_tf32(acc[i][j], ah[i], bl);
+      }
       mma_tf32(acc[i][j], ah[i], bh);
     }
   }
@@ -122,8 +137,9 @@ __device__ inline void mma_3xtf32_step(const float (&a)[MT][4], BV bv, float (&a
 // and K need not be multiples of 16, 8 and 8), in k-steps of 8 through
 // mma_3xtf32_step. The order of the sums is fixed, so two calls give the
 // same bits. No branch depends on the data or the shape inside, so the
-// compiler can overlap one tile's loads with another's products.
-template <int NT, class A, class B>
+// compiler can overlap one tile's loads with another's products. kOne as
+// in mma_3xtf32_step.
+template <int NT, bool kOne = false, class A, class B>
 __device__ void mma_3xtf32(A a, B b, int m0, int n0, int M, int N, int K, float (&acc)[NT][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
   const int m_lo = m0 + g, m_hi = m0 + g + 8;
@@ -134,7 +150,7 @@ __device__ void mma_3xtf32(A a, B b, int m0, int n0, int M, int N, int K, float 
     const bool in1 = k1 < K, in2 = k2 < K;
     const float av[1][4] = {{in_lo && in1 ? a(m_lo, k1) : 0.f, in_hi && in1 ? a(m_hi, k1) : 0.f,
                              in_lo && in2 ? a(m_lo, k2) : 0.f, in_hi && in2 ? a(m_hi, k2) : 0.f}};
-    mma_3xtf32_step<1, NT>(av, [&](int j, int h) {
+    mma_3xtf32_step<1, NT, kOne>(av, [&](int j, int h) {
       const int n = n0 + 8 * j + g, k = h ? k2 : k1;
       return n < N && (h ? in2 : in1) ? b(k, n) : 0.f;
     }, reinterpret_cast<float (&)[1][NT][4]>(acc));

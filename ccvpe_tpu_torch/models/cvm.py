@@ -18,11 +18,15 @@ and conv1_ori being the heads), so `load_state_dict(strict=True)` takes a
 reference .pt or `utils.convert.state_dict_from_jax` output as it is.
 
 With ModelConfig.lmu_fused_min_res set, decoder stages whose output
-resolution reaches it run as fused stages (nn/decoder.py::fused_stage_nchw),
-and a fused final stage takes the head's two convs with it (reference
-models.py:125-127: deconv1 -> conv1 is one chain), as in the JAX package.
-ModelConfig.compute_dtype, deconv_impl and the remat options reach the
-modules of nn/; remat_decoder checkpoints each decoder stage in train mode.
+resolution reaches it run as fused stages (nn/decoder.py::fused_stage_nchw,
+float32 or bf16 kernels by compute_dtype), and a fused final stage takes
+the head's two convs with it (reference models.py:125-127: deconv1 -> conv1
+is one chain), as in the JAX package. With phase_space_min_res set
+instead (the two are exclusive), such stages run in phase space
+(ops/phase_space.py) and a phased final stage hands its packed deconv
+output to the packed head. ModelConfig.compute_dtype, deconv_impl,
+circular_impl and the remat options reach the modules of nn/;
+remat_decoder checkpoints each decoder stage in train mode.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from ccvpe_tpu_torch.core.config import (COMPUTE_DTYPES, CORR_IMPLS, DECONV_IMPLS,
-                                         REMAT_POLICIES, ModelConfig)
+from ccvpe_tpu_torch.core.config import (CIRCULAR_IMPLS, COMPUTE_DTYPES, CORR_IMPLS,
+                                         DECONV_IMPLS, REMAT_POLICIES, ModelConfig)
 from ccvpe_tpu_torch.nn.decoder import (Deconv2x2, DoubleConv, HeadConv, decoder_stage,
                                         fused_stage_nchw)
 from ccvpe_tpu_torch.nn.efficientnet import B0_BLOCK_SPECS, EfficientNetB0
@@ -69,8 +73,6 @@ def _batch_crop(t: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
 _NOT_PORTED = (
     ("spatial_axis", None, "A6, scale-out"),
     ("ori_axis", None, "A6, scale-out"),
-    ("phase_space_min_res", 0, "A3, phase_space_min_res"),
-    ("circular_impl", "wrap", "A3, circular_impl='edgefix'"),
 )
 
 
@@ -85,18 +87,17 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"(ROADMAP.md, queue item {item})")
     for field, allowed in (("corr_impl", CORR_IMPLS), ("deconv_impl", DECONV_IMPLS),
                            ("remat_policy", REMAT_POLICIES),
-                           ("compute_dtype", COMPUTE_DTYPES)):
+                           ("compute_dtype", COMPUTE_DTYPES),
+                           ("circular_impl", CIRCULAR_IMPLS)):
         if getattr(cfg, field) not in allowed:
             raise ValueError(f"{field} must be one of {allowed}, got {getattr(cfg, field)!r}")
     win = cfg.ori_window
     if win and not (win >= 160 and win % 4 == 0 and win <= cfg.sat_size[0]):
         raise ValueError(f"ori_window must be 0 or a multiple of 4 from 160 to the aerial "
                          f"height {cfg.sat_size[0]}, got {win}")
-    if cfg.compute_dtype != "float32" and cfg.lmu_fused_min_res:
-        raise NotImplementedError(
-            f"ModelConfig.compute_dtype={cfg.compute_dtype!r} with lmu_fused_min_res="
-            f"{cfg.lmu_fused_min_res} is not ported yet: the fused LMU kernels take float32 "
-            "only (ROADMAP.md, queue item A3, B2 and B3 with bf16 operands)")
+    if cfg.phase_space_min_res and cfg.lmu_fused_min_res:
+        raise ValueError("phase_space_min_res and lmu_fused_min_res are exclusive, got "
+                         f"{cfg.phase_space_min_res} and {cfg.lmu_fused_min_res}")
 
 
 class CVM(nn.Module):
@@ -112,7 +113,8 @@ class CVM(nn.Module):
         remat = dict(compute_dtype=dtype, remat=cfg.remat_backbone,
                      remat_skip=cfg.remat_skip_blocks, remat_policy=cfg.remat_policy)
         with torch.device("meta"):
-            self.grd_efficientnet = EfficientNetB0(cfg.circular, cfg.backbone_features, **remat)
+            self.grd_efficientnet = EfficientNetB0(cfg.circular, cfg.backbone_features,
+                                                   circular_impl=cfg.circular_impl, **remat)
             self.sat_efficientnet = EfficientNetB0(False, cfg.backbone_features, **remat)
             grd_h = cfg.grd_feat_hw[0]
             for s, c in enumerate(cfg.grd_desc_channels):
@@ -154,9 +156,9 @@ class CVM(nn.Module):
         return deconv, conv
 
     def _run_stage(self, branch_suffix: str, s: int, x: torch.Tensor,
-                   skip: Optional[torch.Tensor], fused: bool) -> torch.Tensor:
+                   skip: Optional[torch.Tensor], fused: bool, phase: bool) -> torch.Tensor:
         """decoder_stage, checkpointed under remat_decoder in train mode."""
-        args = (*self._stage(branch_suffix, s), x, skip, fused)
+        args = (*self._stage(branch_suffix, s), x, skip, fused, phase)
         if self.config.remat_decoder and self.training and torch.is_grad_enabled():
             return checkpoint(decoder_stage, *args, use_reentrant=False,
                               preserve_rng_state=False)
@@ -192,6 +194,9 @@ class CVM(nn.Module):
         def fused(res_out: int) -> bool:
             return bool(cfg.lmu_fused_min_res) and res_out >= cfg.lmu_fused_min_res
 
+        def phased(res_out: int) -> bool:
+            return bool(cfg.phase_space_min_res) and res_out >= cfg.phase_space_min_res
+
         # Under an orientation prior the bottleneck RETURNS the full K-bin
         # stack (the restricted one only feeds the max), while scales 2..6
         # return restricted stacks (reference models.py:489-511).
@@ -214,9 +219,10 @@ class CVM(nn.Module):
             if last and fused(2 * x.shape[2]):
                 logits_map = fused_stage_nchw(self.deconv1, self.conv1, x, None)
             else:
-                x = self._run_stage("", s, x, skip, fused(2 * x.shape[2]))
+                phase = phased(2 * x.shape[2])
+                x = self._run_stage("", s, x, skip, fused(2 * x.shape[2]), phase)
                 if last:
-                    logits_map = self.conv1(x)                       # [B,1,H,W]
+                    logits_map = self.conv1(x, packed=phase)         # [B,1,H,W]
         b, _, h, w = logits_map.shape
         logits = logits_map.reshape(b, h * w)
         heatmap = torch.softmax(logits, dim=-1).reshape(b, h, w, 1)
@@ -242,9 +248,10 @@ class CVM(nn.Module):
             if last and fused(2 * y.shape[2]):
                 ori_raw = fused_stage_nchw(self.deconv1_ori, self.conv1_ori, y, None)
             else:
-                y = self._run_stage("_ori", s, y, skip, fused(2 * y.shape[2]))
+                phase = phased(2 * y.shape[2])
+                y = self._run_stage("_ori", s, y, skip, fused(2 * y.shape[2]), phase)
                 if last:
-                    ori_raw = self.conv1_ori(y)                      # [B,2,H,W]
+                    ori_raw = self.conv1_ori(y, packed=phase)        # [B,2,H,W]
         ori = l2_normalize(ori_raw, dim=1).permute(0, 2, 3, 1)
         offsets = torch.stack([r0, c0], dim=-1) if win else None
         return CVMOutput(logits, heatmap, ori, tuple(all_scores), offsets)

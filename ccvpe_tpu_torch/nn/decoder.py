@@ -7,13 +7,19 @@ Conv3x3. The final stage's deconv feeds a head of the same shape with 1
 (localization) or 2 (orientation) output channels. The plain path stays
 PyTorch / cuDNN ops, as it is XLA ops in the JAX package; the fused path
 (`fused_stage_nchw`, ModelConfig.lmu_fused_min_res) runs the stage as one
-autograd.Function over the hand-written kernels of ops/lmu_cuda.py, with
-the modules' own weights, so state dicts load either way. Tensors are NCHW.
+autograd.Function over the hand-written kernels of ops/lmu_cuda.py, and
+the phase path (ModelConfig.phase_space_min_res) on 2x2 packed maps
+(ops/phase_space.py; the final stage hands its packed deconv output to a
+packed head), each with the modules' own weights, so state dicts load any
+way. Tensors are NCHW.
 
 Mixed precision (ModelConfig.compute_dtype) as in the JAX package: the
 deconv gives float32 (rounded per `impl`, see Deconv2x2), the skip concat
 is float32, and the double conv and the head compute in `compute_dtype`
-(conv outputs and biases in it); the head returns float32.
+(conv outputs and biases in it); the head returns float32. A fused stage
+takes its activations in `compute_dtype` (the bf16 kernels under
+bfloat16) and returns `compute_dtype` (float32 from the head), as
+nn/decoder.py:97-115 of the JAX package casts it.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from ccvpe_tpu_torch.nn.efficientnet import Conv2d
 from ccvpe_tpu_torch.ops.lmu_cuda import FusedStage
+from ccvpe_tpu_torch.ops.phase_space import conv3x3_packed, depth_to_space, phase_stage
 
 
 class Deconv2x2(nn.ConvTranspose2d):
@@ -72,30 +79,47 @@ class DoubleConv(nn.Sequential):
 
 
 class HeadConv(DoubleConv):
-    """Final head Conv3x3 -> ReLU -> Conv3x3 to `cout` channels, float32 out."""
+    """Final head Conv3x3 -> ReLU -> Conv3x3 to `cout` channels, float32 out.
+    packed=True takes the final stage's packed deconv output [B, 4*cin, H,
+    W] and runs both convs packed (ops/phase_space.py), unpacking only the
+    output."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x).float()
+    def forward(self, x: torch.Tensor, packed: bool = False) -> torch.Tensor:
+        if not packed:
+            return super().forward(x).float()
+        dt = self.compute_dtype
+        g = conv3x3_packed(x.to(dt), self[0].weight, self[0].bias).to(dt)
+        y = conv3x3_packed(F.relu(g), self[2].weight, self[2].bias)
+        return depth_to_space(y, self[2].out_channels).float()
 
 
 def fused_stage_nchw(deconv: Deconv2x2, conv: DoubleConv, x: torch.Tensor,
                      skip: Optional[torch.Tensor]) -> torch.Tensor:
     """deconv -> [| skip] -> conv (a DoubleConv, or the HeadConv of the final
-    stage) as one fused stage; NCHW in and out, channels_last memory, f32."""
-    cl = torch.channels_last
-    xn = x.float().contiguous(memory_format=cl).permute(0, 2, 3, 1)
-    sn = None if skip is None else skip.float().contiguous(memory_format=cl).permute(0, 2, 3, 1)
+    stage) as one fused stage; NCHW in and out, channels_last memory; the
+    activations in conv's compute_dtype, float32 out of a HeadConv, else
+    compute_dtype."""
+    cl, dt = torch.channels_last, conv.compute_dtype
+    xn = x.to(dt).contiguous(memory_format=cl).permute(0, 2, 3, 1)
+    sn = None if skip is None else skip.to(dt).contiguous(memory_format=cl).permute(0, 2, 3, 1)
     y = FusedStage.apply(xn, sn, deconv.weight, deconv.bias, conv[0].weight, conv[0].bias,
-                         conv[2].weight, conv[2].bias)
-    return y.permute(0, 3, 1, 2)
+                         conv[2].weight, conv[2].bias).permute(0, 3, 1, 2)
+    return y if isinstance(conv, HeadConv) else y.to(dt)
 
 
 def decoder_stage(deconv: Deconv2x2, conv: Optional[DoubleConv],
                   x: torch.Tensor, skip: Optional[torch.Tensor],
-                  fused: bool = False) -> torch.Tensor:
+                  fused: bool = False, phase: bool = False) -> torch.Tensor:
     """DecoderStage: deconv -> optional [deconv | skip] concat -> optional
     double conv (None for the final stage, whose head is applied outside).
-    fused=True runs a stage with its double conv through fused_stage_nchw."""
+    fused=True runs a stage with its double conv through fused_stage_nchw;
+    phase=True runs it in phase space (the final stage: its packed deconv
+    output, for HeadConv(packed=True))."""
+    if phase:
+        ws = (None,) * 4 if conv is None else (conv[0].weight, conv[0].bias, conv[2].weight,
+                                               conv[2].bias)
+        return phase_stage(x, skip, deconv.weight, deconv.bias, *ws,
+                           dtype=deconv.compute_dtype, unpack=conv is not None)
     if fused and conv is not None:
         return fused_stage_nchw(deconv, conv, x, skip)
     x = deconv(x)

@@ -45,7 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ccvpe_tpu_torch.ops.padding import Pad, pad_same, traced_same_pads
+from ccvpe_tpu_torch.ops.padding import Pad, conv_circular_same, pad_same, traced_same_pads
 
 # Per-block (expand_ratio, input_filters, output_filters, kernel, stride).
 B0_BLOCK_SPECS: Tuple[Tuple[int, int, int, int, int], ...] = (
@@ -135,15 +135,23 @@ class Conv2d(nn.Conv2d):
 
 class StaticSameConv2d(Conv2d):
     """Bias-free conv with the fixed static-224 SAME pads applied by F.pad
-    (asymmetric for stride 2), W wrapped when circular."""
+    (asymmetric for stride 2), W wrapped when circular: by a wrapped copy
+    of the input ('wrap'), or by recomputing the edge columns
+    ('edgefix', ops/padding.py::conv_circular_same; the JAX package's
+    CircularSameConv). The parameters are the same either way."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
-                 pad_h: Pad, pad_w: Pad, circular: bool, groups: int = 1):
+                 pad_h: Pad, pad_w: Pad, circular: bool, groups: int = 1,
+                 circular_impl: str = "wrap"):
         super().__init__(cin, cout, kernel, stride, padding=0, groups=groups,
                          bias=False)
         self.pad_h, self.pad_w, self.circular = pad_h, pad_w, circular
+        self.edgefix = circular and circular_impl == "edgefix"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.edgefix:
+            return conv_circular_same(x, self.weight.to(x.dtype), self.stride[0], self.pad_h,
+                                      self.pad_w, self.groups)
         return super().forward(pad_same(x, self.pad_h, self.pad_w, self.circular))
 
 
@@ -152,7 +160,7 @@ class MBConv(nn.Module):
 
     def __init__(self, expand_ratio: int, in_filters: int, out_filters: int,
                  kernel: int, stride: int, pad_h: Pad, pad_w: Pad,
-                 circular: bool, drop_rate: float = 0.0):
+                 circular: bool, drop_rate: float = 0.0, circular_impl: str = "wrap"):
         super().__init__()
         mid = in_filters * expand_ratio
         self.has_expand = expand_ratio != 1
@@ -160,7 +168,8 @@ class MBConv(nn.Module):
             self._expand_conv = Conv2d(in_filters, mid, 1, bias=False)
             self._bn0 = batch_norm(mid)
         self._depthwise_conv = StaticSameConv2d(
-            mid, mid, kernel, stride, pad_h, pad_w, circular, groups=mid)
+            mid, mid, kernel, stride, pad_h, pad_w, circular, groups=mid,
+            circular_impl=circular_impl)
         self._bn1 = batch_norm(mid)
         # SE width comes from in_filters, not the expanded width
         reduced = max(1, int(in_filters * SE_RATIO))
@@ -213,22 +222,26 @@ class MBConv(nn.Module):
 class EfficientNetB0(nn.Module):
     """B0 feature extractor: NCHW image -> (head features, [16 block outputs]),
     computed in `compute_dtype`; with `remat`, blocks from `remat_skip` on
-    run checkpointed under `remat_policy` in train mode with autograd on."""
+    run checkpointed under `remat_policy` in train mode with autograd on.
+    `circular_impl` ('wrap' or 'edgefix') is how the stem and every
+    depthwise conv wrap W when `circular`."""
 
     def __init__(self, circular: bool = False, head_features: int = 1280,
                  compute_dtype: torch.dtype = torch.float32, remat: bool = False,
-                 remat_skip: int = 0, remat_policy: str = "none"):
+                 remat_skip: int = 0, remat_policy: str = "none", circular_impl: str = "wrap"):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.remat, self.remat_skip, self.remat_policy = remat, remat_skip, remat_policy
         pads = traced_same_pads()
         (ph, pw) = pads[0]
-        self._conv_stem = StaticSameConv2d(3, 32, 3, 2, ph, pw, circular)
+        self._conv_stem = StaticSameConv2d(3, 32, 3, 2, ph, pw, circular,
+                                           circular_impl=circular_impl)
         self._bn0 = batch_norm(32)
         n = len(B0_BLOCK_SPECS)
         self._blocks = nn.ModuleList(
             MBConv(e, cin, cout, k, s, *pads[1 + i], circular,
-                   drop_rate=DROP_CONNECT_RATE * i / n)      # model.py:262-264
+                   drop_rate=DROP_CONNECT_RATE * i / n,      # model.py:262-264
+                   circular_impl=circular_impl)
             for i, (e, cin, cout, k, s) in enumerate(B0_BLOCK_SPECS))
         self._conv_head = Conv2d(B0_BLOCK_SPECS[-1][2], head_features, 1, bias=False)
         self._bn1 = batch_norm(head_features)

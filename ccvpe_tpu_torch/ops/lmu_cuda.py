@@ -21,10 +21,12 @@ runs the backward built with its per-phase timer (csrc/lmu.cu,
 -DCCVPE_LMU_PHASE_TIMER, a library of its own) and returns the cycles
 each block spent in each of BWD_PHASES; the main path never loads that
 library. Shapes and layouts as
-in ops/lmu.py: NHWC float32 activations, contiguous (the NHWC view of a
-channels_last NCHW tensor is), torch weight layouts, which the wrappers
-turn into the kernel's. Nothing touches nvcc or the card until a CUDA
-tensor arrives.
+in ops/lmu.py: NHWC activations, float32 or bf16 (the TPU kernels' bf16
+policy, ops/lmu.py; the bf16 kernels are the same source's bf16
+instantiations, counted apart in `bf16_launches`), contiguous (the NHWC
+view of a channels_last NCHW tensor is), torch weight layouts, which the
+wrappers turn into the kernel's. Nothing touches nvcc or the card until a
+CUDA tensor arrives.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
+from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain, round_bf16
 from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
 
 
@@ -45,6 +47,7 @@ from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
 BWD_PHASES = ("planes + wd", "deconv", "w1 load", "conv_a", "w2T load", "da",
               "dw2 db2 dw1 db1", "w1T load", "dh|dskip", "wdT load", "dx", "dwd dbd")
 PHASE_TIMER = "CCVPE_LMU_PHASE_TIMER"
+BF16_BUILD = "CCVPE_LMU_BF16"
 # Where the backward keeps its weight operands (csrc/lmu.cu::WeightMode).
 WEIGHT_MODES = ("one buffer", "two buffers", "resident")
 
@@ -65,11 +68,40 @@ def _bind(path) -> ctypes.CDLL:
     return lib
 
 
+def _bind_bf16(path) -> ctypes.CDLL:
+    """The bf16 build's entries: the float32 ones' arguments, _bf16 names."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ccvpe_lmu_fwd_bf16.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.ccvpe_lmu_bwd_plan_bf16.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 5
+    lib.ccvpe_lmu_bwd_bf16.argtypes = [p] * 14 + [i] * 12 + [p]
+    for name in ("ccvpe_lmu_fwd_bf16", "ccvpe_lmu_bwd_plan_bf16", "ccvpe_lmu_bwd_bf16"):
+        getattr(lib, name).restype = i
+    return lib
+
+
+def _entry(lib: ctypes.CDLL, name: str, bf16: bool):
+    """The C entry `name` of the float32 library, or its bf16 twin."""
+    return getattr(lib, name + "_bf16" if bf16 else name)
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build csrc/lmu.cu for sm_90a at first use and bind its C entries."""
     from ccvpe_tpu_torch.csrc.build import build
     return _bind(build("lmu").path)
+
+
+@functools.cache
+def load_bf16_library() -> ctypes.CDLL:
+    """csrc/lmu.cu built with -DCCVPE_LMU_BF16 (the kernels' bf16
+    instantiations, a library of their own) at first use."""
+    from ccvpe_tpu_torch.csrc.build import build
+    return _bind_bf16(build("lmu", (BF16_BUILD,)).path)
+
+
+def _library(bf16: bool) -> ctypes.CDLL:
+    return load_bf16_library() if bf16 else load_library()
 
 
 @functools.cache
@@ -108,12 +140,21 @@ def _dims(x, skip, wd, w1, w2):
     return b, hc, wc, cin, cs, cd, c1, cout
 
 
-def _check(name: str, t: torch.Tensor, device) -> None:
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _act_dtype(x: torch.Tensor) -> torch.dtype:
+    """The stage's activation type: x's, float32 or bf16."""
+    if x.dtype not in ACT_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    return x.dtype
+
+
+def _check(name: str, t: torch.Tensor, device, dtype=torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype} "
-                        "(compute_dtype='bfloat16' is not ported)")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous (NHWC = channels_last NCHW)")
 
@@ -295,14 +336,17 @@ def _padded(t: torch.Tensor) -> torch.Tensor:
     return F.pad(t, (0, pad_co(t.shape[-1]) - t.shape[-1])).contiguous()
 
 
-def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, bf16: bool = False):
     """torch layouts -> the kernel's operands (phase di*2+dj, tap ky*3+kx):
     wd [4][Cin][Cd], w1 [9][C][C1], w2 [9][C1][Cout] and, for the backward,
     the flipped-transposed w2T [9][Cout][C1] and w1T [9][C1][C] of the
     transposed convs and wdT [4][Cd][Cin] of dx (the TPU kernel's _flipT),
     each with its last dimension padded with zeros to pad_co columns, so
-    that the kernels copy an operand as one flat run of 16-byte transfers."""
+    that the kernels copy an operand as one flat run of 16-byte transfers.
+    float32 always; with bf16, each value rounded to bf16 first."""
     wd, w1, w2 = wd.detach(), w1.detach(), w2.detach()
+    if bf16:
+        wd, w1, w2 = round_bf16(wd), round_bf16(w1), round_bf16(w2)
     cin, cd = wd.shape[:2]
     c1, c = w1.shape[:2]
     cout = w2.shape[0]
@@ -338,6 +382,15 @@ def _conv3x3_split(inp: torch.Tensor, w: torch.Tensor, tensor_cores: bool) -> to
     return _product(_im2col3x3(inp), wmat, tensor_cores).reshape(b, h, wd_, w.shape[0])
 
 
+def _policy(x: torch.Tensor, wd, w1, w2):
+    """(rounding, weights as float32): round_bf16 and the rounded weights
+    for a bf16 x (ops/lmu.py's bf16 policy), else no rounding."""
+    ws = tuple(t.detach().float() for t in (wd, w1, w2))
+    if x.dtype == torch.bfloat16:
+        return round_bf16, tuple(round_bf16(t) for t in ws)
+    return (lambda t: t), ws
+
+
 def _deconv_split(x: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
     """h = deconv2x2(x) + bd, NHWC, as one product with the four phases side
     by side."""
@@ -356,13 +409,14 @@ def fused_stage_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], wd: t
     borders) through
     matmul_3xtf32_plain where tensor_core_conv takes the tensor cores, else
     in float32; biases added after each sum, the ReLU after conv_a's. Sums
-    inside a product run in the matmul's order, not the tensor cores'.
-    Same contract as fused_stage_plain."""
-    x, wd, w1, w2 = (t.detach().float() for t in (x, wd, w1, w2))
-    h = _deconv_split(x, wd, bd.detach())
+    inside a product run in the matmul's order, not the tensor cores'. A
+    bf16 x under the bf16 policy (h and conv_a + b1 rounded, as the kernel
+    rounds them). Same contract as fused_stage_plain."""
+    rnd, (wd, w1, w2) = _policy(x, wd, w1, w2)
+    h = rnd(_deconv_split(x.detach().float(), wd, bd.detach()))
     if skip is not None:
         h = torch.cat([h, skip.detach().float()], dim=-1)
-    g = torch.relu(_conv3x3_split(h, w1, tensor_core_conv(w1.shape[0])) + b1.detach())
+    g = torch.relu(rnd(_conv3x3_split(h, w1, tensor_core_conv(w1.shape[0])) + b1.detach()))
     return _conv3x3_split(g, w2, tensor_core_conv(w2.shape[0])) + b2.detach()
 
 
@@ -378,26 +432,32 @@ def fused_stage_bwd_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], d
     where bwd_tensor_core_conv takes the tensor cores, else in float32; the
     weight gradients as products over the pixels in 3xTF32, as the kernel
     always runs them, the bias gradients as float32 sums. Sums inside a
-    product run in the matmul's order, not the tensor cores'. Same contract
-    as fused_stage_bwd_plain."""
+    product run in the matmul's order, not the tensor cores'. A bf16 x
+    under the bf16 policy, rounding where the kernel rounds (dy, h, conv_a
+    + b1, da, dh after dbd's sums, dskip and dx, which are bf16). Same
+    contract as fused_stage_bwd_plain."""
     b, hc, wc, cin = x.shape
     cd, c1, cout = wd.shape[1], w1.shape[0], w2.shape[0]
-    x, wd, w1, w2, dy = (t.detach().float() for t in (x, wd, w1, w2, dy))
-    h = _deconv_split(x, wd, bd.detach())
+    act = x.dtype
+    rnd, (wd, w1, w2) = _policy(x, wd, w1, w2)
+    x, dy = x.detach().float(), rnd(dy.detach().float())
+    h = rnd(_deconv_split(x, wd, bd.detach()))
     if skip is not None:
         h = torch.cat([h, skip.detach().float()], dim=-1)
     c = h.shape[-1]
     a = _conv3x3_split(h, w1, tensor_core_conv(c1)) + b1.detach()
-    g = torch.relu(a)
+    g = torch.relu(rnd(a))
     # the transposed convs: torch weights (C_out, C_in, 3, 3) of flipT(w)
     da = _conv3x3_split(dy, w2.flip(2, 3).transpose(0, 1), bwd_tensor_core_conv(c1, cout))
-    da = torch.where(a > 0, da, torch.zeros_like(da))
+    da = rnd(torch.where(g > 0, da, torch.zeros_like(da)))
     dhs = _conv3x3_split(da, w1.flip(2, 3).transpose(0, 1), bwd_tensor_core_conv(c, c1))
-    dh, dskip = dhs[..., :cd], (dhs[..., cd:] if skip is not None else None)
+    dh, dskip = dhs[..., :cd], (rnd(dhs[..., cd:]).to(act) if skip is not None else None)
+    dbd = dh.sum((0, 1, 2))
+    dh = rnd(dh)
     phases = [dh[:, di::2, dj::2, :] for di in range(2) for dj in range(2)]
     cols = torch.cat(phases, dim=-1).reshape(-1, 4 * cd)          # K = (phase, channel)
     wdt = wd.permute(2, 3, 1, 0).reshape(4 * cd, cin)
-    dx = _product(cols, wdt, bwd_tensor_core_conv(cin, cd)).reshape(b, hc, wc, cin)
+    dx = rnd(_product(cols, wdt, bwd_tensor_core_conv(cin, cd))).reshape(b, hc, wc, cin).to(act)
 
     def wgrad(inp, out):                                          # inp^T out over pixels
         return matmul_3xtf32_plain(inp.t().contiguous(), out)
@@ -406,7 +466,7 @@ def fused_stage_bwd_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], d
     dw1 = wgrad(_im2col3x3(h), da.reshape(-1, c1)).reshape(3, 3, c, c1).permute(3, 2, 0, 1)
     xm = x.reshape(-1, cin)
     dwd = torch.stack([wgrad(xm, ph.reshape(-1, cd)) for ph in phases]).reshape(2, 2, cin, cd)
-    return (dx, dskip, dwd.permute(2, 3, 0, 1), dh.sum((0, 1, 2)), dw1, da.sum((0, 1, 2)), dw2,
+    return (dx, dskip, dwd.permute(2, 3, 0, 1), dbd, dw1, da.sum((0, 1, 2)), dw2,
             dy.sum((0, 1, 2)))
 
 
@@ -416,39 +476,54 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary (cp.async copies)")
 
 
+def _check_inputs(dev, act, acts, biases) -> None:
+    """(name, tensor) pairs: the activations in the stage's type `act`
+    (a None skip passes), the biases in float32."""
+    for name, t in acts:
+        if t is not None:
+            _check(name, t, dev, act)
+    for name, t in biases:
+        _check(name, t, dev)
+
+
 def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
                 bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                 b2: torch.Tensor, tile: int = 0) -> torch.Tensor:
     """Kernel B2 on a CUDA tensor, fused_stage_plain on a CPU one: y NHWC
-    [B, 2Hc, 2Wc, Cout] float32. Counts launches in fused_stage.launches.
-    `tile` 0 lets the kernel pick its fine tile T (fwd_tile); 16, 8 or 4
-    forces it, for the checks that y does not depend on T."""
+    [B, 2Hc, 2Wc, Cout] float32. x (and skip) float32 or bf16 (the bf16
+    kernel, ops/lmu.py's bf16 policy). Counts launches in
+    fused_stage.launches, bf16 ones in fused_stage.bf16_launches. `tile` 0
+    lets the kernel pick its fine tile T (fwd_tile); 16, 8 or 4 forces it,
+    for the checks that y does not depend on T."""
     if tile not in (0,) + FWD_TILES:
         raise ValueError(f"tile must be 0 or one of {FWD_TILES}, got {tile}")
     if not x.is_cuda:
         return fused_stage_plain(x, skip, wd, bd, w1, b1, w2, b2)
     b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
-    dev = x.device
-    for name, t in (("x", x), ("skip", skip), ("bd", bd), ("b1", b1), ("b2", b2)):
-        if t is not None:
-            _check(name, t, dev)
-    wdk, w1k, w2k = kernel_weights(wd, w1, w2)[:3]
+    dev, act = x.device, _act_dtype(x)
+    bf16 = act == torch.bfloat16
+    _check_inputs(dev, act, (("x", x), ("skip", skip)), (("bd", bd), ("b1", b1), ("b2", b2)))
+    wdk, w1k, w2k = kernel_weights(wd, w1, w2, bf16)[:3]
     for name, t in (("wd", wdk), ("w1", w1k), ("w2", w2k)):
         _check_operand(name, t, dev)
-    lib = load_library()
+    entry = _entry(_library(bf16), "ccvpe_lmu_fwd", bf16)
     y = torch.empty((b, 2 * hc, 2 * wc, cout), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ccvpe_lmu_fwd(x.data_ptr(), _ptr(skip), wdk.data_ptr(), bd.data_ptr(),
-                               w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(), b2.data_ptr(),
-                               y.data_ptr(), b, hc, wc, cin, cs, cd, c1, cout, tile, stream)
+        rc = entry(x.data_ptr(), _ptr(skip), wdk.data_ptr(), bd.data_ptr(), w1k.data_ptr(),
+                   b1.data_ptr(), w2k.data_ptr(), b2.data_ptr(), y.data_ptr(), b, hc, wc, cin,
+                   cs, cd, c1, cout, tile, stream)
     if rc != 0:
-        raise RuntimeError(f"ccvpe_lmu_fwd launch failed: CUDA error {rc}")
-    fused_stage.launches += 1
+        raise RuntimeError(f"{entry.__name__} launch failed: CUDA error {rc}")
+    if bf16:
+        fused_stage.bf16_launches += 1
+    else:
+        fused_stage.launches += 1
     return y
 
 
 fused_stage.launches = 0
+fused_stage.bf16_launches = 0
 
 
 def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Tensor,
@@ -456,15 +531,24 @@ def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Ten
                     w2: torch.Tensor, b2: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
     """Kernel B3 on a CUDA tensor, fused_stage_bwd_plain on a CPU one:
     (dx, dskip or None, dwd, dbd, dw1, db1, dw2, db2), weights' grads in
-    torch layouts. Counts launches in fused_stage_bwd.launches."""
+    torch layouts, float32; dx and dskip in x's type. With a bf16 x, dy is
+    rounded to bf16 first (the TPU kernel's :440). Counts launches in
+    fused_stage_bwd.launches, bf16 ones in fused_stage_bwd.bf16_launches."""
     if not x.is_cuda:
         return fused_stage_bwd_plain(x, skip, dy, wd, bd, w1, b1, w2, b2)
-    grads, _ = _launch_bwd(load_library(), x, skip, dy, wd, bd, w1, b1, w2, b2)
-    fused_stage_bwd.launches += 1
+    bf16 = _act_dtype(x) == torch.bfloat16
+    if bf16:
+        dy = dy.to(torch.bfloat16).contiguous()
+    grads, _ = _launch_bwd(_library(bf16), x, skip, dy, wd, bd, w1, b1, w2, b2)
+    if bf16:
+        fused_stage_bwd.bf16_launches += 1
+    else:
+        fused_stage_bwd.launches += 1
     return grads
 
 
 fused_stage_bwd.launches = 0
+fused_stage_bwd.bf16_launches = 0
 
 
 def bwd_phase_cycles(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Tensor,
@@ -477,6 +561,8 @@ def bwd_phase_cycles(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Te
     the main path runs the untimed library."""
     if not x.is_cuda:
         raise ValueError("the phase timer runs on the card: pass CUDA tensors")
+    if x.dtype != torch.float32:
+        raise TypeError("the phase timer times the float32 backward")
     return _launch_bwd(load_timed_library(), x, skip, dy, wd, bd, w1, b1, w2, b2, timed=True)
 
 
@@ -484,15 +570,14 @@ def _launch_bwd(lib, x, skip, dy, wd, bd, w1, b1, w2, b2, timed=False):
     b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
     if tuple(dy.shape) != (b, 2 * hc, 2 * wc, cout):
         raise ValueError(f"dy has shape {tuple(dy.shape)}, expected {(b, 2 * hc, 2 * wc, cout)}")
-    dev = x.device
-    for name, t in (("x", x), ("skip", skip), ("dy", dy), ("bd", bd), ("b1", b1)):
-        if t is not None:
-            _check(name, t, dev)
-    wdk, w1k, _, w2t, w1t, wdt = kernel_weights(wd, w1, w2)
+    dev, act = x.device, _act_dtype(x)
+    bf16 = act == torch.bfloat16
+    _check_inputs(dev, act, (("x", x), ("skip", skip), ("dy", dy)), (("bd", bd), ("b1", b1)))
+    wdk, w1k, _, w2t, w1t, wdt = kernel_weights(wd, w1, w2, bf16)
     for name, t in (("wd", wdk), ("w1", w1k), ("w2t", w2t), ("w1t", w1t), ("wdt", wdt)):
         _check_operand(name, t, dev)
     with torch.cuda.device(dev):
-        t_, mode, ahead, nblk, psize = _plan(lib, b, hc, wc, cin, cs, cd, c1, cout)
+        t_, mode, ahead, nblk, psize = _plan(lib, b, hc, wc, cin, cs, cd, c1, cout, bf16)
         dx = torch.empty_like(x)
         dskip = None if skip is None else torch.empty_like(skip)
         part = torch.zeros((nblk, psize), device=dev, dtype=torch.float32)
@@ -504,13 +589,14 @@ def _launch_bwd(lib, x, skip, dy, wd, bd, w1, b1, w2, b2, timed=False):
             rc = lib.ccvpe_lmu_bwd_phase_buffer(cycles.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"ccvpe_lmu_bwd_phase_buffer failed: CUDA error {rc}")
-        rc = lib.ccvpe_lmu_bwd(x.data_ptr(), _ptr(skip), dy.data_ptr(), wdk.data_ptr(),
-                               bd.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-                               w1t.data_ptr(), wdt.data_ptr(), dx.data_ptr(), _ptr(dskip),
-                               part.data_ptr(), sums.data_ptr(), b, hc, wc, cin, cs, cd, c1,
-                               cout, t_, mode, ahead, nblk, stream)
+        entry = _entry(lib, "ccvpe_lmu_bwd", bf16)
+        rc = entry(x.data_ptr(), _ptr(skip), dy.data_ptr(), wdk.data_ptr(), bd.data_ptr(),
+                   w1k.data_ptr(), b1.data_ptr(), w2t.data_ptr(), w1t.data_ptr(),
+                   wdt.data_ptr(), dx.data_ptr(), _ptr(dskip), part.data_ptr(),
+                   sums.data_ptr(), b, hc, wc, cin, cs, cd, c1, cout, t_, mode, ahead, nblk,
+                   stream)
     if rc != 0:
-        raise RuntimeError(f"ccvpe_lmu_bwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry.__name__} launch failed: CUDA error {rc}")
     c = cd + cs
     dwd, dbd, dw1, db1, dw2, db2 = torch.split(
         sums, [4 * cin * cd, cd, 9 * c * c1, c1, 9 * c1 * cout, cout])
@@ -523,11 +609,13 @@ def _launch_bwd(lib, x, skip, dy, wd, bd, w1, b1, w2, b2, timed=False):
             db2), cycles
 
 
-def _plan(lib, b, hc, wc, cin, cs, cd, c1, cout):
-    """ccvpe_lmu_bwd_plan on the current device: (T, weight mode, planes
-    copied a tile ahead (0 or 1), blocks, floats of a block's partial slice)."""
+def _plan(lib, b, hc, wc, cin, cs, cd, c1, cout, bf16=False):
+    """ccvpe_lmu_bwd_plan (bf16: its bf16 twin) on the current device: (T,
+    weight mode, planes copied a tile ahead (0 or 1), blocks, floats of a
+    block's partial slice)."""
     out = [ctypes.c_int(0) for _ in range(5)]
-    rc = lib.ccvpe_lmu_bwd_plan(b, hc, wc, cin, cs, cd, c1, cout, *map(ctypes.byref, out))
+    rc = _entry(lib, "ccvpe_lmu_bwd_plan", bf16)(b, hc, wc, cin, cs, cd, c1, cout,
+                                                 *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError(f"ccvpe_lmu_bwd_plan failed: CUDA error {rc}")
     return tuple(v.value for v in out)
@@ -540,7 +628,8 @@ def bwd_plan(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
     are copied while the one before runs, its blocks and tiles."""
     b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
     with torch.cuda.device(x.device):
-        t, mode, ahead, nblk, _ = _plan(load_library(), b, hc, wc, cin, cs, cd, c1, cout)
+        bf16 = _act_dtype(x) == torch.bfloat16
+        t, mode, ahead, nblk, _ = _plan(_library(bf16), b, hc, wc, cin, cs, cd, c1, cout, bf16)
     return dict(t=t, weights=WEIGHT_MODES[mode], planes_ahead=bool(ahead), blocks=nblk,
                 tiles=b * -(-2 * hc // t) * -(-2 * wc // t))
 

@@ -1,6 +1,8 @@
 """TF-style 'SAME' padding with the reference's static-224 quirk, and
 horizontal-circular padding for 360-degree panoramas (the port of
-ccvpe_tpu/ops/padding.py:25-96).
+ccvpe_tpu/ops/padding.py:25-161): materialized ('wrap', `pad_same`) or as
+a zero-padded conv whose wrap-crossing edge columns are recomputed
+('edgefix', `conv_circular_same`).
 
 The reference computes every EfficientNet pad at construction from the
 nominal ImageNet size 224, not from the real input, so each pad in B0 is a
@@ -95,3 +97,52 @@ def pad_same(x: torch.Tensor, pad_h: Pad, pad_w: Pad,
     if pad_h == (0, 0) and pad_w == (0, 0):
         return x
     return F.pad(x, (*pad_w, *pad_h))
+
+
+def _conv(x: torch.Tensor, weight: torch.Tensor, stride: int, pad_h: Pad, pad_w: Pad,
+          groups: int) -> torch.Tensor:
+    """conv2d with zero padding (top, bottom) and (left, right): as the
+    conv's own padding where each pair is symmetric, else by F.pad."""
+    if pad_h[0] == pad_h[1] and pad_w[0] == pad_w[1]:
+        return F.conv2d(x, weight, None, stride, (pad_h[0], pad_w[0]), groups=groups)
+    return F.conv2d(F.pad(x, (*pad_w, *pad_h)), weight, None, stride, groups=groups)
+
+
+def conv_circular_same(x: torch.Tensor, weight: torch.Tensor, stride: int, pad_h: Pad,
+                       pad_w: Pad, groups: int = 1) -> torch.Tensor:
+    """A bias-free conv of NCHW x with W wrapped by pad_w and H zero-padded
+    by pad_h, without writing the wrapped tensor (circular_impl='edgefix'):
+    the conv runs with zero W padding, then the <= 2 output columns a side
+    whose window crosses the wrap are recomputed from small wrapped strips
+    and put in their place. The edge convs read the windows the wrapped
+    conv reads, so the values equal conv(pad_same(x, pad_h, pad_w,
+    circular=True)) up to the order of each sum."""
+    pl, pr = pad_w
+    k = weight.shape[-1]
+    w_in = x.shape[-1]
+    y = _conv(x, weight, stride, pad_h, pad_w, groups)
+    if pl == 0 and pr == 0:
+        return y
+    w_out = y.shape[-1]
+    # output column j reads padded columns [j*s, j*s+k); padded column p is
+    # input column p - pl, wrapped
+    n_left = -(-pl // stride) if pl else 0
+    j0_right = (pl + w_in - k) // stride + 1
+    n_right = max(0, w_out - j0_right)
+    if n_left + n_right > w_out:
+        raise ValueError(f"W = {w_in} is too narrow for a {k}-wide window wrapped by {pad_w}")
+    parts = []
+    if n_left:
+        span = (n_left - 1) * stride + k
+        strip = torch.cat([x[..., w_in - pl:], x[..., :span - pl]], dim=-1)
+        parts.append(_conv(strip, weight, stride, pad_h, (0, 0), groups))
+    parts.append(y[..., n_left:w_out - n_right])
+    if n_right:
+        span = (n_right - 1) * stride + k
+        start = j0_right * stride - pl
+        wrap = span - (w_in - start)
+        strip = x[..., start:]
+        if wrap > 0:
+            strip = torch.cat([strip, x[..., :wrap]], dim=-1)
+        parts.append(_conv(strip, weight, stride, pad_h, (0, 0), groups))
+    return torch.cat(parts, dim=-1)

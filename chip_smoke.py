@@ -7,13 +7,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      whether PIL imports and libjpeg's and libpng's headers exist;
   2. build every hand-written kernel from csrc/ with nvcc (sm_90a), and
-     lmu.cu once more with B3's per-phase timer, one nvcc per library, all
-     started together, timed, with ptxas' report, and each LMU kernel's
-     registers and spill bytes read from it; the tensor-core instructions
-     (HMMA) and clock reads of each LMU kernel counted in cuobjdump -sass:
-     B2 and B3 must hold TF32 ones, B3 at T = 8 more than before its da,
-     dh|dskip and dx took the tensor cores, and the main path's library no
-     clock read; the correlation kernel (B1) must hold TF32 ones too;
+     lmu.cu twice more, with B3's per-phase timer and with its bf16
+     instantiations, one nvcc per library, all started together, timed,
+     with ptxas' report, and each LMU kernel's registers and spill bytes
+     read from it; the tensor-core instructions (HMMA) and clock reads of
+     each LMU kernel counted in cuobjdump -sass: B2 and B3 must hold TF32
+     ones, B3's float32 instantiations at T = 8 more than before its da,
+     dh|dskip and dx took the tensor cores, and the main path's libraries
+     no clock read; the correlation kernel (B1) must hold TF32 ones too;
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI (s1 and s6) and
      ori-prior shapes, and at one shape with ragged N and D edges and the
@@ -108,19 +109,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 step's must be near; one InferenceEngine.predict batch under the
      bf16 configuration (launches, finite maps, the decode step's rows,
      heatmap peaks against the float32 model's);
- 13. a {"kernels": [...], "probes": [...]} line (probes: the primitive
+ 13. the rest of ModelConfig at full width, in a third child process
+     (python3 chip_smoke.py --model-options <json>, phase 12's
+     environment): B2 and B3 on bf16 activations against their bf16 plain
+     versions (the split emulations) at the VIGOR and KITTI calls (batch
+     8) and phase 6's tensor-core cases, each twice for the same bits;
+     their times at the VIGOR calls beside the float32 kernel on the same
+     values, the plain versions and the bf16 cuDNN chain, and the bounds
+     from 2-byte activations; bench.py's options with lmu_fused_min_res=256
+     through create_train_state and make_train_step at batch 8 and 96
+     (launches counted from zero over the first step: B1 1 + 5 bf16, B2 and
+     B3 2 each on bf16; p50, pairs/s, peak memory, printed by the parent
+     beside phase 12's unfused step, whose float32 first loss the bf16 one
+     must be near) and one InferenceEngine.predict batch (B2 4 on bf16);
+     vigor(circular_impl='edgefix') and vigor(phase_space_min_res=256)
+     against vigor(), float32, batch 8, deterministic mode: the forward's
+     heatmap and one train step's losses and gradients, whether each is the
+     same bits, and the forward's and step's p50 of both;
+ 14. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
      launches in each eval loop; each kernel's driver_launches are its
      launches in phase 11's control Trainer.fit; corr_fwd_bf16 is B1 on a
-     bf16 S, its launches from phase 12's train step), then the last line
+     bf16 S, its launches from phase 12's train step; lmu_fwd_bf16 and
+     lmu_bwd_bf16 are B2 and B3 on bf16 activations, their launches from
+     phase 13's train step, eval_launches from its predict batch), then
+     the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke.json (phase 11's also to
 chiprun_out/chip_smoke_driver.json, phase 12's to
-chiprun_out/chip_smoke_bench.json).
+chiprun_out/chip_smoke_bench.json, phase 13's to
+chiprun_out/chip_smoke_options.json).
 
 TF32 is off for matmuls and cuDNN throughout, so every comparison and time
 is strict float32 (the entry points force it too, core/precision.py), but
-for the one forward timed with TF32 on and phase 12's bf16 configuration.
+for the one forward timed with TF32 on and phases 12-13's bf16 ones.
 """
 
 from __future__ import annotations
@@ -139,6 +161,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense BF16 tensor cores
 # Tolerances of the kernel against its plain version and against float64:
 # the kernel's 3xTF32 products are each within ~2^-22 of the exact product
 # (float32-accurate), summed in float32 in another order (8 channels an mma,
@@ -332,26 +355,61 @@ def lmu_inputs(shape, gen, dyadic=False, bias_scale=0.3, device="cuda"):
     return x, skip, ws
 
 
-def lmu_bound(shape, backward):
-    """Least time for the stage's work: the float32 operations it must do
-    on these inputs (the backward recomputes h and g, then the two
-    transposed convs, the three weight-gradient products and dx), or each
-    input read once and each output written once, whichever is longer.
-    Also returns the same bound with every operation on the tensor cores
-    in 3xTF32 (three TF32 products at 495 TFLOP/s for each float32 one)."""
+def lmu_convs(shape, backward):
+    """{conv: (flops, on the tensor cores)} of the stage's work at one
+    shape, each conv by the kernels' route (ops/lmu_cuda.py mirrors their
+    rules): B2's deconv, conv_a and conv_b; B3's recompute of h and g, its
+    two transposed convs and dx, and its three weight-gradient products
+    (always on the tensor cores)."""
+    from ccvpe_tpu_torch.ops import lmu_cuda
     _, b, hc, wc, cin, cs, cd, c1, cout = shape
-    c = cd + cs
-    pix = b * 4 * hc * wc
+    c, pix = cd + cs, b * 4 * hc * wc
+    convs = {"deconv": (2 * pix * cin * cd, lmu_cuda.tensor_core_conv(cd)),
+             "conv_a": (2 * pix * 9 * c * c1, lmu_cuda.tensor_core_conv(c1))}
+    if not backward:
+        convs["conv_b"] = (2 * pix * 9 * c1 * cout, lmu_cuda.tensor_core_conv(cout))
+        return convs
+    tc = lmu_cuda.bwd_tensor_core_conv
+    convs.update({"da": (2 * pix * 9 * c1 * cout, tc(c1, cout)),
+                  "dh|dskip": (2 * pix * 9 * c1 * c, tc(c, c1)),
+                  "dx": (2 * pix * cd * cin, tc(cin, cd)),
+                  "dw2": (2 * pix * 9 * c1 * cout, True), "dw1": (2 * pix * 9 * c * c1, True),
+                  "dwd": (2 * pix * cin * cd, True)})
+    return convs
+
+
+def lmu_bound(shape, backward, act_bytes=4):
+    """Least time for the stage's work: each input read once and each
+    output written once at HBM_BYTES_PER_S (activations of `act_bytes`,
+    weights, y and the weight gradients float32), or its operations,
+    whichever is longer. Float32 activations: each conv at its route's rate
+    (lmu_convs: three TF32 products at TF32_FLOPS_PER_S for each float32
+    one on the tensor cores, FP32_FLOPS_PER_S on the FMAs); bf16: all at
+    the card's BF16_FLOPS_PER_S. Also the operations at the route a bf16
+    stage issues (one TF32 product), on the CUDA cores alone and all in
+    3xTF32. Times in ms."""
+    _, b, hc, wc, cin, cs, cd, c1, cout = shape
+    c, pix = cd + cs, b * 4 * hc * wc
     wts = 4 * cin * cd + cd + 9 * c * c1 + c1 + 9 * c1 * cout + cout
+    acts = b * hc * wc * cin + pix * cs
     if backward:
-        flops = 2 * pix * (3 * cin * cd + 3 * 9 * c * c1 + 2 * 9 * c1 * cout)
-        nbytes = 4 * (2 * (b * hc * wc * cin + pix * cs) + pix * cout + 2 * wts)
+        nbytes = act_bytes * (2 * acts + pix * cout) + 4 * 2 * wts
     else:
-        flops = 2 * pix * (cin * cd + 9 * c * c1 + 9 * c1 * cout)
-        nbytes = 4 * (b * hc * wc * cin + pix * cs + pix * cout + wts)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    t_tc = max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops, t_tc
+        nbytes = act_bytes * acts + 4 * (pix * cout + wts)
+    convs = lmu_convs(shape, backward)
+    flops = sum(f for f, _ in convs.values())
+
+    def route(products):
+        return sum((products * f / TF32_FLOPS_PER_S if on_tc else f / FP32_FLOPS_PER_S)
+                   for f, on_tc in convs.values()) * 1e3
+
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3 if act_bytes == 2 else route(3)
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, ops_ms=t_ops,
+                route_ms=route(3 if act_bytes == 4 else 1),
+                f32_bound_ms=max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3),
+                tc_bound_ms=max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3))
 
 
 def scaled_err(a, b):
@@ -434,16 +492,24 @@ def ptxas_usage(log):
 
 
 def lmu_kernel_name(fn):
-    """'lmu_fwd_kernel<512>' or 'lmu_bwd_kernel<256, T=8>' for a mangled
-    LMU kernel name, else the name cut to 90 characters."""
+    """'lmu_fwd_kernel<512, float>' or 'lmu_bwd_kernel<256, T=8, bf16>' for a
+    mangled LMU kernel name, else the name cut to 90 characters."""
     import re
-    m = re.search(r"lmu_fwd_kernelILi(\d+)EE", fn)
+    act = "bf16" if "__nv_bfloat16" in fn else "float"
+    m = re.search(r"lmu_fwd_kernelILi(\d+)E", fn)
     if m:
-        return f"lmu_fwd_kernel<{m.group(1)}>"
-    m = re.search(r"lmu_bwd_kernelILi(\d+)ELi(\d+)EE", fn)
+        return f"lmu_fwd_kernel<{m.group(1)}, {act}>"
+    m = re.search(r"lmu_bwd_kernelILi(\d+)ELi(\d+)E", fn)
     if m:
-        return f"lmu_bwd_kernel<{m.group(1)}, T={m.group(2)}>"
+        return f"lmu_bwd_kernel<{m.group(1)}, T={m.group(2)}, {act}>"
     return fn[:90]
+
+
+def lmu_bwd_tile(fn):
+    """T of a mangled lmu_bwd_kernel instantiation, else None."""
+    import re
+    m = re.search(r"lmu_bwd_kernelILi\d+ELi(\d+)E", fn)
+    return int(m.group(1)) if m else None
 
 
 def check_probe(gen):
@@ -522,9 +588,7 @@ def time_lmu(shape, gen):
     row["fwd_mma"] = lmu_cuda.fwd_mma_count(*shape[1:], t)
     row["bwd_mma"] = lmu_cuda.bwd_mma_count(*shape[1:], lmu_cuda.bwd_plan(x, skip, wd, w1, w2)["t"])
     for key, bwd in (("fwd", False), ("bwd", True)):
-        bound, by, nbytes, flops, tc = lmu_bound(shape, bwd)
-        row.update({f"{key}_bound_ms": bound, f"{key}_bound_by": by, f"{key}_bytes": nbytes,
-                    f"{key}_flops": flops, f"{key}_tc_bound_ms": tc})
+        row.update({f"{key}_{k}": v for k, v in lmu_bound(shape, bwd).items()})
     return row
 
 
@@ -968,8 +1032,10 @@ DRIVER_TIMEOUT_S = 300
 # step launches B1 with r at six scales, B2 and B3 at the four fused stages;
 # a validation forward B1 at six scales and B2 at the same four stages (the
 # fused stages are the model's, in eval as in training), B3 never
-DRIVER_STEP_LAUNCHES = {"corr_fwd": 6, "corr_fwd_bf16": 0, "lmu_fwd": 4, "lmu_bwd": 4}
-DRIVER_VAL_LAUNCHES = {"corr_fwd": 6, "corr_fwd_bf16": 0, "lmu_fwd": 4, "lmu_bwd": 0}
+DRIVER_STEP_LAUNCHES = {"corr_fwd": 6, "corr_fwd_bf16": 0, "lmu_fwd": 4, "lmu_bwd": 4,
+                        "lmu_fwd_bf16": 0, "lmu_bwd_bf16": 0}
+DRIVER_VAL_LAUNCHES = {"corr_fwd": 6, "corr_fwd_bf16": 0, "lmu_fwd": 4, "lmu_bwd": 0,
+                       "lmu_fwd_bf16": 0, "lmu_bwd_bf16": 0}
 
 
 def launch_counts() -> dict:
@@ -977,7 +1043,9 @@ def launch_counts() -> dict:
     from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
     return {"corr_fwd": corr_cuda.corr_core.launches,
             "corr_fwd_bf16": corr_cuda.corr_core.bf16_launches,
-            "lmu_fwd": lmu_cuda.fused_stage.launches, "lmu_bwd": lmu_cuda.fused_stage_bwd.launches}
+            "lmu_fwd": lmu_cuda.fused_stage.launches, "lmu_bwd": lmu_cuda.fused_stage_bwd.launches,
+            "lmu_fwd_bf16": lmu_cuda.fused_stage.bf16_launches,
+            "lmu_bwd_bf16": lmu_cuda.fused_stage_bwd.bf16_launches}
 
 
 def zero_launch_counts() -> None:
@@ -986,6 +1054,8 @@ def zero_launch_counts() -> None:
     corr_cuda.corr_core.bf16_launches = 0
     lmu_cuda.fused_stage.launches = 0
     lmu_cuda.fused_stage_bwd.launches = 0
+    lmu_cuda.fused_stage.bf16_launches = 0
+    lmu_cuda.fused_stage_bwd.bf16_launches = 0
 
 
 def count_calls(fn, calls):
@@ -1251,7 +1321,8 @@ REMAT_GRAD_ATOL = 1e-6
 # and masks: bf16 keeps 8 significant bits (~4e-3 relative a rounding); the
 # loss, a mean of many terms, moved 8e-4 at tiny() on the CPU
 BF16_LOSS_RTOL = 1e-2
-BENCH_LAUNCHES = {"corr_fwd": 1, "corr_fwd_bf16": 5, "lmu_fwd": 0, "lmu_bwd": 0}
+BENCH_LAUNCHES = {"corr_fwd": 1, "corr_fwd_bf16": 5, "lmu_fwd": 0, "lmu_bwd": 0,
+                  "lmu_fwd_bf16": 0, "lmu_bwd_bf16": 0}
 
 
 def bench_batch(cfg, b):
@@ -1588,6 +1659,319 @@ def bench_main(out_path: str) -> int:
     return 0 if ok else 1
 
 
+# --- phase 13: the rest of ModelConfig (bf16 B2/B3, edgefix, phase space), in a child ---
+
+OPTIONS_TIMEOUT_S = 400
+# B2 and B3 on bf16 activations against their bf16 plain versions: y and
+# the gradients scaled by their max abs. The kernel rounds h, g, da, dh,
+# dx and dskip to bf16 after float32 sums in another order than the plain
+# version's, so a sum within roundoff of a rounding tie flips one bf16 ulp
+# (2^-8 relative) at a few elements; on dyadic inputs (the backward's) the
+# sums are exact and the two agree to the bit on the CPU.
+LMU_BF16_RTOL = 2.0 ** -8
+# bench.py's options with the fused stages from 256 px: a train step's
+# windowed ori stages (80 and 160 px) stay unfused, so B2 and B3 take the
+# loc decoder's stage 5 and final stage + head; an eval forward never
+# windows, so B2 takes both decoders' two finest stages
+FUSED_BF16_OPTIONS = dict(BENCH_OPTIONS, lmu_fused_min_res=256)
+FUSED_BF16_STEP_LAUNCHES = dict(BENCH_LAUNCHES, lmu_fwd_bf16=2, lmu_bwd_bf16=2)
+FUSED_BF16_PREDICT_LAUNCHES = dict(BENCH_LAUNCHES, lmu_fwd_bf16=4)
+# edgefix against wrap and phase space against the fine stages, float32,
+# the same weights and batch: the forward as the JAX suite holds phase
+# space to the fine stages (tests/test_phase_space.py:189-203), the train
+# step's losses and gradients as phase 9 holds the fused step to the
+# unfused one. Either option changes the sums' order in every layer the
+# gradient passes on its way back (edgefix: the ground encoder's convs;
+# phase space: the decoders', then both encoders'), so a gradient that is
+# exactly 0 in exact arithmetic is roundoff on both sides (ROADMAP.md C:
+# the logits' bias under the softmax, a ground block's _bn2.bias where
+# drop-connect keeps the sample) and cannot be held relative to itself.
+# As tests/test_torch_train_step.py:194-214 does, a gradient whose max
+# falls under a floor of the model's largest is taken for that roundoff,
+# and both sides must stay under it; the floor is OPT_ZERO_GRAD_RTOL, not
+# grads_close's 1e-6 (whose two steps share their encoders' sums): float32's
+# 2^-24 grown by the square root of the ~4e5 terms of a VIGOR batch-8 BN
+# sum is ~4e-5 of a term. On the CPU at tiny() such gradients sit at
+# 1e-8-2e-7 of the largest, the real ones at 1e-2.
+OPT_HEATMAP_ATOL = 1e-5
+OPT_ZERO_GRAD_RTOL = 1e-4
+
+
+def check_lmu_bf16(shape, gen, bias_scale=0.3):
+    """B2 and B3 on bf16 x, skip and dy against their bf16 plain versions
+    (the split emulations, ops/lmu_cuda.py): the forward on normal inputs,
+    the backward on dyadic ones, each kernel twice for the same bits."""
+    from ccvpe_tpu_torch.ops.lmu_cuda import (fused_stage, fused_stage_bwd,
+                                              fused_stage_bwd_split_plain,
+                                              fused_stage_split_plain)
+
+    def bf16(t):
+        return None if t is None else t.to(torch.bfloat16)
+
+    dev = gen.device
+    x, skip, ws = lmu_inputs(shape, gen, bias_scale=bias_scale, device=dev)
+    x, skip = bf16(x), bf16(skip)
+    y, y2 = fused_stage(x, skip, *ws), fused_stage(x, skip, *ws)
+    ref = fused_stage_split_plain(x, skip, *ws)
+    x, skip, ws = lmu_inputs(shape, gen, dyadic=True, bias_scale=bias_scale, device=dev)
+    x, skip = bf16(x), bf16(skip)
+    dy = torch.randn(*y.shape, device=dev, generator=gen)
+    got, again = fused_stage_bwd(x, skip, dy, *ws), fused_stage_bwd(x, skip, dy, *ws)
+    want = fused_stage_bwd_split_plain(x, skip, dy, *ws)
+    names = ("dx", "dskip", "dwd", "dbd", "dw1", "db1", "dw2", "db2")
+    fwd_err = scaled_err(y, ref)
+    errs = {n: scaled_err(g.float(), w.float()) for n, g, w in zip(names, got, want)
+            if w is not None}
+    same = torch.equal(y, y2) and all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    dtypes = (y.dtype == torch.float32 and got[0].dtype == torch.bfloat16
+              and (got[1] is None or got[1].dtype == torch.bfloat16)
+              and all(g.dtype == torch.float32 for g in got[2:]))
+    ok = (same and dtypes and bool(torch.isfinite(y).all()) and fwd_err <= LMU_BF16_RTOL
+          and all(e <= LMU_BF16_RTOL for e in errs.values()))
+    return dict(name=shape[0], shape=list(shape[1:]), fwd_scaled=fwd_err,
+                fwd_max_abs=float((y - ref).abs().max()), bwd_scaled=errs,
+                bwd_max_abs=max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want) if w is not None),
+                deterministic=same, dtypes=dtypes, ok=ok)
+
+
+def time_lmu_bf16(shape, gen):
+    """B2 and B3 on bf16 activations at one shape: kernel, the float32
+    kernel on the same values, the plain version (ops/lmu.py's bf16 policy
+    on cuDNN float32 convs) and the bf16 cuDNN chain (the library's
+    fused-free stage, forward and backward), beside the bounds."""
+    import torch.nn.functional as F
+    from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
+    from ccvpe_tpu_torch.ops.lmu_cuda import fused_stage, fused_stage_bwd
+    x, skip, ws = lmu_inputs(shape, gen)
+    x16 = x.to(torch.bfloat16)
+    s16 = None if skip is None else skip.to(torch.bfloat16)
+    x32 = x16.float()
+    s32 = None if s16 is None else s16.float()
+    dy = torch.randn(shape[1], 2 * shape[2], 2 * shape[3], shape[8], device="cuda", generator=gen)
+    dy16 = dy.to(torch.bfloat16)
+    xc = x16.permute(0, 3, 1, 2).requires_grad_()
+    sc = None if s16 is None else s16.permute(0, 3, 1, 2).requires_grad_()
+    params = [w.detach().to(torch.bfloat16).requires_grad_() for w in ws]
+
+    def chain():
+        h = F.conv_transpose2d(xc, params[0], params[1], stride=2)
+        if sc is not None:
+            h = torch.cat([h, sc], dim=1)
+        g = F.relu(F.conv2d(h, params[2], params[3], padding=1))
+        return F.conv2d(g, params[4], params[5], padding=1)
+
+    out = chain()
+    leaves = [xc] + ([sc] if sc is not None else []) + params
+    row = dict(name=shape[0])
+    row["fwd_ms"] = time_ms(lambda: fused_stage(x16, s16, *ws))
+    row["fwd_f32_ms"] = time_ms(lambda: fused_stage(x32, s32, *ws))
+    row["fwd_plain_ms"] = time_ms(lambda: fused_stage_plain(x16, s16, *ws))
+    with torch.no_grad():
+        row["fwd_chain_ms"] = time_ms(chain)
+    row["bwd_ms"] = time_ms(lambda: fused_stage_bwd(x16, s16, dy16, *ws))
+    row["bwd_f32_ms"] = time_ms(lambda: fused_stage_bwd(x32, s32, dy, *ws))
+    row["bwd_plain_ms"] = time_ms(lambda: fused_stage_bwd_plain(x16, s16, dy16, *ws))
+    dyc = dy16.permute(0, 3, 1, 2)
+    row["bwd_chain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dyc, retain_graph=True))
+    for key, bwd in (("fwd", False), ("bwd", True)):
+        row.update({f"{key}_{k}": v for k, v in lmu_bound(shape, bwd, act_bytes=2).items()})
+    return row
+
+
+def run_lmu_bf16(card, out) -> bool:
+    """The bf16 kernels against their plain versions at the VIGOR and KITTI
+    calls (batch 8) and phase 6's tensor-core cases, then their times at
+    the VIGOR calls."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = (lmu_call_shapes(cfg_lib.vigor(), 8) + lmu_call_shapes(cfg_lib.kitti(), 8, "kitti ")
+              + list(LMU_TC_CASES))
+    out["lmu_bf16_checks"] = rows = []
+    for shape in shapes:
+        r = check_lmu_bf16(shape, gen)
+        rows.append(r)
+        log(f"check lmu bf16 {shape[0]:24s} {shape[1:]}: fwd scaled {r['fwd_scaled']:.3g}, bwd "
+            f"scaled {json.dumps({k: float(f'{v:.3g}') for k, v in r['bwd_scaled'].items()})} "
+            f"(rtol {LMU_BF16_RTOL:.3g} of each max), dtypes {r['dtypes']}, same bits twice "
+            f"{r['deterministic']} {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            return False
+    out["lmu_bf16_fwd_max_abs"] = max(r["fwd_max_abs"] for r in rows[:4])
+    out["lmu_bf16_bwd_max_abs"] = max(r["bwd_max_abs"] for r in rows[:4])
+    out["lmu_bf16_timing"] = timing = []
+    tot = {}
+    for shape in lmu_call_shapes(cfg_lib.vigor(), 8):
+        row = time_lmu_bf16(shape, gen)
+        timing.append(row)
+        for k, v in row.items():
+            if k.endswith(("_ms", "_bytes", "_flops")):
+                tot[k] = tot.get(k, 0) + v
+        for key in ("fwd", "bwd"):
+            log(f"time lmu bf16 {key} {shape[0]:18s}: kernel {row[f'{key}_ms']:.3f} ms, float32 "
+                f"kernel {row[f'{key}_f32_ms']:.3f}, plain {row[f'{key}_plain_ms']:.3f}, bf16 "
+                f"cuDNN chain {row[f'{key}_chain_ms']:.3f}, bound {row[f'{key}_bound_ms']:.3f} "
+                f"({row[f'{key}_bound_by']}; {row[f'{key}_bytes'] / 1e6:.1f} MB, "
+                f"{row[f'{key}_flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s "
+                f"{row[f'{key}_ops_ms']:.3f}), its route (one TF32 product) "
+                f"{row[f'{key}_route_ms']:.3f} [{card}]")
+    for key in ("fwd", "bwd"):
+        t_b = tot[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
+        tot[f"{key}_bound_by"] = "bytes" if t_b >= tot[f"{key}_ops_ms"] else "operations"
+        log(f"time lmu bf16 {key} per step (4 launches): kernel {tot[f'{key}_ms']:.3f} ms, "
+            f"float32 kernel {tot[f'{key}_f32_ms']:.3f}, plain {tot[f'{key}_plain_ms']:.3f}, "
+            f"bf16 cuDNN chain {tot[f'{key}_chain_ms']:.3f}, bound {tot[f'{key}_bound_ms']:.3f}, "
+            f"route {tot[f'{key}_route_ms']:.3f} [{card}]")
+    out["lmu_bf16_timing_total"] = tot
+    return True
+
+
+def run_fused_bf16_steps(card, out, sd) -> bool:
+    """bench.py's options with lmu_fused_min_res=256 through
+    create_train_state and make_train_step at batch 8 and 96 (launches
+    counted from zero over the first step: the main path of this phase),
+    p50, pairs/s and peak memory; then one InferenceEngine.predict batch."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.serve import InferenceEngine
+    vigor = cfg_lib.vigor()
+    cfg = dataclasses.replace(vigor, **FUSED_BF16_OPTIONS)
+    res = out["fused_bf16"] = {}
+    for b in BENCH_BATCHES:
+        batch = bench_batch(cfg, b)
+        zero_launch_counts()
+        state, step, gen, first = one_step(cfg, sd, batch)
+        launches = launch_counts()
+        step(state, batch, gen)                              # warm-up
+        p50, peak, times, losses = time_steps(step, state, batch, gen, 6 if b == 8 else 3)
+        ok = bool(launches == FUSED_BF16_STEP_LAUNCHES
+                  and np.isfinite(list(first.values())).all() and np.isfinite(losses).all())
+        res[f"batch {b}"] = dict(first=first, launches=launches, p50_step_ms=p50 * 1e3,
+                                 pairs_per_s=b / p50, peak_bytes=peak,
+                                 step_ms=[t * 1e3 for t in times], losses=losses, ok=ok)
+        log(f"train bench.py config + lmu_fused_min_res=256 batch {b} (bf16 B2/B3): launches "
+            f"{launches} (want {FUSED_BF16_STEP_LAUNCHES}); p50 step {p50 * 1e3:.2f} ms, "
+            f"{b / p50:.2f} pairs/s, peak memory {peak / 2 ** 30:.2f} GiB, first loss "
+            f"{first['loss']:.6g} {'ok' if ok else 'FAIL'} [{card}]")
+        del state, step, batch
+        torch.cuda.empty_cache()
+        if not ok:
+            return False
+    batch = bench_batch(vigor, 8)
+    engine = InferenceEngine(cfg, sd, batch_size=8)
+    zero_launch_counts()
+    results = engine.predict(batch.grd.cpu().numpy(), batch.sat.cpu().numpy())
+    launches = launch_counts()
+    ok = bool(launches == FUSED_BF16_PREDICT_LAUNCHES and len(results) == 8
+              and all(np.isfinite([p.angle_deg, p.probability]).all() for p in results))
+    res["predict"] = dict(launches=launches, rows=[p.row for p in results], ok=ok)
+    log(f"predict bench.py config + lmu_fused_min_res=256 batch 8 (bf16, eval): launches "
+        f"{launches} (want {FUSED_BF16_PREDICT_LAUNCHES}) {'ok' if ok else 'FAIL'}")
+    del engine
+    torch.cuda.empty_cache()
+    return ok
+
+
+def compare_option(card, out, sd, name, over) -> bool:
+    """vigor() with the option `over` against vigor() on the same weights,
+    float32, batch 8: the eval forward's heatmap and one train step's
+    losses and every gradient, in deterministic mode, and whether each is
+    the same bits; then the p50 of each for both, outside deterministic
+    mode (cuDNN's deterministic algorithms are far slower at the fine
+    stages)."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core.debug import deterministic
+    from ccvpe_tpu_torch.models.cvm import build_cvm
+    from ccvpe_tpu_torch.train.step import device_normalize, make_eval_step
+    base = cfg_lib.vigor()
+    cfgs = {"default": base, name: dataclasses.replace(base, **over)}
+    batch = bench_batch(base, 8)
+    g, s = device_normalize(batch.grd), device_normalize(batch.sat)
+    fwd, fwd_ms, steps, step_ms = {}, {}, {}, {}
+    for key, cfg in cfgs.items():
+        step = make_eval_step(build_cvm(cfg, "cuda", state_dict=sd))
+        with deterministic():
+            fwd[key] = [t.float() for t in step(g, s)]
+        times = []                  # timed as the entry points run, not deterministic
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(g, s)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        fwd_ms[key] = float(np.median(times[1:])) * 1e3
+        del step
+        with deterministic():
+            state, tstep, gen, metrics, grads, _ = one_step(cfg, sd, batch, grads=True)
+        steps[key] = (metrics, grads)
+        tstep(state, batch, gen)                             # warm-up
+        step_ms[key] = time_steps(tstep, state, batch, gen, 3)[0] * 1e3
+        del state, tstep
+        torch.cuda.empty_cache()
+    a, b = fwd[name], fwd["default"]
+    (ma, ga), (mb, gb) = steps[name], steps["default"]
+    heat_err = float((a[0] - b[0]).abs().max())
+    fwd_same = all(torch.equal(x, y) for x, y in zip(a, b))
+    loss_rel = {k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30) for k in mb}
+    top = max(float(g.abs().max()) for g in gb.values())
+    zeros = [k for k in gb if float(gb[k].abs().max()) < OPT_ZERO_GRAD_RTOL * top]
+    zero_worst = max([max(float(ga[k].abs().max()), float(gb[k].abs().max())) / top
+                      for k in zeros], default=0.0)
+    rest_a, rest_b = ({k: g[k] for k in gb if k not in zeros} for g in (ga, gb))
+    grad_worst, grad_bad = grads_close(rest_a, rest_b, STEP_GRAD_ATOL)
+    worst_name = max(rest_b, key=lambda k: scaled_err(rest_a[k], rest_b[k]))
+    worst_scale = float(rest_b[worst_name].abs().max()) / top
+    grads_same = all(torch.equal(ga[k], gb[k]) for k in gb)
+    ok = bool(heat_err <= OPT_HEATMAP_ATOL and torch.isfinite(a[0]).all()
+              and all(e <= STEP_LOSS_RTOL for e in loss_rel.values()) and not grad_bad
+              and zero_worst <= OPT_ZERO_GRAD_RTOL)
+    out[name] = dict(heatmap_max_abs=heat_err, forward_same_bits=fwd_same, loss_rel=loss_rel,
+                     grad_worst=grad_worst, grad_worst_name=worst_name,
+                     grad_worst_scale=worst_scale, grad_bad=grad_bad,
+                     zero_grads=len(zeros), zero_grad_worst=zero_worst,
+                     grads_same_bits=grads_same, forward_ms=fwd_ms, step_ms=step_ms, ok=ok)
+    log(f"{name} vs default (vigor f32, batch 8; values in deterministic mode): heatmap max abs "
+        f"{heat_err:.3g} "
+        f"(atol {OPT_HEATMAP_ATOL}), forward same bits {fwd_same}; step loss rel "
+        f"{max(loss_rel.values()):.3g} (rtol {STEP_LOSS_RTOL}), worst scaled grad "
+        f"{grad_worst:.3g} at {worst_name}, whose max is {worst_scale:.3g} of the largest "
+        f"(atol {STEP_GRAD_ATOL}; {len(grad_bad)} over: "
+        f"{grad_bad[:5]}), the {len(zeros)} grads under the roundoff floor at most "
+        f"{zero_worst:.3g} of the largest (rtol {OPT_ZERO_GRAD_RTOL}), grads same bits "
+        f"{grads_same}; forward p50 "
+        f"{fwd_ms[name]:.2f} ms vs {fwd_ms['default']:.2f}, step p50 {step_ms[name]:.2f} ms vs "
+        f"{step_ms['default']:.2f} {'ok' if ok else 'FAIL'} [{card}]")
+    return ok
+
+
+def options_main(out_path: str) -> int:
+    """Phase 13 in its own process (the environment as phase 12's). The
+    kernels were built by the parent; loading finds them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --model-options: no CUDA device", file=sys.stderr)
+        return 2
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.models.cvm import CVM, random_init_
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    corr_cuda.load_library()
+    lmu_cuda.load_library()
+    lmu_cuda.load_bf16_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    out = {}
+    sd = random_init_(CVM(cfg_lib.vigor()).to_empty(device="cpu"),
+                      torch.Generator().manual_seed(17)).state_dict()
+    t0 = time.perf_counter()
+    ok = run_lmu_bf16(card, out)
+    ok = ok and run_fused_bf16_steps(card, out, sd)
+    ok = ok and compare_option(card, out, sd, "edgefix", dict(circular_impl="edgefix"))
+    ok = ok and compare_option(card, out, sd, "phase space", dict(phase_space_min_res=256))
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"model_options": out}, f, indent=1)
+    return 0 if ok else 1
+
+
 def run_child(flag: str, name: str, timeout_s: int):
     """`python3 chip_smoke.py <flag> chiprun_out/<name>` as a child process
     with CUBLAS_WORKSPACE_CONFIG=:4096:8; returns its wall time and JSON, or
@@ -1627,7 +2011,15 @@ def main() -> int:
     from ccvpe_tpu_torch.serve import InferenceEngine
     from ccvpe_tpu_torch.train.step import device_normalize, make_eval_decode_step
 
-    report = {}
+    report = {"phase_s": {}}
+    last = [time.perf_counter()]
+
+    def phase_done(n):
+        """Wall seconds of phase n, into the report."""
+        now = time.perf_counter()
+        report["phase_s"][n] = now - last[0]
+        last[0] = now
+
     # 1. the card
     card = card_line()
     log(card)
@@ -1646,10 +2038,12 @@ def main() -> int:
     log(f"{pil}; headers in /usr/include: {json.dumps(headers)}")
     report["pil"], report["image_headers"] = pil, headers
 
-    # 2. build every kernel, and lmu.cu with B3's phase timer, one nvcc per
-    #    library, all started together
+    phase_done(1)
+    # 2. build every kernel, and lmu.cu with B3's phase timer and with its
+    #    bf16 instantiations, one nvcc per library, all started together
     jobs = {name: (name, ()) for name in KERNELS}
     jobs["lmu+timer"] = ("lmu", (lmu_cuda.PHASE_TIMER,))
+    jobs["lmu bf16"] = ("lmu", (lmu_cuda.BF16_BUILD,))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda job: build(*job), jobs.values())))
@@ -1660,7 +2054,9 @@ def main() -> int:
     corr_cuda.load_library()
     lmu_cuda.load_library()
     lmu_cuda.load_timed_library()
+    lmu_cuda.load_bf16_library()
     report["build_s"] = build_s
+    report["build_seconds"] = {name: b.seconds for name, b in built.items()}
     scan = sass_scan(built["corr"].path)
     report["corr_sass"] = {fn: dict(hmma=len(ops), opcodes=sorted(set(ops)))
                            for fn, (ops, _) in scan.items()}
@@ -1673,7 +2069,7 @@ def main() -> int:
         return 1
     report["lmu_sass"] = {}
     report["lmu_ptxas"] = {}
-    for lib in ("lmu", "lmu+timer"):
+    for lib in ("lmu", "lmu+timer", "lmu bf16"):
         scan = sass_scan(built[lib].path)
         usage = ptxas_usage(built[lib].log)
         report["lmu_sass"][lib] = {fn: dict(hmma=len(ops), opcodes=sorted(set(ops)), clocks=clk)
@@ -1682,11 +2078,12 @@ def main() -> int:
                                                               spill_loads=ld)
                                     for fn, (r, st, ld) in usage.items()}
         for fn, (ops, clk) in scan.items():
-            # B2's count since its convs took the tensor cores (432); B3's
-            # while da, dh|dskip and dx ran on the FMAs
-            t_bwd = 8 if "ELi8EE" in fn else 4 if "ELi4EE" in fn else None
-            old = ("432" if "lmu_fwd_kernel" in fn
-                   else str(FMA_BWD_HMMA[t_bwd]) if "lmu_bwd_kernel" in fn and t_bwd else "-")
+            # float32: B2's count since its convs took the tensor cores
+            # (432); B3's while da, dh|dskip and dx ran on the FMAs. A bf16
+            # instantiation issues one TF32 product where float32 takes three
+            t_bwd = None if lib == "lmu bf16" else lmu_bwd_tile(fn)
+            old = ("432" if "lmu_fwd_kernel" in fn and lib != "lmu bf16"
+                   else str(FMA_BWD_HMMA[t_bwd]) if t_bwd else "-")
             log(f"sass {lib} {lmu_kernel_name(fn)}: {len(ops)} HMMA (before B3's da, dh|dskip "
                 f"and dx took the tensor cores: {old}) "
                 f"{sorted(set(ops))}, {clk} clock reads")
@@ -1715,6 +2112,7 @@ def main() -> int:
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    phase_done(2)
     # 3. kernel against plain
     vigor = cfg_lib.vigor()
     batch = 8
@@ -1775,6 +2173,7 @@ def main() -> int:
             return 1
         max_err = max(max_err, err)
 
+    phase_done(3)
     # 4. timing at the VIGOR shapes, without r (serving) and with r (training)
     report["timing"] = []
     tot = dict.fromkeys(("ms", "plain_ms", "matmul2_ms", "bound_ms", "bytes", "flops", "r_ms",
@@ -1825,6 +2224,7 @@ def main() -> int:
         f"{tot['r_plain_ms']:.4f} ms, bound {tot['r_bound_ms']:.4f} ms [{card}]")
     report["timing_total"] = tot
 
+    phase_done(4)
     # 5. the corr backward on the card: grads through the kernel's Function
     #    against autograd through its plain version, at the six VIGOR scales
     report["corr_bwd"] = []
@@ -1843,6 +2243,7 @@ def main() -> int:
         if not ok:
             return 1
 
+    phase_done(5)
     # 6. B2 and B3 against their plain versions: the four VIGOR calls, a
     #    ragged no-skip Cout-1 case (Hc, Wc not multiples of any tile) and
     #    large biases (the border must be zero padding, not deconv(0)+bias)
@@ -1912,6 +2313,7 @@ def main() -> int:
     lmu_fwd_err = max(r["fwd_max_abs"] for r in report["lmu_checks"][:4])
     lmu_bwd_err = max(r["bwd_max_abs"] for r in report["lmu_checks"][:4])
 
+    phase_done(6)
     # 7. B2 and B3 times at the VIGOR shapes
     report["lmu_timing"] = []
     lmu_tot = {}
@@ -1924,22 +2326,26 @@ def main() -> int:
         log(f"time lmu {shape[0]:18s}: fwd kernel {row['fwd_ms']:.3f} ms (at T 8: "
             f"{row['fwd_t8_ms']:.3f}), plain "
             f"{row['fwd_plain_ms']:.3f}, cuDNN chain {row['fwd_chain_ms']:.3f}, bound "
-            f"{row['fwd_bound_ms']:.3f} ({row['fwd_bound_by']}, {row['fwd_flops'] / 1e9:.1f} GFLOP), "
+            f"{row['fwd_bound_ms']:.3f} ({row['fwd_bound_by']}, {row['fwd_flops'] / 1e9:.1f} GFLOP "
+            f"by each conv's route), on the CUDA cores {row['fwd_f32_bound_ms']:.3f}, "
             f"3xTF32 bound {row['fwd_tc_bound_ms']:.3f}, {row['fwd_mma'] / 1e6:.1f} M mma.sync "
             f"({row['fwd_mma'] * 2048 / row['fwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued); "
             f"bwd kernel {row['bwd_ms']:.3f} ms, plain {row['bwd_plain_ms']:.3f}, cuDNN chain "
             f"{row['bwd_chain_ms']:.3f}, bound {row['bwd_bound_ms']:.3f} ({row['bwd_bound_by']}, "
-            f"{row['bwd_flops'] / 1e9:.1f} GFLOP), 3xTF32 bound {row['bwd_tc_bound_ms']:.3f}, "
+            f"{row['bwd_flops'] / 1e9:.1f} GFLOP by each conv's route), on the CUDA cores "
+            f"{row['bwd_f32_bound_ms']:.3f}, 3xTF32 bound {row['bwd_tc_bound_ms']:.3f}, "
             f"{row['bwd_mma'] / 1e6:.1f} M mma.sync "
             f"({row['bwd_mma'] * 2048 / row['bwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued)")
     log(f"time lmu per step (4 + 4 launches): fwd kernel {lmu_tot['fwd_ms']:.3f} ms (at T 8: "
         f"{lmu_tot['fwd_t8_ms']:.3f}), plain "
         f"{lmu_tot['fwd_plain_ms']:.3f}, chain {lmu_tot['fwd_chain_ms']:.3f}, bound "
-        f"{lmu_tot['fwd_bound_ms']:.3f} (f32), {lmu_tot['fwd_tc_bound_ms']:.3f} (3xTF32), "
+        f"{lmu_tot['fwd_bound_ms']:.3f} (each conv's route), {lmu_tot['fwd_f32_bound_ms']:.3f} "
+        f"(CUDA cores), {lmu_tot['fwd_tc_bound_ms']:.3f} (3xTF32), "
         f"{lmu_tot['fwd_mma'] * 2048 / lmu_tot['fwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued; "
         f"bwd kernel {lmu_tot['bwd_ms']:.3f} ms, plain "
         f"{lmu_tot['bwd_plain_ms']:.3f}, chain {lmu_tot['bwd_chain_ms']:.3f}, bound "
-        f"{lmu_tot['bwd_bound_ms']:.3f} (f32), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32), "
+        f"{lmu_tot['bwd_bound_ms']:.3f} (each conv's route), {lmu_tot['bwd_f32_bound_ms']:.3f} "
+        f"(CUDA cores), {lmu_tot['bwd_tc_bound_ms']:.3f} (3xTF32), "
         f"{lmu_tot['bwd_mma'] * 2048 / lmu_tot['bwd_ms'] / 1e9:.1f} TF32 TFLOP/s issued [{card}]")
     # B3 by phase, from the timed library
     report["lmu_bwd_phases"] = []
@@ -1967,6 +2373,7 @@ def main() -> int:
     zero_launch_counts()
     lmu_cuda.mma_probe.launches = 0
 
+    phase_done(7)
     # 8. the serving path at full width
     gen_cpu = torch.Generator().manual_seed(17)
     state_dict = random_init_(CVM(vigor).to_empty(device="cpu"), gen_cpu).state_dict()
@@ -2041,21 +2448,25 @@ def main() -> int:
                                      "one serving batch", card, p50 * 1e3)
     report["tf32_forward"] = tf32_cost(model, g, s, card)
 
+    phase_done(8)
     # 9. the training slice at full width
     train_launches = run_training(card, report, lmu_shapes)
     if train_launches is None:
         return 1
 
+    phase_done(9)
     # 10. the evaluation path at full width
     eval_launches = run_eval(card, report)
     if eval_launches is None:
         return 1
 
+    phase_done(10)
     # 11. the driver at full width, in a child process
     driver = run_driver_child(card, report, report["train"]["p50_step_ms"])
     if driver is None:
         return 1
 
+    phase_done(11)
     # 12. bench.py's mixed-precision configuration at full width, in a child
     res = run_child("--bench-config", "chip_smoke_bench.json", BENCH_TIMEOUT_S)
     if res is None:
@@ -2067,10 +2478,36 @@ def main() -> int:
     bench8 = bench["steps"]["bf16 batch 8"]
     bt = bench["bf16_timing_total"]
 
+    phase_done(12)
+    # 13. the rest of ModelConfig at full width, in a child: the bf16 B2/B3,
+    #     edgefix, phase space
+    res = run_child("--model-options", "chip_smoke_options.json", OPTIONS_TIMEOUT_S)
+    if res is None:
+        return 1
+    opts = report["model_options"] = res[1]["model_options"]
+    opts["child_wall_s"] = res[0]
+    log(f"model options: child process wall {res[0]:.2f} s, {opts['seconds']:.2f} s of checks "
+        f"and runs [{card}]")
+    fused8 = opts["fused_bf16"]["batch 8"]
+    for b in BENCH_BATCHES:
+        f, u = opts["fused_bf16"][f"batch {b}"], bench["steps"][f"bf16 batch {b}"]
+        log(f"bench.py config batch {b}, bf16 B2/B3 from 256 px beside phase 12's unfused step: "
+            f"p50 {f['p50_step_ms']:.2f} vs {u['p50_step_ms']:.2f} ms, {f['pairs_per_s']:.2f} vs "
+            f"{u['pairs_per_s']:.2f} pairs/s, peak memory {f['peak_bytes'] / 2 ** 30:.2f} vs "
+            f"{u['peak_bytes'] / 2 ** 30:.2f} GiB [{card}]")
+    f32_loss = bench["steps"]["f32 batch 8"]["first"]["loss"]
+    rel = abs(fused8["first"]["loss"] - f32_loss) / abs(f32_loss)
+    opts["fused_bf16"]["loss_rel_to_f32"] = rel
+    log(f"bench.py config + lmu_fused_min_res=256 batch 8: first loss {fused8['first']['loss']:.6g} "
+        f"against phase 12's float32 step's {f32_loss:.6g}: rel {rel:.3g} (rtol {BF16_LOSS_RTOL}) "
+        f"{'ok' if rel <= BF16_LOSS_RTOL else 'FAIL'}")
+    if rel > BF16_LOSS_RTOL:
+        return 1
+    bft = opts["lmu_bf16_timing_total"]
+
     def by(key):
-        t_b = lmu_tot[f"{key}_bytes"] / HBM_BYTES_PER_S
-        t_o = lmu_tot[f"{key}_flops"] / FP32_FLOPS_PER_S
-        return "bytes" if t_b >= t_o else "operations"
+        t_b = lmu_tot[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
+        return "bytes" if t_b >= lmu_tot[f"{key}_ops_ms"] else "operations"
 
     kernels = [{
         "name": "corr_fwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/corr.cu",
@@ -2101,6 +2538,7 @@ def main() -> int:
         "ms": lmu_tot["fwd_ms"], "plain_ms": lmu_tot["fwd_plain_ms"],
         "bound_ms": lmu_tot["fwd_bound_ms"], "bound_by": by("fwd"),
         "library_ms": lmu_tot["fwd_chain_ms"], "tc_bound_ms": lmu_tot["fwd_tc_bound_ms"],
+        "fma_bound_ms": lmu_tot["fwd_f32_bound_ms"],
         "driver_launches": driver["fit_launches"]["lmu_fwd"],
     }, {
         "name": "lmu_bwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
@@ -2109,8 +2547,22 @@ def main() -> int:
         "ms": lmu_tot["bwd_ms"], "plain_ms": lmu_tot["bwd_plain_ms"],
         "bound_ms": lmu_tot["bwd_bound_ms"], "bound_by": by("bwd"),
         "library_ms": lmu_tot["bwd_chain_ms"], "tc_bound_ms": lmu_tot["bwd_tc_bound_ms"],
+        "fma_bound_ms": lmu_tot["bwd_f32_bound_ms"],
         "driver_launches": driver["fit_launches"]["lmu_bwd"],
-    }]
+    }] + [{
+        # B2 and B3 on bf16 activations (phase 13): launches from the bf16
+        # fused train step at batch 8 (and a predict batch's), times at the
+        # four VIGOR calls beside the float32 kernel and the bf16 cuDNN chain
+        "name": f"lmu_{key}_bf16", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
+        "replaces": f"ccvpe_tpu/ops/lmu_pallas.py:{line}",
+        "launches": fused8["launches"][f"lmu_{key}_bf16"],
+        "max_abs_err": opts[f"lmu_bf16_{key}_max_abs"],
+        "ms": bft[f"{key}_ms"], "plain_ms": bft[f"{key}_plain_ms"],
+        "bound_ms": bft[f"{key}_bound_ms"], "bound_by": bft[f"{key}_bound_by"],
+        "library_ms": bft[f"{key}_chain_ms"], "f32_ms": bft[f"{key}_f32_ms"],
+        "route_ms": bft[f"{key}_route_ms"],
+        "eval_launches": opts["fused_bf16"]["predict"]["launches"][f"lmu_{key}_bf16"],
+    } for key, line in (("fwd", 264), ("bwd", 404))]
     # the LMU kernels' tensor-core primitive alone (its entry "checks" names
     # the weight gradients it was first added for), on no path of the
     # model, so it stands beside the kernels and not among them
@@ -2123,6 +2575,8 @@ def main() -> int:
     }]
     report["kernels"] = kernels
     report["probes"] = probes
+    phase_done(13)
+    log("phase wall seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in report["phase_s"].items()))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2138,4 +2592,6 @@ if __name__ == "__main__":
         sys.exit(driver_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--bench-config":
         sys.exit(bench_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--model-options":
+        sys.exit(options_main(sys.argv[2]))
     sys.exit(main())

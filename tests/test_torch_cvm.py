@@ -110,12 +110,7 @@ def test_ori_prior_returns_full_bottleneck_stack():
 
 # (test id, ModelConfig overrides, the field the message names)
 UNPORTED = [("spatial_axis", {"spatial_axis": "model"}, "spatial_axis"),
-            ("ori_axis", {"ori_axis": "model"}, "ori_axis"),
-            ("phase_space_min_res", {"phase_space_min_res": 256}, "phase_space_min_res"),
-            ("circular_impl", {"circular_impl": "edgefix"}, "circular_impl"),
-            # the fused LMU kernels take float32 only
-            ("bf16_with_lmu_fused", {"compute_dtype": "bfloat16", "lmu_fused_min_res": 256},
-             "compute_dtype")]
+            ("ori_axis", {"ori_axis": "model"}, "ori_axis")]
 
 
 @pytest.mark.parametrize("over,field", [u[1:] for u in UNPORTED], ids=[u[0] for u in UNPORTED])
@@ -132,10 +127,29 @@ def test_bad_corr_impl_raises():
 
 @pytest.mark.parametrize("field,value", [("deconv_impl", "pallas"), ("remat_policy", "save_all"),
                                          ("compute_dtype", "float16"), ("ori_window", 156),
-                                         ("ori_window", 162), ("ori_window", 260)])
+                                         ("ori_window", 162), ("ori_window", 260),
+                                         ("circular_impl", "roll")])
 def test_bad_option_values_raise(field, value):
     with pytest.raises(ValueError, match=field):
         check_supported(dataclasses.replace(tcfg.tiny(sat=256), **{field: value}))
+
+
+def test_phase_space_and_fused_stages_are_exclusive():
+    """The JAX package asserts it (models/cvm.py:126-128); the port raises."""
+    cfg = dataclasses.replace(tcfg.tiny(), phase_space_min_res=32, lmu_fused_min_res=32)
+    with pytest.raises(ValueError, match="phase_space_min_res and lmu_fused_min_res"):
+        CVM(cfg)
+
+
+@pytest.mark.parametrize("over", [dict(compute_dtype="bfloat16", lmu_fused_min_res=256),
+                                  dict(circular_impl="edgefix"), dict(phase_space_min_res=256)],
+                         ids=["bf16_fused", "edgefix", "phase_space"])
+def test_the_rest_of_model_config_is_accepted(over):
+    """Every ModelConfig option the JAX package runs on one device builds,
+    with the reference's state-dict names."""
+    model = CVM(dataclasses.replace(tcfg.vigor(), **over))
+    assert set(model.state_dict()) == set(CVM(tcfg.vigor()).state_dict())
+    assert model.grd_efficientnet._conv_stem.edgefix == (over.get("circular_impl") == "edgefix")
 
 
 @pytest.mark.parametrize("policy", ["none", "save_dw"])

@@ -254,9 +254,9 @@ def test_bwd_rules_match_the_kernel_source():
     assert "if (bwd_tensor_core(d.c1, d.cout))" in body
     assert "bwd_tensor_core(c, d.c1)" in body
     assert "if (bwd_tensor_core(cin, cd))" in body
-    assert "bwd_conv_tc<9, kBwdMTiles>(s_dy, d.cout, hps, hs, 1, SquareTaps<3>{hs}" in body
-    assert "bwd_conv_tc<9, kBwdMTiles>(s_da, d.c1, gps, gs, 1, SquareTaps<3>{gs}" in body
-    assert "bwd_conv_tc<4, kBwdMTiles>(s_dh, cd, dps, t, 2, phase," in body
+    assert "bwd_conv_tc<9, kBwdMTiles, kOne>(s_dy, d.cout, hps, hs, 1, SquareTaps<3>{hs}" in body
+    assert "bwd_conv_tc<9, kBwdMTiles, kOne>(s_da, d.c1, gps, gs, 1, SquareTaps<3>{gs}" in body
+    assert "bwd_conv_tc<4, kBwdMTiles, kOne>(s_dh, cd, dps, t, 2, phase," in body
     assert "return (ph / 2) * t + ph % 2;" in body
 
 
