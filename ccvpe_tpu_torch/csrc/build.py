@@ -25,10 +25,12 @@ from typing import List, Sequence
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "_build"
-KERNELS = ("corr", "lmu")
-# every library the port loads: each kernel, and lmu.cu's bf16 instantiations
-# (ops/lmu_cuda.py::BF16_BUILD)
-LIBRARIES = (("corr", ()), ("lmu", ()), ("lmu", ("CCVPE_LMU_BF16",)))
+# corr: B1; lmu: B2 and B3 on float32 activations; lmu_bf16: on bf16 ones
+KERNELS = ("corr", "lmu", "lmu_bf16")
+# every library the port loads
+LIBRARIES = tuple((name, ()) for name in KERNELS)
+# B3's per-phase timed builds (ops/lmu_cuda.py::bwd_phase_cycles), on no path
+TIMED_LIBRARIES = (("lmu", ("CCVPE_LMU_PHASE_TIMER",)), ("lmu_bf16", ("CCVPE_LMU_PHASE_TIMER",)))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -96,6 +98,9 @@ def build(name: str, defines: Sequence[str] = ()) -> Built:
 
 
 if __name__ == "__main__":
-    for kernel, defines in LIBRARIES:
-        b = build(kernel, defines)
-        print(f"{kernel} {' '.join(defines)}: {b.path} ({b.seconds:.1f} s)\n{b.log}")
+    import concurrent.futures
+    # every library, and each per-phase timed build of B3, one nvcc each, all at once
+    jobs = LIBRARIES + TIMED_LIBRARIES
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for (kernel, defines), b in zip(jobs, pool.map(lambda job: build(*job), jobs)):
+            print(f"{kernel} {' '.join(defines)}: {b.path} ({b.seconds:.1f} s)\n{b.log}")

@@ -10,9 +10,9 @@
 //   y = conv3x3(g, w2) + b2
 //
 // x [B,Hc,Wc,Cin], skip [B,2Hc,2Wc,Cs] or none, y [B,2Hc,2Wc,Cout], all
-// NHWC and contiguous; y is float32, x and skip (and the backward's dy, dx
-// and dskip) float32 or, under compute_dtype='bfloat16', bf16 (see "bf16
-// stages" below). Weights in the kernel's layouts, made by the
+// NHWC, contiguous and float32, as are the backward's dy, dx and dskip
+// (the stage on bf16 activations is csrc/lmu_bf16.cu; see "The activations'
+// type" below). Weights in the kernel's layouts, made by the
 // wrapper (ops/lmu_cuda.py) from torch's: wd [4][Cin][Cd] (phase di*2+dj),
 // w1 [9][Cd+Cs][C1], w2 [9][C1][Cout] (tap ky*3+kx); the backward also
 // takes the flipped-transposed w2T [9][Cout][C1], w1T [9][C1][Cd+Cs] and
@@ -90,26 +90,13 @@
 // same bits. dx and dskip are owned by one tile each (the deconv has no
 // overlap), so no two blocks write the same element.
 //
-// bf16 stages (the TPU kernels take the activations' type, lmu_pallas.py
-// :332, :527): x, skip and dy are bf16 in device memory and widened to
-// float32 as they are copied into shared memory (by a plain load and store:
-// cp.async copies bytes and cannot widen), so every shared-memory layout,
-// plan and tile choice is the float32 kernels'. The wrapper rounds the
-// weights to bf16; biases stay float32. Where the TPU kernel rounds to bf16
-// the kernels round too, to nearest even: h = deconv + bd (:251), conv_a +
-// b1 before the ReLU (:192), da after the mask (:465), dh for dx and dwd
-// (:483-487; dbd sums it unrounded, :488), dskip and dx as they are stored
-// (:491-492). y and the weight and bias gradients stay float32. So every
-// product operand is a bf16 value, its own TF32 hi: the tensor-core convs
-// and weight gradients issue one TF32 product where float32 takes three
-// (mma_3xtf32_step's kOne), exact, with float32 sums as before. The bf16
-// instantiations are a library of their own, this source built with
-// -DCCVPE_LMU_BF16 (its entries carry a _bf16 suffix), so that the two
-// compile side by side.
-
-#if defined(CCVPE_LMU_BF16) && defined(CCVPE_LMU_PHASE_TIMER)
-#error "the phase timer times the float32 backward only"
-#endif
+// The activations' type E: the kernels are templates on it, and their
+// branches for bf16 (act_round, load_planes' widening, mma_3xtf32_step's
+// kOne) remain, though only float is instantiated: B2 and B3 on bf16
+// activations are csrc/lmu_bf16.cu, built on bf16 planes and products.
+// Taking those branches out changed how ptxas allocates the float32
+// lmu_bwd_kernel's registers at T = 8 (its spills grew from 132/244 to
+// 136/252 bytes stored/loaded), so they stay and the float32 SASS stays.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1338,7 +1325,6 @@ int lmu_bwd(const void* x, const void* skip, const void* dy, const void* wd, con
 
 }  // namespace
 
-#ifndef CCVPE_LMU_BF16
 // Forward: y = the stage of x (and skip, null when cs = 0). With t = 0,
 // picks the largest fine tile T in {16, 8, 4} whose shared memory fits
 // (ops/lmu_cuda.py::fwd_tile mirrors the rule); t in {16, 8, 4} forces
@@ -1381,36 +1367,6 @@ extern "C" int ccvpe_lmu_bwd(const void* x, const void* skip, const void* dy, co
   return lmu_bwd<float>(x, skip, dy, wd, bd, w1, b1, w2t, w1t, wdt, dx, dskip, part, sums, b, hc,
                         wc, cin, cs, cd, c1, cout, t, mode, ahead, nblk, stream);
 }
-
-#else
-// The same three entries for bf16 activations (x, skip, dy, dx, dskip bf16;
-// weights bf16 values in float32 operands; y and the sums float32), in the
-// build with -DCCVPE_LMU_BF16.
-extern "C" int ccvpe_lmu_fwd_bf16(const void* x, const void* skip, const void* wd,
-                                  const void* bd, const void* w1, const void* b1, const void* w2,
-                                  const void* b2, void* y, int b, int hc, int wc, int cin, int cs,
-                                  int cd, int c1, int cout, int t_force, void* stream) {
-  return lmu_fwd<bf16>(x, skip, wd, bd, w1, b1, w2, b2, y, b, hc, wc, cin, cs, cd, c1, cout,
-                       t_force, stream);
-}
-
-extern "C" int ccvpe_lmu_bwd_plan_bf16(int b, int hc, int wc, int cin, int cs, int cd, int c1,
-                                       int cout, int* t_out, int* mode_out, int* ahead_out,
-                                       int* nblk, int* part_floats) {
-  return lmu_bwd_plan<bf16>(b, hc, wc, cin, cs, cd, c1, cout, t_out, mode_out, ahead_out, nblk,
-                            part_floats);
-}
-
-extern "C" int ccvpe_lmu_bwd_bf16(const void* x, const void* skip, const void* dy, const void* wd,
-                                  const void* bd, const void* w1, const void* b1, const void* w2t,
-                                  const void* w1t, const void* wdt, void* dx, void* dskip,
-                                  void* part, void* sums, int b, int hc, int wc, int cin, int cs,
-                                  int cd, int c1, int cout, int t, int mode, int ahead, int nblk,
-                                  void* stream) {
-  return lmu_bwd<bf16>(x, skip, dy, wd, bd, w1, b1, w2t, w1t, wdt, dx, dskip, part, sums, b, hc,
-                       wc, cin, cs, cd, c1, cout, t, mode, ahead, nblk, stream);
-}
-#endif
 
 #ifdef CCVPE_LMU_PHASE_TIMER
 // The timed build only: where the backward's blocks write their phase

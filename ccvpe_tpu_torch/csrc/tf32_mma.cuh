@@ -1,8 +1,9 @@
-// Primitives shared by the port's kernels (lmu.cu, corr.cu), for sm_90a:
-// asynchronous copies into shared memory (cp.async) and the 3xTF32
-// tensor-core product on the warp-level mma.sync.m16n8k8 TF32 tile.
-// csrc/build.py hashes every csrc/*.cuh with each source, so a change here
-// rebuilds both libraries.
+// Primitives shared by the port's kernels (lmu.cu, lmu_bf16.cu, corr.cu),
+// for sm_90a: asynchronous copies into shared memory (cp.async), the 3xTF32
+// tensor-core product on the warp-level mma.sync.m16n8k8 TF32 tile, and the
+// bf16 product on mma.sync.m16n8k16 with its ldmatrix loads. csrc/build.py
+// hashes every csrc/*.cuh with each source, so a change here rebuilds every
+// library.
 
 #pragma once
 
@@ -161,6 +162,82 @@ __device__ void mma_3xtf32(A a, B b, int m0, int n0, int M, int N, int K, float 
 __device__ inline int2 mma_entry(int j, int m0, int n0) {
   const int lane = threadIdx.x % 32;
   return make_int2(m0 + lane / 4 + (j / 2) * 8, n0 + 2 * (lane % 4) + j % 2);
+}
+
+// --- the bf16 product (lmu_bf16.cu) ---------------------------------------
+// One warp: D (16 x 8, float32) += A (16 x 16, bf16) B (16 x 8, bf16). Lane
+// l holds, with g = l / 4 and q = l % 4 (PTX ISA, "Matrix fragments for
+// mma.m16n8k16" with .bf16), two bf16 values a register, the lower one
+// first: A (m, k) at a[0] (g, 2q..2q+1), a[1] (g+8, 2q..2q+1), a[2]
+// (g, 2q+8..2q+9), a[3] (g+8, 2q+8..2q+9); B (k, n) at b[0] (2q..2q+1, g),
+// b[1] (2q+8..2q+9, g); D as the m16n8k8 tile's: d[0] (g, 2q), d[1] (g, 2q+1),
+// d[2] (g+8, 2q), d[3] (g+8, 2q+1). Each product of two bf16 values is
+// exact in float32; the sixteen of a k-step and the accumulator are summed
+// by the tensor core in an order of its own, the same for every call.
+__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix: four (x4) or two (x2) 8 x 8 matrices of 16-bit values from
+// shared memory. Lane i gives the address of row i % 8 of matrix i / 8 (x2:
+// lanes 0-15 only), 16 contiguous bytes, 16-byte aligned; register j of lane
+// l receives matrix j's row l / 4, columns 2(l % 4) and 2(l % 4) + 1. With
+// .trans the matrix arrives transposed: register j receives matrix j's
+// rows 2(l % 4) and 2(l % 4) + 1 at column l / 4.
+//
+// So for A [16 x 16] stored row by row (a pixel's channels contiguous, M =
+// pixels, K = channels), lane i points at row i % 16, column 8 (i / 16): x4
+// gives a[0..3] above. For A stored column by column (M = channels, K =
+// pixels: the weight gradients), lane i points at stored row (pixel)
+// 8 (i / 16) + i % 8, column (channel) 8 ((i / 8) % 2): x4.trans gives
+// a[0..3]. For B [16 x 8] stored row by row (a row of K holds N contiguous:
+// the weights [tap][K][N], or dy's pixel rows in the weight gradients), lane
+// i points at row i % 16, column 8 (i / 16): x4.trans gives b[0..1] of two
+// neighbouring n-tiles (registers 0, 1 the first, 2, 3 the second), x2.trans
+// b[0..1] of one.
+__device__ inline void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ inline void ldsm_x4_trans(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ inline void ldsm_x2_trans(uint32_t (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// B fragments of nt <= MAXNT neighbouring n-tiles: b[j] from the rows this
+// lane points at (row_addr: row i % 16 of the K step, column n0), n-tile j at
+// row_addr + 16 j bytes (8 bf16 columns on). Pairs by x4.trans, an odd last
+// tile by x2.trans (which reads lanes 0-15's addresses only); b[j] for j >=
+// nt is left as it is. nt is the same for the whole warp.
+template <int MAXNT>
+__device__ __forceinline__ void load_b_frags(uint32_t (&b)[MAXNT][2], int nt, unsigned row_addr) {
+  const unsigned half = (threadIdx.x % 32 / 16) * 16;   // lanes 16-31: the pair's second tile
+#pragma unroll
+  for (int j = 0; j < MAXNT; j += 2) {
+    if (j + 1 < nt) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, row_addr + 16 * j + half);
+      b[j][0] = r[0];
+      b[j][1] = r[1];
+      b[j + 1][0] = r[2];
+      b[j + 1][1] = r[3];
+    } else if (j < nt) {
+      ldsm_x2_trans(b[j], row_addr + 16 * j);
+    }
+  }
 }
 
 }  // namespace

@@ -1,34 +1,35 @@
-"""The fused LMU decoder stage on Hopper: the wrappers of csrc/lmu.cu, the
-port of the Pallas kernels ccvpe_tpu/ops/lmu_pallas.py::_fused_stage_kernel
-(:264, forward) and ::_fused_stage_bwd_kernel (:404, backward), and
-`FusedStage`, the counterpart of the jax.custom_vjp fused_stage_diff
-(:685-726): it saves only the inputs, and its backward is the backward
-kernel, which recomputes h and g on chip.
+"""The fused LMU decoder stage on Hopper: the wrappers of csrc/lmu.cu
+(float32 activations) and csrc/lmu_bf16.cu (bf16 activations), the port of
+the Pallas kernels ccvpe_tpu/ops/lmu_pallas.py::_fused_stage_kernel (:264,
+forward) and ::_fused_stage_bwd_kernel (:404, backward), and `FusedStage`,
+the counterpart of the jax.custom_vjp fused_stage_diff (:685-726): it saves
+only the inputs, and its backward is the backward kernel, which recomputes
+h and g on chip.
 
 `fused_stage` and `fused_stage_bwd` launch the kernels on CUDA tensors
-(counting launches) and run the plain versions of ops/lmu.py on CPU
-tensors. `fused_stage_split_plain` emulates B2's arithmetic (its convs
-as 3xTF32 products where the kernel takes the tensor cores), and
-`fwd_tile`, `tensor_core_conv`, `conv_tiles`, `conv_items` and
-`fwd_mma_count` mirror its launch rules; `fused_stage_bwd_split_plain`
-emulates B3's, and `bwd_tensor_core_conv`, `bwd_conv_tiles`,
-`bwd_conv_items` and `bwd_mma_count` mirror the rules of its own convs.
-`mma_probe` runs the kernels' 3xTF32 tensor-core primitive alone on one
-matrix product, for checking it against float64 (its plain version is
-ops/tf32.py::matmul_3xtf32_plain);
-`mma_rate` measures the card's rate of its mma.sync. `bwd_phase_cycles`
-runs the backward built with its per-phase timer (csrc/lmu.cu,
--DCCVPE_LMU_PHASE_TIMER, a library of its own) and returns the cycles
-each block spent in each of BWD_PHASES; the main path never loads that
-library. Shapes and layouts as
+(counting launches, bf16 ones apart in `bf16_launches`) and run the plain
+versions of ops/lmu.py on CPU tensors. `fused_stage_split_plain` emulates
+the float32 B2's arithmetic (its convs as 3xTF32 products where the kernel
+takes the tensor cores), and `fwd_tile`, `tensor_core_conv`, `conv_tiles`,
+`conv_items` and `fwd_mma_count` mirror its launch rules;
+`fused_stage_bwd_split_plain` emulates B3's, and `bwd_tensor_core_conv`,
+`bwd_conv_tiles`, `bwd_conv_items` and `bwd_mma_count` mirror the rules of
+its own convs. `fused_stage_bf16_split_plain` and
+`fused_stage_bwd_bf16_split_plain` emulate the bf16 kernels' (every conv on
+bf16 tensor-core products, K in their order), and `pix_stride`, `n_group`,
+`bf16_fwd_tile`, `bf16_bwd_tile` and the `*_smem_bytes` functions mirror
+their layouts and plans. `mma_probe` runs one of the kernels' tensor-core
+primitives alone on one matrix product (its plain versions:
+ops/tf32.py::matmul_3xtf32_plain, and a float32 product of bf16 values);
+`mma_rate` measures the card's rate of their mma.sync. `bwd_phase_cycles`
+runs a backward built with its per-phase timer (-DCCVPE_LMU_PHASE_TIMER, a
+library of its own) and returns the cycles each block spent in each of
+BWD_PHASES; the main path never loads that library. Shapes and layouts as
 in ops/lmu.py: NHWC activations, float32 or bf16 (the TPU kernels' bf16
-policy, ops/lmu.py; the bf16 kernels are the same source's bf16
-instantiations, counted apart in `bf16_launches`), contiguous (the NHWC
-view of a channels_last NCHW tensor is), torch weight layouts, which the
-wrappers turn into the kernel's. Nothing touches nvcc or the card until a
-CUDA tensor arrives.
+policy, ops/lmu.py), contiguous (the NHWC view of a channels_last NCHW
+tensor is), torch weight layouts, which the wrappers turn into the
+kernels'. Nothing touches nvcc or the card until a CUDA tensor arrives.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -47,7 +48,7 @@ from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
 BWD_PHASES = ("planes + wd", "deconv", "w1 load", "conv_a", "w2T load", "da",
               "dw2 db2 dw1 db1", "w1T load", "dh|dskip", "wdT load", "dx", "dwd dbd")
 PHASE_TIMER = "CCVPE_LMU_PHASE_TIMER"
-BF16_BUILD = "CCVPE_LMU_BF16"
+BF16_SOURCE = "lmu_bf16"     # csrc/lmu_bf16.cu, the kernels on bf16 activations
 # Where the backward keeps its weight operands (csrc/lmu.cu::WeightMode).
 WEIGHT_MODES = ("one buffer", "two buffers", "resident")
 
@@ -69,13 +70,16 @@ def _bind(path) -> ctypes.CDLL:
 
 
 def _bind_bf16(path) -> ctypes.CDLL:
-    """The bf16 build's entries: the float32 ones' arguments, _bf16 names."""
+    """csrc/lmu_bf16.cu's entries: the float32 ones' arguments, _bf16 names."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ccvpe_lmu_fwd_bf16.argtypes = [p] * 9 + [i] * 9 + [p]
     lib.ccvpe_lmu_bwd_plan_bf16.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 5
     lib.ccvpe_lmu_bwd_bf16.argtypes = [p] * 14 + [i] * 12 + [p]
-    for name in ("ccvpe_lmu_fwd_bf16", "ccvpe_lmu_bwd_plan_bf16", "ccvpe_lmu_bwd_bf16"):
+    lib.ccvpe_mma_probe_bf16.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.ccvpe_mma_rate_bf16.argtypes = [i] * 2 + [p] * 3
+    for name in ("ccvpe_lmu_fwd_bf16", "ccvpe_lmu_bwd_plan_bf16", "ccvpe_lmu_bwd_bf16",
+                 "ccvpe_mma_probe_bf16", "ccvpe_mma_rate_bf16"):
         getattr(lib, name).restype = i
     return lib
 
@@ -94,10 +98,9 @@ def load_library() -> ctypes.CDLL:
 
 @functools.cache
 def load_bf16_library() -> ctypes.CDLL:
-    """csrc/lmu.cu built with -DCCVPE_LMU_BF16 (the kernels' bf16
-    instantiations, a library of their own) at first use."""
+    """Build csrc/lmu_bf16.cu (the bf16 kernels) at first use."""
     from ccvpe_tpu_torch.csrc.build import build
-    return _bind_bf16(build("lmu", (BF16_BUILD,)).path)
+    return _bind_bf16(build(BF16_SOURCE).path)
 
 
 def _library(bf16: bool) -> ctypes.CDLL:
@@ -111,9 +114,16 @@ def load_timed_library() -> ctypes.CDLL:
     return _bind_timed(build("lmu", (PHASE_TIMER,)).path)
 
 
-def _bind_timed(path) -> ctypes.CDLL:
-    """_bind, and the timed build's entries."""
-    lib = _bind(path)
+@functools.cache
+def load_timed_bf16_library() -> ctypes.CDLL:
+    """The bf16 kernels built with the backward's per-phase timer."""
+    from ccvpe_tpu_torch.csrc.build import build
+    return _bind_timed(build(BF16_SOURCE, (PHASE_TIMER,)).path, bf16=True)
+
+
+def _bind_timed(path, bf16: bool = False) -> ctypes.CDLL:
+    """_bind (bf16: _bind_bf16), and the timed build's entries."""
+    lib = (_bind_bf16 if bf16 else _bind)(path)
     lib.ccvpe_lmu_bwd_phase_buffer.argtypes = [ctypes.c_void_p] * 2
     lib.ccvpe_lmu_bwd_phase_buffer.restype = ctypes.c_int
     lib.ccvpe_lmu_bwd_phases.restype = ctypes.c_int
@@ -336,27 +346,29 @@ def _padded(t: torch.Tensor) -> torch.Tensor:
     return F.pad(t, (0, pad_co(t.shape[-1]) - t.shape[-1])).contiguous()
 
 
-def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, bf16: bool = False):
-    """torch layouts -> the kernel's operands (phase di*2+dj, tap ky*3+kx):
-    wd [4][Cin][Cd], w1 [9][C][C1], w2 [9][C1][Cout] and, for the backward,
-    the flipped-transposed w2T [9][Cout][C1] and w1T [9][C1][C] of the
-    transposed convs and wdT [4][Cd][Cin] of dx (the TPU kernel's _flipT),
-    each with its last dimension padded with zeros to pad_co columns, so
-    that the kernels copy an operand as one flat run of 16-byte transfers.
-    float32 always; with bf16, each value rounded to bf16 first."""
-    wd, w1, w2 = wd.detach(), w1.detach(), w2.detach()
-    if bf16:
-        wd, w1, w2 = round_bf16(wd), round_bf16(w1), round_bf16(w2)
+def kernel_weights(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """torch layouts -> the float32 kernels' operands (phase di*2+dj, tap
+    ky*3+kx): wd [4][Cin][Cd], w1 [9][C][C1], w2 [9][C1][Cout] and, for the
+    backward, the flipped-transposed w2T [9][Cout][C1] and w1T [9][C1][C] of
+    the transposed convs and wdT [4][Cd][Cin] of dx (the TPU kernel's
+    _flipT), each with its last dimension padded with zeros to pad_co
+    columns, so that the kernels copy an operand as one flat run of 16-byte
+    transfers."""
+    return tuple(_padded(t) for t in kernel_weights_unpadded(wd, w1, w2))
+
+
+def kernel_weights_unpadded(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """kernel_weights' six operands in float32, [tap][K][N], unpadded."""
+    wd, w1, w2 = wd.detach().float(), w1.detach().float(), w2.detach().float()
     cin, cd = wd.shape[:2]
     c1, c = w1.shape[:2]
     cout = w2.shape[0]
-    return tuple(_padded(t) for t in (
-        wd.permute(2, 3, 0, 1).reshape(4, cin, cd),
-        w1.permute(2, 3, 1, 0).reshape(9, c, c1),
-        w2.permute(2, 3, 1, 0).reshape(9, c1, cout),
-        w2.flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, c1),
-        w1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, c1, c),
-        wd.permute(2, 3, 1, 0).reshape(4, cd, cin)))
+    return (wd.permute(2, 3, 0, 1).reshape(4, cin, cd),
+            w1.permute(2, 3, 1, 0).reshape(9, c, c1),
+            w2.permute(2, 3, 1, 0).reshape(9, c1, cout),
+            w2.flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, c1),
+            w1.flip(2, 3).permute(2, 3, 0, 1).reshape(9, c1, c),
+            wd.permute(2, 3, 1, 0).reshape(4, cd, cin))
 
 
 def _product(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
@@ -382,15 +394,6 @@ def _conv3x3_split(inp: torch.Tensor, w: torch.Tensor, tensor_cores: bool) -> to
     return _product(_im2col3x3(inp), wmat, tensor_cores).reshape(b, h, wd_, w.shape[0])
 
 
-def _policy(x: torch.Tensor, wd, w1, w2):
-    """(rounding, weights as float32): round_bf16 and the rounded weights
-    for a bf16 x (ops/lmu.py's bf16 policy), else no rounding."""
-    ws = tuple(t.detach().float() for t in (wd, w1, w2))
-    if x.dtype == torch.bfloat16:
-        return round_bf16, tuple(round_bf16(t) for t in ws)
-    return (lambda t: t), ws
-
-
 def _deconv_split(x: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
     """h = deconv2x2(x) + bd, NHWC, as one product with the four phases side
     by side."""
@@ -409,14 +412,14 @@ def fused_stage_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], wd: t
     borders) through
     matmul_3xtf32_plain where tensor_core_conv takes the tensor cores, else
     in float32; biases added after each sum, the ReLU after conv_a's. Sums
-    inside a product run in the matmul's order, not the tensor cores'. A
-    bf16 x under the bf16 policy (h and conv_a + b1 rounded, as the kernel
-    rounds them). Same contract as fused_stage_plain."""
-    rnd, (wd, w1, w2) = _policy(x, wd, w1, w2)
-    h = rnd(_deconv_split(x.detach().float(), wd, bd.detach()))
+    inside a product run in the matmul's order, not the tensor cores'.
+    Same contract as fused_stage_plain, for float32 activations (the bf16
+    kernel's is fused_stage_bf16_split_plain)."""
+    wd, w1, w2 = (t.detach().float() for t in (wd, w1, w2))
+    h = _deconv_split(x.detach().float(), wd, bd.detach())
     if skip is not None:
         h = torch.cat([h, skip.detach().float()], dim=-1)
-    g = torch.relu(rnd(_conv3x3_split(h, w1, tensor_core_conv(w1.shape[0])) + b1.detach()))
+    g = torch.relu(_conv3x3_split(h, w1, tensor_core_conv(w1.shape[0])) + b1.detach())
     return _conv3x3_split(g, w2, tensor_core_conv(w2.shape[0])) + b2.detach()
 
 
@@ -432,32 +435,28 @@ def fused_stage_bwd_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], d
     where bwd_tensor_core_conv takes the tensor cores, else in float32; the
     weight gradients as products over the pixels in 3xTF32, as the kernel
     always runs them, the bias gradients as float32 sums. Sums inside a
-    product run in the matmul's order, not the tensor cores'. A bf16 x
-    under the bf16 policy, rounding where the kernel rounds (dy, h, conv_a
-    + b1, da, dh after dbd's sums, dskip and dx, which are bf16). Same
-    contract as fused_stage_bwd_plain."""
+    product run in the matmul's order, not the tensor cores'. Same contract
+    as fused_stage_bwd_plain, for float32 activations (the bf16 kernel's
+    is fused_stage_bwd_bf16_split_plain)."""
     b, hc, wc, cin = x.shape
     cd, c1, cout = wd.shape[1], w1.shape[0], w2.shape[0]
-    act = x.dtype
-    rnd, (wd, w1, w2) = _policy(x, wd, w1, w2)
-    x, dy = x.detach().float(), rnd(dy.detach().float())
-    h = rnd(_deconv_split(x, wd, bd.detach()))
+    wd, w1, w2 = (t.detach().float() for t in (wd, w1, w2))
+    x, dy = x.detach().float(), dy.detach().float()
+    h = _deconv_split(x, wd, bd.detach())
     if skip is not None:
         h = torch.cat([h, skip.detach().float()], dim=-1)
     c = h.shape[-1]
-    a = _conv3x3_split(h, w1, tensor_core_conv(c1)) + b1.detach()
-    g = torch.relu(rnd(a))
+    g = torch.relu(_conv3x3_split(h, w1, tensor_core_conv(c1)) + b1.detach())
     # the transposed convs: torch weights (C_out, C_in, 3, 3) of flipT(w)
     da = _conv3x3_split(dy, w2.flip(2, 3).transpose(0, 1), bwd_tensor_core_conv(c1, cout))
-    da = rnd(torch.where(g > 0, da, torch.zeros_like(da)))
+    da = torch.where(g > 0, da, torch.zeros_like(da))
     dhs = _conv3x3_split(da, w1.flip(2, 3).transpose(0, 1), bwd_tensor_core_conv(c, c1))
-    dh, dskip = dhs[..., :cd], (rnd(dhs[..., cd:]).to(act) if skip is not None else None)
+    dh, dskip = dhs[..., :cd], (dhs[..., cd:] if skip is not None else None)
     dbd = dh.sum((0, 1, 2))
-    dh = rnd(dh)
     phases = [dh[:, di::2, dj::2, :] for di in range(2) for dj in range(2)]
     cols = torch.cat(phases, dim=-1).reshape(-1, 4 * cd)          # K = (phase, channel)
     wdt = wd.permute(2, 3, 1, 0).reshape(4 * cd, cin)
-    dx = rnd(_product(cols, wdt, bwd_tensor_core_conv(cin, cd))).reshape(b, hc, wc, cin).to(act)
+    dx = _product(cols, wdt, bwd_tensor_core_conv(cin, cd)).reshape(b, hc, wc, cin)
 
     def wgrad(inp, out):                                          # inp^T out over pixels
         return matmul_3xtf32_plain(inp.t().contiguous(), out)
@@ -470,8 +469,230 @@ def fused_stage_bwd_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], d
             dy.sum((0, 1, 2)))
 
 
-def _check_operand(name: str, t: torch.Tensor, device) -> None:
-    _check(name, t, device)
+# --- the bf16 kernels (csrc/lmu_bf16.cu) ---------------------------------
+
+# Fine tiles of the bf16 B2 and B3, largest first; threads of B3's block;
+# m-tiles of 16 pixels in a conv item of B2 (csrc/lmu_bf16.cu's kBwdThreads,
+# kFwdMTiles).
+BF16_TILES = (16, 8, 4)
+BF16_BWD_THREADS = 512
+BF16_FWD_MTILES = 2
+
+
+def bf16_bwd_mtiles(nt: int) -> int:
+    """m-tiles of 16 pixels in one warp item of a bf16 B3 conv whose items
+    hold nt n-tiles (csrc/lmu_bf16.cu::bwd_mtiles)."""
+    return 2 if nt <= 3 else 1
+
+
+def pix_stride(c: int) -> int:
+    """bf16 values from one pixel's row to the next in a bf16 plane of c
+    channels (and from one K row to the next in a bf16 weight operand of c
+    output channels), csrc/lmu_bf16.cu::pix_stride: c rounded up to 8, and 8
+    more where that is an even number of 16-byte units, so that 8
+    neighbouring rows start in 8 distinct 16-byte bank groups."""
+    r = -(-c // 8) * 8
+    return r if r // 8 % 2 else r + 8
+
+
+def plane_size(npix: int, c: int) -> int:
+    """bf16 values of a plane of npix pixels of c channels, with its
+    16-byte tail (csrc/lmu_bf16.cu::plane_size)."""
+    return npix * pix_stride(c) + 8
+
+
+def n_group(n: int) -> int:
+    """n-tiles of 8 channels in one warp item of a bf16 conv or weight
+    gradient with n output channels (csrc/lmu_bf16.cu::n_group): all of them
+    up to 5, else the fewest groups of at most 5, evened out."""
+    tiles = -(-n // 8)
+    groups = -(-tiles // 5)
+    return -(-tiles // groups)
+
+
+def _zero_size(cin, cs, cd, c1, cout) -> int:
+    return max(pix_stride(c) for c in (cin, cd + cs, cd, c1, cout)) + 16
+
+
+def bf16_fwd_smem_bytes(cin: int, cs: int, cd: int, c1: int, cout: int, t: int) -> int:
+    """Dynamic shared memory of the bf16 B2 at fine tile t
+    (csrc/lmu_bf16.cu::fwd_layout): the zero region; h|skip planes on
+    (t+4)^2, later w2; the coarse x planes, later g on (t+2)^2; wd, later w1."""
+    c, hs, gs = cd + cs, t + 4, t + 2
+    a = max(plane_size(hs * hs, c), 9 * c1 * pix_stride(cout))
+    b = max(plane_size((hs // 2) ** 2, cin), plane_size(gs * gs, c1))
+    w = max(4 * cin * pix_stride(cd), 9 * c * pix_stride(c1))
+    return 2 * (_zero_size(cin, cs, cd, c1, cout) + a + b + w)
+
+
+def bf16_fwd_tile(cin: int, cs: int, cd: int, c1: int, cout: int,
+                  limit: int = MAX_BLOCK_SMEM) -> int:
+    """The fine tile the bf16 B2 picks (ccvpe_lmu_fwd_bf16 with t = 0): the
+    largest of BF16_TILES whose shared memory fits in `limit` bytes."""
+    for t in BF16_TILES:
+        if bf16_fwd_smem_bytes(cin, cs, cd, c1, cout, t) <= limit:
+            return t
+    raise ValueError("the stage's planes and weights fit no tile")
+
+
+def bf16_bwd_weight_sizes(cin: int, cs: int, cd: int, c1: int, cout: int) -> Tuple[int, ...]:
+    """bf16 values of the bf16 B3's weight operands wd, w1, w2T, w1T, wdT
+    ([tap][K][pix_stride(N)], csrc/lmu_bf16.cu::bwd_weight_size)."""
+    c = cd + cs
+    return (4 * cin * pix_stride(cd), 9 * c * pix_stride(c1), 9 * cout * pix_stride(c1),
+            9 * c1 * pix_stride(c), 4 * cd * pix_stride(cin))
+
+
+def bf16_bwd_smem_bytes(cin: int, cs: int, cd: int, c1: int, cout: int, t: int,
+                        weights: str = "one buffer", ahead: bool = False) -> int:
+    """Dynamic shared memory of the bf16 B3 at fine tile t with its weights
+    kept as `weights` (one of WEIGHT_MODES) and the planes copied a tile
+    ahead or not (csrc/lmu_bf16.cu::bwd_layout): the zero region; hc and dy
+    on (t+4)^2, g and da on (t+2)^2, x on ((t+4)/2)^2, dh on t^2; dbd's
+    column sums; the weights; the second dy and x planes when ahead."""
+    c, hs, gs, xs = cd + cs, t + 4, t + 2, (t + 4) // 2
+    planes = (plane_size(hs * hs, c) + plane_size(gs * gs, c1) + plane_size(hs * hs, cout)
+              + plane_size(gs * gs, c1) + plane_size(xs * xs, cin) + plane_size(t * t, cd))
+    dbd = -(-2 * -(-t * t // 16) * cd // 8) * 8
+    sizes = bf16_bwd_weight_sizes(cin, cs, cd, c1, cout)
+    w = {"resident": sum(sizes), "two buffers": 2 * max(sizes), "one buffer": max(sizes)}[weights]
+    more = plane_size(hs * hs, cout) + plane_size(xs * xs, cin) if ahead else 0
+    return 2 * (_zero_size(cin, cs, cd, c1, cout) + planes + dbd + w + more)
+
+
+def bf16_bwd_tile(cin: int, cs: int, cd: int, c1: int, cout: int,
+                  limit: int = MAX_BLOCK_SMEM) -> int:
+    """The fine tile the bf16 B3's plan picks (ccvpe_lmu_bwd_plan_bf16): the
+    largest of BF16_TILES whose planes and one weight buffer fit in `limit`
+    bytes."""
+    for t in BF16_TILES:
+        if bf16_bwd_smem_bytes(cin, cs, cd, c1, cout, t) <= limit:
+            return t
+    raise ValueError("the stage's planes and weights fit no tile")
+
+
+def kernel_weights_bf16(wd: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
+    """torch layouts -> the bf16 kernels' operands, bf16, [tap][K][
+    pix_stride(N)] with zeros past N: wd [4][Cin][Cd], w1 [9][C][C1], w2 [9][
+    C1][Cout], and for the backward w2T [9][Cout][C1], w1T [9][C1][C], wdT [4][
+    Cd][Cin] (kernel_weights' operands, each value rounded to bf16, as the
+    TPU kernel casts them)."""
+    return tuple(F.pad(t, (0, pix_stride(t.shape[-1]) - t.shape[-1])).to(torch.bfloat16)
+                 .contiguous() for t in kernel_weights_unpadded(wd, w1, w2))
+
+
+def _taps_bf16(cols, w: torch.Tensor) -> torch.Tensor:
+    """sum over taps of cols[tap] [P, K] @ w[tap] [K, N] as the bf16 kernels'
+    conv_tc sums it: tap by tap, and within a tap k-steps of 16 channels,
+    each a float32 sum of its 16 exact products, added in that order into
+    one float32 sum."""
+    acc = torch.zeros(cols[0].shape[0], w.shape[2], dtype=torch.float32, device=cols[0].device)
+    for tap, a in enumerate(cols):
+        for k0 in range(0, a.shape[1], 16):
+            acc = acc + a[:, k0:k0 + 16] @ w[tap, k0:k0 + 16]
+    return acc
+
+
+def _conv3x3_bf16(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3 of NHWC `inp` with zero padding against the operand w [9][C][N]
+    (tap ky*3 + kx), as _taps_bf16."""
+    b, h, wd_, c = inp.shape
+    pad = F.pad(inp, (0, 0, 1, 1, 1, 1))
+    cols = [pad[:, ky:ky + h, kx:kx + wd_, :].reshape(-1, c) for ky in range(3) for kx in range(3)]
+    return _taps_bf16(cols, w).reshape(b, h, wd_, w.shape[2])
+
+
+def _bf16_forward_parts(x, skip, wd, bd, w1, b1, w2):
+    """(the six operands of kernel_weights_unpadded rounded to bf16, [h |
+    skip], g) of the bf16 kernels' forward up to g."""
+    ops = tuple(round_bf16(t) for t in kernel_weights_unpadded(wd, w1, w2))
+    b, hc, wc, cin = x.shape
+    xm = x.detach().float().reshape(-1, cin)
+    h = torch.stack([_taps_bf16([xm], ops[0][ph:ph + 1]).reshape(b, hc, wc, -1)
+                     for ph in range(4)], dim=3)                  # [b, hc, wc, (di, dj), cd]
+    h = h.reshape(b, hc, wc, 2, 2, -1).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * hc, 2 * wc, -1)
+    h = round_bf16(h + bd.detach())
+    if skip is not None:
+        h = torch.cat([h, skip.detach().float()], dim=-1)
+    g = torch.relu(round_bf16(_conv3x3_bf16(h, ops[1]) + b1.detach()))
+    return ops, h, g
+
+
+def fused_stage_bf16_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
+                                 bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                                 w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """What the bf16 B2 (csrc/lmu_bf16.cu) computes, in plain torch: every
+    conv on bf16 values with K in the kernel's order (_taps_bf16: tap by
+    tap, k-steps of 16, one float32 sum), the deconv's four phases as four
+    one-tap convs; h and conv_a + b1 rounded to bf16, the ReLU after;
+    biases added after each sum. y float32 [B, 2Hc, 2Wc, Cout]."""
+    ops, _, g = _bf16_forward_parts(x, skip, wd, bd, w1, b1, w2)
+    return _conv3x3_bf16(g, ops[2]) + b2.detach()
+
+
+def fused_stage_bwd_bf16_split_plain(x: torch.Tensor, skip: Optional[torch.Tensor],
+                                     dy: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor,
+                                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                                     b2: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+    """What the bf16 B3 computes, in plain torch: h and g recomputed as
+    fused_stage_bf16_split_plain does; da = relu'(a) * conv3x3(dy, w2T),
+    [dh | dskip] = conv3x3(da, w1T) and dx (dh's four phases, the taps of a
+    one-pixel conv against wdT), each as _taps_bf16 sums them; roundings where
+    the kernel rounds (dy, da after the mask, dh after dbd's float32 sums,
+    dskip and dx as they are stored). The weight gradients as float32 sums
+    of exact products over the pixels, in the matmul's order (the kernel's
+    per-tile order is not emulated: on dyadic inputs every order gives the
+    same bits); the bias gradients as float32 sums. Same contract as
+    fused_stage_bwd_plain: dx and dskip bf16, the rest float32."""
+    b, hc, wc, cin = x.shape
+    cd, c1, cout = wd.shape[1], w1.shape[0], w2.shape[0]
+    (_, _, _, w2t, w1t, wdt), h, g = _bf16_forward_parts(x, skip, wd, bd, w1, b1, w2)
+    dy = round_bf16(dy.detach().float())
+    c = h.shape[-1]
+    da = round_bf16(torch.where(g > 0, _conv3x3_bf16(dy, w2t), torch.zeros_like(g)))
+    dhs = _conv3x3_bf16(da, w1t)
+    dh, dskip = dhs[..., :cd], (dhs[..., cd:].to(torch.bfloat16) if skip is not None else None)
+    dbd = dh.sum((0, 1, 2))
+    dh = round_bf16(dh)
+    phases = [dh[:, di::2, dj::2, :].reshape(-1, cd) for di in range(2) for dj in range(2)]
+    dx = _taps_bf16(phases, wdt).reshape(b, hc, wc, cin).to(torch.bfloat16)
+
+    def wgrad(inp, out):                                          # inp^T out over pixels
+        return inp.t() @ out
+
+    pad = F.pad(g, (0, 0, 1, 1, 1, 1))
+    hp = F.pad(h, (0, 0, 1, 1, 1, 1))
+    h2, w2_ = 2 * hc, 2 * wc
+    dym, dam = dy.reshape(-1, cout), da.reshape(-1, c1)
+    dw2 = torch.stack([wgrad(pad[:, ky:ky + h2, kx:kx + w2_].reshape(-1, c1), dym)
+                       for ky in range(3) for kx in range(3)]).reshape(3, 3, c1, cout)
+    dw1 = torch.stack([wgrad(hp[:, ky:ky + h2, kx:kx + w2_].reshape(-1, c), dam)
+                       for ky in range(3) for kx in range(3)]).reshape(3, 3, c, c1)
+    xm = x.detach().float().reshape(-1, cin)
+    dwd = torch.stack([wgrad(xm, ph) for ph in phases]).reshape(2, 2, cin, cd)
+    return (dx, dskip, dwd.permute(2, 3, 0, 1), dbd, dw1.permute(3, 2, 0, 1), da.sum((0, 1, 2)),
+            dw2.permute(3, 2, 0, 1), dy.sum((0, 1, 2)))
+
+
+def pad_channels(t: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """t [..., C] -> [..., C rounded up to `multiple`] with zeros in the
+    added channels (t itself where C is a multiple): the bf16 kernels copy
+    each pixel's row of x (multiple 8) and dy (multiple 2) into shared
+    memory as 16-byte and 4-byte cp.async runs."""
+    return F.pad(t, (0, -t.shape[-1] % multiple)) if t.shape[-1] % multiple else t
+
+
+def _check_bf16_rows(acts) -> None:
+    """(name, tensor) pairs of the bf16 kernels' activations (a None skip
+    passes): each must start on a 16-byte boundary, as their pixel rows are
+    copied by cp.async."""
+    for name, t in acts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (cp.async copies)")
+
+
+def _check_operand(name: str, t: torch.Tensor, device, dtype=torch.float32) -> None:
+    _check(name, t, device, dtype)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (cp.async copies)")
 
@@ -503,14 +724,17 @@ def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
     dev, act = x.device, _act_dtype(x)
     bf16 = act == torch.bfloat16
     _check_inputs(dev, act, (("x", x), ("skip", skip)), (("bd", bd), ("b1", b1), ("b2", b2)))
-    wdk, w1k, w2k = kernel_weights(wd, w1, w2, bf16)[:3]
+    wdk, w1k, w2k = (kernel_weights_bf16(wd, w1, w2) if bf16 else kernel_weights(wd, w1, w2))[:3]
     for name, t in (("wd", wdk), ("w1", w1k), ("w2", w2k)):
-        _check_operand(name, t, dev)
+        _check_operand(name, t, dev, t.dtype)
     entry = _entry(_library(bf16), "ccvpe_lmu_fwd", bf16)
     y = torch.empty((b, 2 * hc, 2 * wc, cout), device=dev, dtype=torch.float32)
+    xk = pad_channels(x) if bf16 else x
+    if bf16:
+        _check_bf16_rows((("x", xk), ("skip", skip)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(x.data_ptr(), _ptr(skip), wdk.data_ptr(), bd.data_ptr(), w1k.data_ptr(),
+        rc = entry(xk.data_ptr(), _ptr(skip), wdk.data_ptr(), bd.data_ptr(), w1k.data_ptr(),
                    b1.data_ptr(), w2k.data_ptr(), b2.data_ptr(), y.data_ptr(), b, hc, wc, cin,
                    cs, cd, c1, cout, tile, stream)
     if rc != 0:
@@ -557,12 +781,15 @@ def bwd_phase_cycles(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Te
     """B3 built with its per-phase timer, on CUDA tensors only (the timer
     is a clock on the card): (the grads as fused_stage_bwd returns them,
     int64 [blocks, len(BWD_PHASES)] clock64 cycles each block spent in each
-    phase, summed over its tiles). Not counted in fused_stage_bwd.launches:
-    the main path runs the untimed library."""
+    phase, summed over its tiles). A bf16 x times the bf16 kernel (dy
+    rounded to bf16 first, as fused_stage_bwd does). Not counted in
+    fused_stage_bwd.launches: the main path runs the untimed libraries."""
     if not x.is_cuda:
         raise ValueError("the phase timer runs on the card: pass CUDA tensors")
-    if x.dtype != torch.float32:
-        raise TypeError("the phase timer times the float32 backward")
+    if _act_dtype(x) == torch.bfloat16:
+        dy = dy.to(torch.bfloat16).contiguous()
+        return _launch_bwd(load_timed_bf16_library(), x, skip, dy, wd, bd, w1, b1, w2, b2,
+                           timed=True)
     return _launch_bwd(load_timed_library(), x, skip, dy, wd, bd, w1, b1, w2, b2, timed=True)
 
 
@@ -573,9 +800,10 @@ def _launch_bwd(lib, x, skip, dy, wd, bd, w1, b1, w2, b2, timed=False):
     dev, act = x.device, _act_dtype(x)
     bf16 = act == torch.bfloat16
     _check_inputs(dev, act, (("x", x), ("skip", skip), ("dy", dy)), (("bd", bd), ("b1", b1)))
-    wdk, w1k, _, w2t, w1t, wdt = kernel_weights(wd, w1, w2, bf16)
+    wdk, w1k, _, w2t, w1t, wdt = kernel_weights_bf16(wd, w1, w2) if bf16 else kernel_weights(
+        wd, w1, w2)
     for name, t in (("wd", wdk), ("w1", w1k), ("w2t", w2t), ("w1t", w1t), ("wdt", wdt)):
-        _check_operand(name, t, dev)
+        _check_operand(name, t, dev, t.dtype)
     with torch.cuda.device(dev):
         t_, mode, ahead, nblk, psize = _plan(lib, b, hc, wc, cin, cs, cd, c1, cout, bf16)
         dx = torch.empty_like(x)
@@ -590,7 +818,10 @@ def _launch_bwd(lib, x, skip, dy, wd, bd, w1, b1, w2, b2, timed=False):
             if rc != 0:
                 raise RuntimeError(f"ccvpe_lmu_bwd_phase_buffer failed: CUDA error {rc}")
         entry = _entry(lib, "ccvpe_lmu_bwd", bf16)
-        rc = entry(x.data_ptr(), _ptr(skip), dy.data_ptr(), wdk.data_ptr(), bd.data_ptr(),
+        xk, dyk = (pad_channels(x), pad_channels(dy, 2)) if bf16 else (x, dy)
+        if bf16:
+            _check_bf16_rows((("x", xk), ("skip", skip), ("dy", dyk)))
+        rc = entry(xk.data_ptr(), _ptr(skip), dyk.data_ptr(), wdk.data_ptr(), bd.data_ptr(),
                    w1k.data_ptr(), b1.data_ptr(), w2t.data_ptr(), w1t.data_ptr(),
                    wdt.data_ptr(), dx.data_ptr(), _ptr(dskip), part.data_ptr(),
                    sums.data_ptr(), b, hc, wc, cin, cs, cd, c1, cout, t_, mode, ahead, nblk,
@@ -650,23 +881,28 @@ class FusedStage(torch.autograd.Function):
 
 
 def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [M, K] @ b [K, N] through the kernel's 3xTF32 mma.sync primitive
-    (one block, operands in shared memory) on CUDA tensors, through
-    matmul_3xtf32_plain on CPU ones. Counts launches in mma_probe.launches."""
+    """a [M, K] @ b [K, N] float32 through one of the kernels' tensor-core
+    primitives (one block, operands in shared memory) on CUDA tensors: float32
+    a and b through the 3xTF32 mma.sync of csrc/lmu.cu, bf16 ones through the
+    bf16 mma.sync.m16n8k16 and ldmatrix loads of csrc/lmu_bf16.cu. On CPU
+    tensors the plain versions: matmul_3xtf32_plain, and for bf16 a.float() @
+    b.float() (exact products, float32 sums in another order). Counts
+    launches in mma_probe.launches."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"expected [M, K] @ [K, N], got {tuple(a.shape)} @ {tuple(b.shape)}")
+    bf16 = _act_dtype(a) == torch.bfloat16
     if not a.is_cuda:
-        return matmul_3xtf32_plain(a, b)
+        return a.float() @ b.float() if bf16 else matmul_3xtf32_plain(a, b)
     for name, t in (("a", a), ("b", b)):
-        _check(name, t, a.device)
+        _check(name, t, a.device, a.dtype)
     (m, k), n = a.shape, b.shape[1]
-    lib = load_library()
+    entry = _entry(_library(bf16), "ccvpe_mma_probe", bf16)
     c = torch.empty((m, n), device=a.device, dtype=torch.float32)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.ccvpe_mma_probe(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
+        rc = entry(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, stream)
     if rc != 0:
-        raise RuntimeError(f"ccvpe_mma_probe launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry.__name__} launch failed: CUDA error {rc}")
     mma_probe.launches += 1
     return c
 
@@ -674,29 +910,31 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 mma_probe.launches = 0
 
 
-def mma_rate(iters: int = 20000) -> dict:
-    """The card's issue rate of the m16n8k8 TF32 mma.sync the kernels'
-    products are made of (csrc/lmu.cu::mma_rate_kernel: one block of 16
-    warps per SM, each warp 8 independent products per round, no loads):
+def mma_rate(iters: int = 20000, bf16: bool = False) -> dict:
+    """The card's issue rate of the mma.sync the kernels' products are made
+    of: the m16n8k8 TF32 one (csrc/lmu.cu::mma_rate_kernel), or with bf16 the
+    m16n8k16 bf16 one (csrc/lmu_bf16.cu::mma_rate_bf16_kernel); one block of
+    16 warps per SM, each warp 8 independent products per round, no loads:
     ms, clock64 cycles per product per SM sub-partition (4 per SM), and
-    TF32 TFLOP/s (2048 flops a product). On the card only."""
+    TFLOP/s (2048 flops a TF32 product, 4096 a bf16 one). On the card only."""
     if not torch.cuda.is_available():
         raise ValueError("the rate is the card's: no CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    lib = load_library()
+    lib = _library(bf16)
+    rate = _entry(lib, "ccvpe_mma_rate", bf16)
     out = torch.empty(sms * 512, device=dev)
     cycles = torch.zeros(sms, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for n in (100, iters):                          # the first launch warms up
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        rc = lib.ccvpe_mma_rate(sms, n, out.data_ptr(), cycles.data_ptr(), stream)
+        rc = rate(sms, n, out.data_ptr(), cycles.data_ptr(), stream)
         end.record()
         if rc != 0:
-            raise RuntimeError(f"ccvpe_mma_rate launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{rate.__name__} launch failed: CUDA error {rc}")
     torch.cuda.synchronize()
     ms = start.elapsed_time(end)
     per_sm = 16 * 8 * iters
     return dict(ms=ms, cycles_per_mma_per_smsp=float(cycles.double().mean()) / (per_sm / 4),
-                tflops=per_sm * sms * 2048 / ms / 1e9)
+                tflops=per_sm * sms * (4096 if bf16 else 2048) / ms / 1e9)

@@ -7,14 +7,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      whether PIL imports and libjpeg's and libpng's headers exist;
   2. build every hand-written kernel from csrc/ with nvcc (sm_90a), and
-     lmu.cu twice more, with B3's per-phase timer and with its bf16
-     instantiations, one nvcc per library, all started together, timed,
-     with ptxas' report, and each LMU kernel's registers and spill bytes
-     read from it; the tensor-core instructions (HMMA) and clock reads of
-     each LMU kernel counted in cuobjdump -sass: B2 and B3 must hold TF32
-     ones, B3's float32 instantiations at T = 8 more than before its da,
-     dh|dskip and dx took the tensor cores, and the main path's libraries
-     no clock read; the correlation kernel (B1) must hold TF32 ones too;
+     lmu.cu and lmu_bf16.cu again with B3's per-phase timer, one nvcc per
+     library, all started together, timed, with ptxas' report, and each LMU
+     kernel's registers and spill bytes read from it; the tensor-core
+     instructions (HMMA) and clock reads of each LMU kernel counted in
+     cuobjdump -sass: the float32 B2 and B3 must hold TF32 ones, B3 at T =
+     8 more than before its da, dh|dskip and dx took the tensor cores; the
+     bf16 ones m16n8k16 bf16 ones and no TF32 one; the main path's
+     libraries no clock read; the correlation kernel (B1) TF32 ones too;
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI (s1 and s6) and
      ori-prior shapes, and at one shape with ragged N and D edges and the
@@ -29,8 +29,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      plain version, at the six VIGOR scales;
   6. the LMU kernels' 3xTF32 mma.sync primitive alone (mma_probe) against
      a float64 matmul at ragged M x N x K, twice for the same bits, and
-     its times;
-     the card's issue rate of the TF32 mma.sync (mma_rate);
+     its times; the bf16 kernels' ldmatrix and m16n8k16 primitive likewise,
+     against its plain version a.float() @ b.float() too; the card's issue
+     rates of the TF32 and the bf16 mma.sync (mma_rate);
      then the fused LMU stage kernels (forward B2, backward B3) against
      their plain versions at the four VIGOR calls of a step at
      lmu_fused_min_res=256, the four KITTI calls, a ragged no-skip Cout-1
@@ -96,7 +97,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      of a VIGOR forward (batch 8) and a ragged shape, with and without r,
      S^2 rounded and not, each twice for the same bits, against its plain
      version and, unrounded, against the float32 kernel on S.float() to the
-     bit; its times beside the float32 kernel's and the bound from 2-byte S;
+     bit; its times beside the float32 kernel's, the two-matmul yardstick
+     on bf16 operands and the bound from 2-byte S;
      in deterministic mode, float32, batch 8: the ori_window=160 step
      against the full field (losses, every gradient) and three remat
      combinations against none (losses and BN buffers to the bit,
@@ -111,12 +113,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      heatmap peaks against the float32 model's);
  13. the rest of ModelConfig at full width, in a third child process
      (python3 chip_smoke.py --model-options <json>, phase 12's
-     environment): B2 and B3 on bf16 activations against their bf16 plain
-     versions (the split emulations) at the VIGOR and KITTI calls (batch
-     8) and phase 6's tensor-core cases, each twice for the same bits;
-     their times at the VIGOR calls beside the float32 kernel on the same
-     values, the plain versions and the bf16 cuDNN chain, and the bounds
-     from 2-byte activations; bench.py's options with lmu_fused_min_res=256
+     environment): B2 and B3 on bf16 activations (csrc/lmu_bf16.cu)
+     against their bf16 plain versions (the emulations of their arithmetic)
+     at the VIGOR and KITTI calls (batch 8) and phase 6's ragged,
+     large-bias and tensor-core cases, each twice for the same bits; B2's
+     y at every tile that fits to the same bits, B3's plan against the
+     Python mirror; their times at the VIGOR calls beside the float32
+     kernel on the same values, the plain versions and the bf16 cuDNN
+     chain, the bounds from 2-byte activations and the wrapper's channel
+     pads; B3 on bf16 by phase (lmu_bf16.cu's timed build); bench.py's
+     options with lmu_fused_min_res=256
      through create_train_state and make_train_step at batch 8 and 96
      (launches counted from zero over the first step: B1 1 + 5 bf16, B2 and
      B3 2 each on bf16; p50, pairs/s, peak memory, printed by the parent
@@ -202,6 +208,17 @@ EVAL_TIMED_LOOPS = 5
 # da's n-groups ragged (9 n-tiles in groups of 4), dx on a 2 x 2 box.
 LMU_TC_CASES = {("tensor cores, ragged K and N", 2, 7, 9, 131, 14, 21, 37, 6): 8,
                 ("tensor cores at T 4", 1, 6, 7, 29, 5, 53, 65, 21): 4}
+# B2 and B3 off the VIGOR and KITTI widths: Hc and Wc not multiples of any
+# tile, no skip and Cout 1; large biases (the border must be zero padding,
+# not deconv(0) + bias); ragged channel counts
+LMU_EXTRA_CASES = [("ragged, no skip, Cout 1", 2, 13, 21, 9, 0, 8, 12, 1),
+                   ("large biases", 2, 10, 12, 12, 5, 8, 16, 3),
+                   ("ragged channels", 2, 7, 11, 5, 3, 7, 9, 3)]
+# The bf16 B3 off the VIGOR and KITTI widths at the T = 4 its plan must pick
+# (T = 8's planes and one weight buffer pass a block's 227 KB; the Python
+# mirror names the same T), every channel count ragged: skip after an odd Cd
+# (loaded by loads and stores), x and dy padded by the wrapper
+LMU_BF16_T4_CASE = ("bf16 B3 at T 4", 1, 5, 6, 13, 5, 69, 101, 21)
 
 # HMMA opcodes in the SASS of each lmu_bwd_kernel instantiation, and k
 # cycles a tile of B3's da, dh|dskip and dx phases at the four VIGOR calls,
@@ -385,9 +402,10 @@ def lmu_bound(shape, backward, act_bytes=4):
     whichever is longer. Float32 activations: each conv at its route's rate
     (lmu_convs: three TF32 products at TF32_FLOPS_PER_S for each float32
     one on the tensor cores, FP32_FLOPS_PER_S on the FMAs); bf16: all at
-    the card's BF16_FLOPS_PER_S. Also the operations at the route a bf16
-    stage issues (one TF32 product), on the CUDA cores alone and all in
-    3xTF32. Times in ms."""
+    the card's BF16_FLOPS_PER_S, the route the bf16 kernels take for every
+    conv (csrc/lmu_bf16.cu). Also the float32 kernels' route (route_ms),
+    the operations on the CUDA cores alone and all in 3xTF32. Times in
+    ms."""
     _, b, hc, wc, cin, cs, cd, c1, cout = shape
     c, pix = cd + cs, b * 4 * hc * wc
     wts = 4 * cin * cd + cd + 9 * c * c1 + c1 + 9 * c1 * cout + cout
@@ -407,7 +425,7 @@ def lmu_bound(shape, backward, act_bytes=4):
     t_ops = flops / BF16_FLOPS_PER_S * 1e3 if act_bytes == 2 else route(3)
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops, ops_ms=t_ops,
-                route_ms=route(3 if act_bytes == 4 else 1),
+                route_ms=route(3),
                 f32_bound_ms=max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3),
                 tc_bound_ms=max(t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3))
 
@@ -492,8 +510,9 @@ def ptxas_usage(log):
 
 
 def lmu_kernel_name(fn):
-    """'lmu_fwd_kernel<512, float>' or 'lmu_bwd_kernel<256, T=8, bf16>' for a
-    mangled LMU kernel name, else the name cut to 90 characters."""
+    """'lmu_fwd_kernel<512, float>', 'lmu_bwd_kernel<256, T=8, float>',
+    'lmu_fwd_bf16_kernel<256>' or 'lmu_bwd_bf16_kernel<T=16>' for a mangled
+    LMU kernel name, else the name cut to 90 characters."""
     import re
     act = "bf16" if "__nv_bfloat16" in fn else "float"
     m = re.search(r"lmu_fwd_kernelILi(\d+)E", fn)
@@ -502,6 +521,12 @@ def lmu_kernel_name(fn):
     m = re.search(r"lmu_bwd_kernelILi(\d+)ELi(\d+)E", fn)
     if m:
         return f"lmu_bwd_kernel<{m.group(1)}, T={m.group(2)}, {act}>"
+    m = re.search(r"lmu_fwd_bf16_kernelILi(\d+)E", fn)
+    if m:
+        return f"lmu_fwd_bf16_kernel<{m.group(1)}>"
+    m = re.search(r"lmu_bwd_bf16_kernelILi(\d+)E", fn)
+    if m:
+        return f"lmu_bwd_bf16_kernel<T={m.group(1)}>"
     return fn[:90]
 
 
@@ -512,40 +537,55 @@ def lmu_bwd_tile(fn):
     return int(m.group(1)) if m else None
 
 
-def check_probe(gen):
+def check_probe(gen, bf16=False):
     """mma_probe (the 3xTF32 primitive alone) against a float64 matmul at
     PROBE_SHAPES, twice for the same bits; one TF32 product's error beside
-    it shows what the bound tells apart."""
+    it shows what the bound tells apart. bf16: the bf16 primitive (ldmatrix
+    and mma.sync.m16n8k16) on bf16 operands, against its plain version
+    a.float() @ b.float() (exact products, float32 sums in another order)
+    and against float64."""
     from ccvpe_tpu_torch.ops.lmu_cuda import mma_probe
     from ccvpe_tpu_torch.ops.tf32 import round_tf32
     rows = []
     for m, n, k in PROBE_SHAPES:
         a = torch.randn(m, k, device="cuda", generator=gen)
         b = torch.randn(k, n, device="cuda", generator=gen)
+        if bf16:
+            a, b = a.bfloat16(), b.bfloat16()
         got, again = mma_probe(a, b), mma_probe(a, b)
         want = a.double() @ b.double()
-        one = round_tf32(a) @ round_tf32(b)
+        one = a.float() @ b.float() if bf16 else round_tf32(a) @ round_tf32(b)
         torch.cuda.synchronize()
         err, err_1x = scaled_err(got.double(), want), scaled_err(one.double(), want)
         same = torch.equal(got, again)
+        plain = scaled_err(got, one) if bf16 else None
         rows.append(dict(m=m, n=n, k=k, scaled_err=err, scaled_err_1xtf32=err_1x,
+                         scaled_err_plain=plain,
                          max_abs=float((got.double() - want).abs().max()),
-                         deterministic=same, ok=same and err <= PROBE_RTOL))
+                         deterministic=same,
+                         ok=same and err <= PROBE_RTOL and (plain is None or plain <= PROBE_RTOL)))
     return rows
 
 
-def time_probe(gen):
+def time_probe(gen, bf16=False):
     """Kernel / plain / torch.matmul times of mma_probe at PROBE_SHAPES[0],
-    beside the bound of its 3xTF32 products at 495 TFLOP/s or its bytes."""
+    beside the bound of its 3xTF32 products at 495 TFLOP/s or its bytes
+    (bf16: one bf16 product at 989 TFLOP/s, 2-byte operands)."""
     from ccvpe_tpu_torch.ops.lmu_cuda import mma_probe
     from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
     m, n, k = PROBE_SHAPES[0]
     a = torch.randn(m, k, device="cuda", generator=gen)
     b = torch.randn(k, n, device="cuda", generator=gen)
-    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * 2 * m * n * k / TF32_FLOPS_PER_S * 1e3
-    return dict(ms=time_ms(lambda: mma_probe(a, b)),
-                plain_ms=time_ms(lambda: matmul_3xtf32_plain(a, b)),
+    if bf16:
+        a, b = a.bfloat16(), b.bfloat16()
+        t_bytes = (2 * (m * k + k * n) + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * n * k / BF16_FLOPS_PER_S * 1e3
+        plain = lambda: a.float() @ b.float()            # noqa: E731
+    else:
+        t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * 2 * m * n * k / TF32_FLOPS_PER_S * 1e3
+        plain = lambda: matmul_3xtf32_plain(a, b)        # noqa: E731
+    return dict(ms=time_ms(lambda: mma_probe(a, b)), plain_ms=time_ms(plain),
                 library_ms=time_ms(lambda: torch.matmul(a, b)),
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -592,18 +632,22 @@ def time_lmu(shape, gen):
     return row
 
 
-def phase_split(shape, gen, kernel_ms):
+def phase_split(shape, gen, kernel_ms, bf16=False):
     """B3's split by phase at one shape: the timed library's block cycles
     per phase (summed over blocks), each phase's share, and that share of
-    the untimed kernel's time `kernel_ms` (the wrapper's, from time_lmu);
-    the timed kernel's own time beside it, and whether its outputs are the
-    untimed kernel's bits."""
+    the untimed kernel's time `kernel_ms` (the wrapper's, from time_lmu or
+    time_lmu_bf16); the timed kernel's own time beside it, and whether its
+    outputs are the untimed kernel's bits. bf16: x, skip and dy in bf16
+    (the bf16 kernels)."""
     from ccvpe_tpu_torch.ops.lmu_cuda import (BWD_PHASES, bwd_phase_cycles, bwd_plan,
                                               fused_stage_bwd)
     _, b, hc, wc, *_, cout = shape
     x, skip, ws = lmu_inputs(shape, gen)
-    plan = bwd_plan(x, skip, ws[0], ws[2], ws[4])
     dy = torch.randn(b, 2 * hc, 2 * wc, cout, device="cuda", generator=gen)
+    if bf16:
+        x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+        skip = None if skip is None else skip.to(torch.bfloat16)
+    plan = bwd_plan(x, skip, ws[0], ws[2], ws[4])
     got, cycles = bwd_phase_cycles(x, skip, dy, *ws)
     want = fused_stage_bwd(x, skip, dy, *ws)
     torch.cuda.synchronize()
@@ -616,6 +660,16 @@ def phase_split(shape, gen, kernel_ms):
               for name, c in zip(BWD_PHASES, per_phase)]
     return dict(name=shape[0], kernel_ms=kernel_ms, timed_ms=timed_ms, same_bits=same,
                 tiles_per_block=plan["tiles"] / plan["blocks"], phases=phases, **plan)
+
+
+def log_phases(what, shape, r, card):
+    """Two lines of phase_split's result r at one shape."""
+    log(f"{what} {shape[0]:18s}: untimed {r['kernel_ms']:.3f} ms, timed "
+        f"{r['timed_ms']:.3f} ms, T {r['t']}, weights {r['weights']}, planes ahead "
+        f"{r['planes_ahead']}, {r['blocks']} blocks x "
+        f"{r['tiles_per_block']:.1f} tiles, same bits as untimed {r['same_bits']} [{card}]")
+    log("  " + "; ".join(f"{p['phase']} {p['share']:.1%} {p['ms']:.3f} ms "
+                          f"{p['cycles_per_tile']:.0f} cyc/tile" for p in r["phases"]))
 
 
 def tf32_cost(model, g, s, card, reps=10):
@@ -1404,9 +1458,9 @@ def check_bf16_corr(card, out) -> bool:
     out["bf16_checks"] = rows
     out["bf16_max_abs_err"] = max_err
 
-    keys = ("ms", "r_ms", "plain_ms", "r_plain_ms", "f32_ms", "f32_r_ms", "bound_ms",
-            "r_bound_ms", "f32_bound_ms", "f32_r_bound_ms", "bytes", "f32_bytes", "ops_ms",
-            "f32_ops_ms")
+    keys = ("ms", "r_ms", "plain_ms", "r_plain_ms", "f32_ms", "f32_r_ms", "matmul2_ms",
+            "bound_ms", "r_bound_ms", "f32_bound_ms", "f32_r_bound_ms", "bytes", "f32_bytes",
+            "ops_ms", "f32_ops_ms")
     tot, timing = dict.fromkeys(keys, 0.0), []
     for name, bb, n, d, length, shift, bins, center in cases[:5]:
         s32, g_mat, m_mat = corr_inputs(bb, n, d, length, shift, bins, center, gen)
@@ -1414,6 +1468,9 @@ def check_bf16_corr(card, out) -> bool:
         row = dict(name=name, n=n, d=d, k=k, round_sq=rnd)
         row["ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, round_sq=rnd))
         row["f32_ms"] = time_ms(lambda: corr_core(s32, g_mat, m_mat))
+        # the two-matmul yardstick (phase 4's) on bf16 operands: num and den^2
+        g16, m16, s16sq = g_mat.transpose(1, 2).bfloat16(), m_mat.t().bfloat16(), s * s
+        row["matmul2_ms"] = time_ms(lambda: (torch.bmm(s, g16), torch.matmul(s16sq, m16)))
         row["plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, round_sq=rnd))
         row["r_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True, round_sq=rnd))
         row["f32_r_ms"] = time_ms(lambda: corr_core(s32, g_mat, m_mat, need_r=True))
@@ -1427,7 +1484,8 @@ def check_bf16_corr(card, out) -> bool:
         row["f32_r_bound_ms"] = corr_bound(bb, n, d, k, True)[0]
         log(f"time bf16 {name:8s} N={n:6d} D={d:4d} S^2 rounded {rnd!s:5}: kernel "
             f"{row['ms']:.4f} ms (float32 S {row['f32_ms']:.4f}), plain {row['plain_ms']:.4f}, "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']}; {row['bytes'] / 1e6:.1f} MB, "
+            f"bf16 two-matmul yardstick {row['matmul2_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}; {row['bytes'] / 1e6:.1f} MB, "
             f"TF32 products {row['ops_ms']:.4f}; float32 S {row['f32_bound_ms']:.4f} / "
             f"{row['f32_bytes'] / 1e6:.1f} MB / products {row['f32_ops_ms']:.4f}); with r: "
             f"kernel {row['r_ms']:.4f} (float32 S {row['f32_r_ms']:.4f}), plain "
@@ -1438,7 +1496,8 @@ def check_bf16_corr(card, out) -> bool:
     tot["bound_by"] = ("bytes" if tot["bytes"] / HBM_BYTES_PER_S * 1e3 >= tot["ops_ms"]
                        else "operations")
     log(f"time bf16 S, the five decoder scales (5 launches): kernel {tot['ms']:.4f} ms (float32 "
-        f"S {tot['f32_ms']:.4f}), plain {tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} "
+        f"S {tot['f32_ms']:.4f}), plain {tot['plain_ms']:.4f}, bf16 two-matmul yardstick "
+        f"{tot['matmul2_ms']:.4f}, bound {tot['bound_ms']:.4f} "
         f"({tot['bound_by']}; {tot['bytes'] / 1e6:.1f} MB, TF32 products "
         f"{tot['ops_ms']:.4f}; float32 S {tot['f32_bound_ms']:.4f}, "
         f"{tot['f32_bytes'] / 1e6:.1f} MB); with r: kernel {tot['r_ms']:.4f} (float32 S "
@@ -1698,12 +1757,13 @@ OPT_ZERO_GRAD_RTOL = 1e-4
 
 
 def check_lmu_bf16(shape, gen, bias_scale=0.3):
-    """B2 and B3 on bf16 x, skip and dy against their bf16 plain versions
-    (the split emulations, ops/lmu_cuda.py): the forward on normal inputs,
-    the backward on dyadic ones, each kernel twice for the same bits."""
+    """B2 and B3 on bf16 x, skip and dy (csrc/lmu_bf16.cu) against their
+    bf16 plain versions (the emulations of their arithmetic,
+    ops/lmu_cuda.py): the forward on normal inputs, the backward on dyadic
+    ones, each kernel twice for the same bits."""
     from ccvpe_tpu_torch.ops.lmu_cuda import (fused_stage, fused_stage_bwd,
-                                              fused_stage_bwd_split_plain,
-                                              fused_stage_split_plain)
+                                              fused_stage_bf16_split_plain,
+                                              fused_stage_bwd_bf16_split_plain)
 
     def bf16(t):
         return None if t is None else t.to(torch.bfloat16)
@@ -1712,12 +1772,12 @@ def check_lmu_bf16(shape, gen, bias_scale=0.3):
     x, skip, ws = lmu_inputs(shape, gen, bias_scale=bias_scale, device=dev)
     x, skip = bf16(x), bf16(skip)
     y, y2 = fused_stage(x, skip, *ws), fused_stage(x, skip, *ws)
-    ref = fused_stage_split_plain(x, skip, *ws)
+    ref = fused_stage_bf16_split_plain(x, skip, *ws)
     x, skip, ws = lmu_inputs(shape, gen, dyadic=True, bias_scale=bias_scale, device=dev)
     x, skip = bf16(x), bf16(skip)
     dy = torch.randn(*y.shape, device=dev, generator=gen)
     got, again = fused_stage_bwd(x, skip, dy, *ws), fused_stage_bwd(x, skip, dy, *ws)
-    want = fused_stage_bwd_split_plain(x, skip, dy, *ws)
+    want = fused_stage_bwd_bf16_split_plain(x, skip, dy, *ws)
     names = ("dx", "dskip", "dwd", "dbd", "dw1", "db1", "dw2", "db2")
     fwd_err = scaled_err(y, ref)
     errs = {n: scaled_err(g.float(), w.float()) for n, g, w in zip(names, got, want)
@@ -1742,7 +1802,7 @@ def time_lmu_bf16(shape, gen):
     fused-free stage, forward and backward), beside the bounds."""
     import torch.nn.functional as F
     from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
-    from ccvpe_tpu_torch.ops.lmu_cuda import fused_stage, fused_stage_bwd
+    from ccvpe_tpu_torch.ops.lmu_cuda import fused_stage, fused_stage_bwd, pad_channels
     x, skip, ws = lmu_inputs(shape, gen)
     x16 = x.to(torch.bfloat16)
     s16 = None if skip is None else skip.to(torch.bfloat16)
@@ -1774,6 +1834,10 @@ def time_lmu_bf16(shape, gen):
     row["bwd_plain_ms"] = time_ms(lambda: fused_stage_bwd_plain(x16, s16, dy16, *ws))
     dyc = dy16.permute(0, 3, 1, 2)
     row["bwd_chain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dyc, retain_graph=True))
+    # the wrapper's passes that pad x's channels to a multiple of 8 (in each
+    # of the two kernels' times above) and an odd Cout of dy to even (B3's)
+    row["x_pad_ms"] = time_ms(lambda: pad_channels(x16)) if x16.shape[-1] % 8 else 0.0
+    row["dy_pad_ms"] = time_ms(lambda: pad_channels(dy16, 2)) if dy16.shape[-1] % 2 else 0.0
     for key, bwd in (("fwd", False), ("bwd", True)):
         row.update({f"{key}_{k}": v for k, v in lmu_bound(shape, bwd, act_bytes=2).items()})
     return row
@@ -1781,21 +1845,49 @@ def time_lmu_bf16(shape, gen):
 
 def run_lmu_bf16(card, out) -> bool:
     """The bf16 kernels against their plain versions at the VIGOR and KITTI
-    calls (batch 8) and phase 6's tensor-core cases, then their times at
-    the VIGOR calls."""
+    calls (batch 8) and phase 6's tensor-core cases, ragged and large-bias
+    ones among them; B2's y at every tile against its own tile's bits and
+    B3's plan (T, weights) against the Python mirror's tile; then their
+    times at the VIGOR calls and B3's split by phase."""
     from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.ops import lmu_cuda
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = (lmu_call_shapes(cfg_lib.vigor(), 8) + lmu_call_shapes(cfg_lib.kitti(), 8, "kitti ")
-              + list(LMU_TC_CASES))
+              + LMU_EXTRA_CASES + list(LMU_TC_CASES) + [LMU_BF16_T4_CASE])
     out["lmu_bf16_checks"] = rows = []
     for shape in shapes:
-        r = check_lmu_bf16(shape, gen)
+        r = check_lmu_bf16(shape, gen, bias_scale=5.0 if shape[0] == "large biases" else 0.3)
         rows.append(r)
         log(f"check lmu bf16 {shape[0]:24s} {shape[1:]}: fwd scaled {r['fwd_scaled']:.3g}, bwd "
             f"scaled {json.dumps({k: float(f'{v:.3g}') for k, v in r['bwd_scaled'].items()})} "
             f"(rtol {LMU_BF16_RTOL:.3g} of each max), dtypes {r['dtypes']}, same bits twice "
             f"{r['deterministic']} {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
+            return False
+    # B2's y at its own tile and at every other that fits (B3's among them):
+    # the same bits, so B3's recomputed g and ReLU mask are B2's
+    smem_optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    out["lmu_bf16_tiles"] = []
+    for shape in shapes:
+        x, skip, ws = lmu_inputs(shape, gen)
+        x, skip = x.bfloat16(), None if skip is None else skip.bfloat16()
+        plan = lmu_cuda.bwd_plan(x, skip, ws[0], ws[2], ws[4])
+        own = lmu_cuda.bf16_fwd_tile(*shape[4:], limit=smem_optin)
+        y = lmu_cuda.fused_stage(x, skip, *ws)
+        tiles = [t for t in lmu_cuda.BF16_TILES
+                 if lmu_cuda.bf16_fwd_smem_bytes(*shape[4:], t) <= smem_optin]
+        same = all(torch.equal(y, lmu_cuda.fused_stage(x, skip, *ws, tile=t)) for t in tiles)
+        want_t = lmu_cuda.bf16_bwd_tile(*shape[4:], limit=smem_optin)
+        ok = same and plan["t"] in tiles and plan["t"] == want_t
+        out["lmu_bf16_tiles"].append(dict(name=shape[0], fwd_t=own, tiles=tiles, same_bits=same,
+                                          bwd_plan=plan, ok=ok))
+        nbytes = lmu_cuda.bf16_bwd_smem_bytes(*shape[4:], plan["t"], plan["weights"],
+                                              plan["planes_ahead"])
+        log(f"check lmu bf16 tiles {shape[0]:24s}: B2 T {own} and {tiles} the same bits {same}; "
+            f"B3 T {plan['t']} (mirror {want_t}), weights {plan['weights']}, planes ahead "
+            f"{plan['planes_ahead']}, {plan['blocks']} blocks, {nbytes} B of {smem_optin} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
             return False
     out["lmu_bf16_fwd_max_abs"] = max(r["fwd_max_abs"] for r in rows[:4])
     out["lmu_bf16_bwd_max_abs"] = max(r["bwd_max_abs"] for r in rows[:4])
@@ -1813,16 +1905,26 @@ def run_lmu_bf16(card, out) -> bool:
                 f"cuDNN chain {row[f'{key}_chain_ms']:.3f}, bound {row[f'{key}_bound_ms']:.3f} "
                 f"({row[f'{key}_bound_by']}; {row[f'{key}_bytes'] / 1e6:.1f} MB, "
                 f"{row[f'{key}_flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s "
-                f"{row[f'{key}_ops_ms']:.3f}), its route (one TF32 product) "
-                f"{row[f'{key}_route_ms']:.3f} [{card}]")
+                f"{row[f'{key}_ops_ms']:.3f}); the wrapper's channel pads: x "
+                f"{row['x_pad_ms']:.4f}" + (f", dy {row['dy_pad_ms']:.4f}" if key == "bwd" else "")
+                + f" [{card}]")
     for key in ("fwd", "bwd"):
         t_b = tot[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
         tot[f"{key}_bound_by"] = "bytes" if t_b >= tot[f"{key}_ops_ms"] else "operations"
         log(f"time lmu bf16 {key} per step (4 launches): kernel {tot[f'{key}_ms']:.3f} ms, "
             f"float32 kernel {tot[f'{key}_f32_ms']:.3f}, plain {tot[f'{key}_plain_ms']:.3f}, "
-            f"bf16 cuDNN chain {tot[f'{key}_chain_ms']:.3f}, bound {tot[f'{key}_bound_ms']:.3f}, "
-            f"route {tot[f'{key}_route_ms']:.3f} [{card}]")
+            f"bf16 cuDNN chain {tot[f'{key}_chain_ms']:.3f}, bound {tot[f'{key}_bound_ms']:.3f} "
+            f"[{card}]")
     out["lmu_bf16_timing_total"] = tot
+    # B3 on bf16 by phase, from the timed bf16 library
+    out["lmu_bf16_bwd_phases"] = []
+    for shape, row in zip(lmu_call_shapes(cfg_lib.vigor(), 8), timing):
+        r = phase_split(shape, gen, row["bwd_ms"], bf16=True)
+        out["lmu_bf16_bwd_phases"].append(r)
+        log_phases("phases lmu bwd bf16", shape, r, card)
+        if not r["same_bits"]:
+            log("FAIL: the timed bf16 B3 computes other bits than the untimed one")
+            return False
     return True
 
 
@@ -1955,6 +2057,7 @@ def options_main(out_path: str) -> int:
     corr_cuda.load_library()
     lmu_cuda.load_library()
     lmu_cuda.load_bf16_library()
+    lmu_cuda.load_timed_bf16_library()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2039,11 +2142,11 @@ def main() -> int:
     report["pil"], report["image_headers"] = pil, headers
 
     phase_done(1)
-    # 2. build every kernel, and lmu.cu with B3's phase timer and with its
-    #    bf16 instantiations, one nvcc per library, all started together
+    # 2. build every kernel, and lmu.cu and lmu_bf16.cu with B3's phase
+    #    timer, one nvcc per library, all started together
     jobs = {name: (name, ()) for name in KERNELS}
     jobs["lmu+timer"] = ("lmu", (lmu_cuda.PHASE_TIMER,))
-    jobs["lmu bf16"] = ("lmu", (lmu_cuda.BF16_BUILD,))
+    jobs["lmu_bf16+timer"] = (lmu_cuda.BF16_SOURCE, (lmu_cuda.PHASE_TIMER,))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda job: build(*job), jobs.values())))
@@ -2055,6 +2158,7 @@ def main() -> int:
     lmu_cuda.load_library()
     lmu_cuda.load_timed_library()
     lmu_cuda.load_bf16_library()
+    lmu_cuda.load_timed_bf16_library()
     report["build_s"] = build_s
     report["build_seconds"] = {name: b.seconds for name, b in built.items()}
     scan = sass_scan(built["corr"].path)
@@ -2069,7 +2173,7 @@ def main() -> int:
         return 1
     report["lmu_sass"] = {}
     report["lmu_ptxas"] = {}
-    for lib in ("lmu", "lmu+timer", "lmu bf16"):
+    for lib in ("lmu", "lmu+timer", "lmu_bf16", "lmu_bf16+timer"):
         scan = sass_scan(built[lib].path)
         usage = ptxas_usage(built[lib].log)
         report["lmu_sass"][lib] = {fn: dict(hmma=len(ops), opcodes=sorted(set(ops)), clocks=clk)
@@ -2077,16 +2181,17 @@ def main() -> int:
         report["lmu_ptxas"][lib] = {lmu_kernel_name(fn): dict(registers=r, spill_stores=st,
                                                               spill_loads=ld)
                                     for fn, (r, st, ld) in usage.items()}
+        bf16 = lib.startswith("lmu_bf16")
         for fn, (ops, clk) in scan.items():
             # float32: B2's count since its convs took the tensor cores
-            # (432); B3's while da, dh|dskip and dx ran on the FMAs. A bf16
-            # instantiation issues one TF32 product where float32 takes three
-            t_bwd = None if lib == "lmu bf16" else lmu_bwd_tile(fn)
-            old = ("432" if "lmu_fwd_kernel" in fn and lib != "lmu bf16"
+            # (432); B3's while da, dh|dskip and dx ran on the FMAs
+            t_bwd = lmu_bwd_tile(fn)
+            old = ("432" if "lmu_fwd_kernel" in fn
                    else str(FMA_BWD_HMMA[t_bwd]) if t_bwd else "-")
-            log(f"sass {lib} {lmu_kernel_name(fn)}: {len(ops)} HMMA (before B3's da, dh|dskip "
-                f"and dx took the tensor cores: {old}) "
-                f"{sorted(set(ops))}, {clk} clock reads")
+            log(f"sass {lib} {lmu_kernel_name(fn)}: {len(ops)} HMMA"
+                + ("" if bf16 else f" (before B3's da, dh|dskip and dx took the tensor cores: "
+                   f"{old})")
+                + f" {sorted(set(ops))}, {clk} clock reads")
             if "lmu_bwd_kernel" in fn and t_bwd == 8 and len(ops) <= FMA_BWD_HMMA[8]:
                 log(f"FAIL: {lib}: {lmu_kernel_name(fn)} holds {len(ops)} HMMA, no more than "
                     f"the {FMA_BWD_HMMA[8]} of its FMA da, dh|dskip and dx")
@@ -2094,16 +2199,24 @@ def main() -> int:
         for fn, (regs, st, ld) in usage.items():
             log(f"ptxas {lib} {lmu_kernel_name(fn)}: {regs} registers, {st} bytes spill stores, "
                 f"{ld} bytes spill loads")
-        for kernel in ("lmu_fwd_kernel", "lmu_bwd_kernel"):
+        # the float32 kernels' products are m16n8k8 TF32; the bf16 ones'
+        # m16n8k16 bf16, and no TF32 product among them
+        want, banned = (("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32") if bf16
+                        else ("HMMA.1688.F32.TF32", None))
+        kernels_ = (("lmu_fwd_bf16_kernel", "lmu_bwd_bf16_kernel") if bf16
+                    else ("lmu_fwd_kernel", "lmu_bwd_kernel"))
+        for kernel in kernels_:
             fns = [fn for fn in scan if kernel in fn]
-            if not fns or not all(any("HMMA.1688.F32.TF32" in op for op in scan[fn][0])
+            if not fns or not all(any(want in op for op in scan[fn][0])
+                                  and not any(banned and banned in op for op in scan[fn][0])
                                   for fn in fns):
-                log(f"FAIL: {lib}: a {kernel} instantiation holds no HMMA.1688.F32.TF32")
+                log(f"FAIL: {lib}: a {kernel} instantiation holds no {want}"
+                    + (f" or holds {banned}" if banned else ""))
                 return 1
-        bwd_fns = [fn for fn in scan if "lmu_bwd_kernel" in fn]
+        bwd_fns = [fn for fn in scan if kernels_[1] in fn]
         clocks = sum(scan[fn][1] for fn in bwd_fns)
-        if (clocks > 0) != (lib == "lmu+timer"):
-            log(f"FAIL: {lib}: lmu_bwd_kernel holds {clocks} clock reads (the main path's "
+        if (clocks > 0) != lib.endswith("+timer"):
+            log(f"FAIL: {lib}: {kernels_[1]} holds {clocks} clock reads (the main path's "
                 "library must hold none, the timed one some)")
             return 1
 
@@ -2254,21 +2367,30 @@ def main() -> int:
             f"same bits twice {r['deterministic']} {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             return 1
+    report["probe_bf16"] = check_probe(gen, bf16=True)
+    for r in report["probe_bf16"]:
+        log(f"check mma_probe bf16 {r['m']}x{r['n']}x{r['k']}: m16n8k16 bf16 scaled err "
+            f"{r['scaled_err']:.3g} vs float64, {r['scaled_err_plain']:.3g} vs its plain version "
+            f"a.float() @ b.float() (rtol {PROBE_RTOL} of max), same bits twice "
+            f"{r['deterministic']} {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            return 1
     report["mma_rate"] = lmu_cuda.mma_rate()
-    log(f"rate mma.sync m16n8k8 TF32 (16 warps an SM, 8 independent products each, no loads): "
-        f"{report['mma_rate']['cycles_per_mma_per_smsp']:.2f} cycles per product per SM "
-        f"sub-partition, {report['mma_rate']['tflops']:.1f} TF32 TFLOP/s ({card})")
+    report["mma_rate_bf16"] = lmu_cuda.mma_rate(bf16=True)
+    for key, what in (("mma_rate", "m16n8k8 TF32"), ("mma_rate_bf16", "m16n8k16 bf16")):
+        log(f"rate mma.sync {what} (16 warps an SM, 8 independent products each, no loads): "
+            f"{report[key]['cycles_per_mma_per_smsp']:.2f} cycles per product per SM "
+            f"sub-partition, {report[key]['tflops']:.1f} TFLOP/s ({card})")
     probe_time = time_probe(gen)
-    log(f"time mma_probe {'x'.join(map(str, PROBE_SHAPES[0]))}: kernel {probe_time['ms']:.4f} ms, "
-        f"plain {probe_time['plain_ms']:.4f}, torch.matmul {probe_time['library_ms']:.4f}, "
-        f"bound {probe_time['bound_ms']:.6f} ({probe_time['bound_by']})")
+    probe_time_bf16 = time_probe(gen, bf16=True)
+    for what, pt in (("", probe_time), (" bf16", probe_time_bf16)):
+        log(f"time mma_probe{what} {'x'.join(map(str, PROBE_SHAPES[0]))}: kernel {pt['ms']:.4f} "
+            f"ms, plain {pt['plain_ms']:.4f}, torch.matmul {pt['library_ms']:.4f}, "
+            f"bound {pt['bound_ms']:.6f} ({pt['bound_by']})")
     lmu_shapes = lmu_call_shapes(vigor, batch)
     kitti_shapes = lmu_call_shapes(kitti, batch, "kitti ")
-    extra = [("ragged, no skip, Cout 1", 2, 13, 21, 9, 0, 8, 12, 1),
-             ("large biases", 2, 10, 12, 12, 5, 8, 16, 3),
-             ("ragged channels", 2, 7, 11, 5, 3, 7, 9, 3)]
     report["lmu_checks"] = []
-    for shape in lmu_shapes + kitti_shapes + extra + list(LMU_TC_CASES):
+    for shape in lmu_shapes + kitti_shapes + LMU_EXTRA_CASES + list(LMU_TC_CASES):
         r = check_lmu(shape, gen, bias_scale=5.0 if shape[0] == "large biases" else 0.3)
         log(f"check lmu {shape[0]:24s} {shape[1:]}: fwd max_abs {r['fwd_max_abs']:.3g} "
             f"(rtol {LMU_FWD_RTOL} of max), bwd scaled "
@@ -2352,12 +2474,7 @@ def main() -> int:
     for shape, row in zip(lmu_shapes, report["lmu_timing"]):
         r = phase_split(shape, gen, row["bwd_ms"])
         report["lmu_bwd_phases"].append(r)
-        log(f"phases lmu bwd {shape[0]:18s}: untimed {r['kernel_ms']:.3f} ms, timed "
-            f"{r['timed_ms']:.3f} ms, T {r['t']}, weights {r['weights']}, planes ahead "
-            f"{r['planes_ahead']}, {r['blocks']} blocks x "
-            f"{r['tiles_per_block']:.1f} tiles, same bits as untimed {r['same_bits']} [{card}]")
-        log("  " + "; ".join(f"{p['phase']} {p['share']:.1%} {p['ms']:.3f} ms "
-                              f"{p['cycles_per_tile']:.0f} cyc/tile" for p in r["phases"]))
+        log_phases("phases lmu bwd", shape, r, card)
         cyc = {p["phase"]: p["cycles_per_tile"] / 1e3 for p in r["phases"]}
         log("  " + ", ".join(f"{n} {cyc[n]:.1f} k cyc/tile (on the FMAs: {old})"
                              for n, old in zip(("da", "dh|dskip", "dx"),
@@ -2526,7 +2643,8 @@ def main() -> int:
         "replaces": "ccvpe_tpu/ops/corr_pallas.py:31",
         "launches": bench8["launches"]["corr_fwd_bf16"], "max_abs_err": bench["bf16_max_abs_err"],
         "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
-        "bound_by": bt["bound_by"], "library_ms": None, "r_ms": bt["r_ms"],
+        "bound_by": bt["bound_by"], "library_ms": None, "yardstick_ms": bt["matmul2_ms"],
+        "r_ms": bt["r_ms"],
         "r_plain_ms": bt["r_plain_ms"], "r_bound_ms": bt["r_bound_ms"], "ops_ms": bt["ops_ms"],
         "f32_ms": bt["f32_ms"],
         "f32_r_ms": bt["f32_r_ms"], "f32_bound_ms": bt["f32_bound_ms"],
@@ -2553,14 +2671,13 @@ def main() -> int:
         # B2 and B3 on bf16 activations (phase 13): launches from the bf16
         # fused train step at batch 8 (and a predict batch's), times at the
         # four VIGOR calls beside the float32 kernel and the bf16 cuDNN chain
-        "name": f"lmu_{key}_bf16", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
+        "name": f"lmu_{key}_bf16", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu_bf16.cu",
         "replaces": f"ccvpe_tpu/ops/lmu_pallas.py:{line}",
         "launches": fused8["launches"][f"lmu_{key}_bf16"],
         "max_abs_err": opts[f"lmu_bf16_{key}_max_abs"],
         "ms": bft[f"{key}_ms"], "plain_ms": bft[f"{key}_plain_ms"],
         "bound_ms": bft[f"{key}_bound_ms"], "bound_by": bft[f"{key}_bound_by"],
         "library_ms": bft[f"{key}_chain_ms"], "f32_ms": bft[f"{key}_f32_ms"],
-        "route_ms": bft[f"{key}_route_ms"],
         "eval_launches": opts["fused_bf16"]["predict"]["launches"][f"lmu_{key}_bf16"],
     } for key, line in (("fwd", 264), ("bwd", 404))]
     # the LMU kernels' tensor-core primitive alone (its entry "checks" names
@@ -2572,6 +2689,12 @@ def main() -> int:
         "launches": lmu_cuda.mma_probe.launches,
         "max_abs_err": max(r["max_abs"] for r in report["probe"]),
         **probe_time,
+    }, {
+        "name": "mma_probe_bf16", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu_bf16.cu",
+        "checks": "lmu_fwd_bf16, lmu_bwd_bf16 (their ldmatrix and mma.sync.m16n8k16 products)",
+        "launches": lmu_cuda.mma_probe.launches,
+        "max_abs_err": max(r["max_abs"] for r in report["probe_bf16"]),
+        **probe_time_bf16,
     }]
     report["kernels"] = kernels
     report["probes"] = probes

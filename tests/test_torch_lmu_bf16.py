@@ -38,8 +38,9 @@ from ccvpe_tpu_torch.models.cvm import build_cvm
 from ccvpe_tpu_torch.nn import efficientnet as teff
 from ccvpe_tpu_torch.ops import lmu_cuda
 from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain, round_bf16
-from ccvpe_tpu_torch.ops.lmu_cuda import (FusedStage, fused_stage_bwd_split_plain,
-                                          fused_stage_split_plain, kernel_weights)
+from ccvpe_tpu_torch.ops.lmu_cuda import (FusedStage, fused_stage_bf16_split_plain,
+                                          fused_stage_bwd_bf16_split_plain, kernel_weights,
+                                          kernel_weights_bf16)
 from ccvpe_tpu_torch.train import step as tstep
 from ccvpe_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_bf16 import BENCH, GRAD_ATOL, _tpu_dispatch_rolled_corr, _train_batch, ulp_scale
@@ -92,7 +93,7 @@ def test_bf16_forward_matches_pallas(case):
     assert out.dtype == torch.float32
     assert_ulps(out.numpy(), np.asarray(want), "y")
     # the kernel's arithmetic (the card's oracle) agrees too
-    split = fused_stage_split_plain(_t16(x), _t16(skip), *_torch_weights(ws))
+    split = fused_stage_bf16_split_plain(_t16(x), _t16(skip), *_torch_weights(ws))
     assert_ulps(split.numpy(), out.numpy(), "split y")
 
 
@@ -107,8 +108,9 @@ def test_bf16_backward_matches_pallas(case):
     assert grads[0].dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
     assert all(g.dtype == torch.float32 for g in grads[2:])
     got = _to_jax_layout([None if g is None else g.float() for g in grads])
-    split = _to_jax_layout([None if g is None else g.float() for g in fused_stage_bwd_split_plain(
-        _t16(x), _t16(skip), torch.from_numpy(dy), *_torch_weights(ws))])
+    split = _to_jax_layout([None if g is None else g.float()
+                            for g in fused_stage_bwd_bf16_split_plain(
+                                _t16(x), _t16(skip), torch.from_numpy(dy), *_torch_weights(ws))])
     for name, g, s, w in zip(NAMES, got, split, want):
         if w is None:
             assert g is None and s is None and not case[5]
@@ -166,14 +168,19 @@ def test_fused_stage_function_in_bf16():
 
 
 def test_kernel_weights_round_to_bf16():
-    """The bf16 kernels' weight operands are float32 arrays of the weights
-    rounded to bf16 (the TPU kernel casts them to x.dtype, :381-383)."""
+    """The bf16 kernels' weight operands are bf16 arrays of the weights
+    rounded to bf16 (the TPU kernel casts them to x.dtype, :381-383): the
+    float32 kernels' operands of the rounded weights, each row padded with
+    zeros to pix_stride columns (csrc/lmu_bf16.cu) instead of pad_co."""
     _, _, ws = _case(9, 1, 2, 2, 5, 4, 3, 6, 2)
     tw = _torch_weights(ws)
-    for a, b in zip(kernel_weights(*tw[0::2], bf16=True),
+    for a, b in zip(kernel_weights_bf16(*tw[0::2]),
                     kernel_weights(*(round_bf16(w) for w in tw[0::2]))):
-        assert a.dtype == torch.float32 and torch.equal(a, b)
-        assert torch.equal(a, round_bf16(a))
+        n = b.shape[-1]
+        assert a.dtype == torch.bfloat16 and a.is_contiguous()
+        assert a.shape[:-1] == b.shape[:-1] and a.shape[-1] == lmu_cuda.pix_stride(a.shape[-1])
+        assert torch.equal(a[..., :n].float(), b[..., :n])
+        assert not a[..., n:].float().any()
 
 
 def test_other_activation_types_raise():
