@@ -13,7 +13,14 @@ Layout (bottom-up):
   models/  the configurable CVM
   train/   device_normalize and the scalar eval step
   utils/   JAX variables -> reference-named state dict
-  serve.py InferenceEngine
+  serve.py InferenceEngine, export_program / load_program
+
+Importing the package registers B1's and B2's forwards as the ops
+ccvpe_tpu_torch::corr_fwd and ::lmu_fwd, which an exported program
+(serve.py::load_program) calls; nothing is built until a kernel runs.
 """
 
 __version__ = "0.1.0"
+
+from ccvpe_tpu_torch.ops import corr_cuda as _corr_cuda  # noqa: E402,F401
+from ccvpe_tpu_torch.ops import lmu_cuda as _lmu_cuda  # noqa: E402,F401

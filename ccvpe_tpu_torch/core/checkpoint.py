@@ -92,7 +92,7 @@ class CheckpointManager:
         payload = {
             "step": int(state.step),
             "model": _to_host(state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.opt.state_dict()),
+            "optimizer": _to_host(state.optimizer.state_dict()),
             "count": int(state.optimizer.count),
             "cursor": {"epoch": int(cursor.get("epoch", 0)),
                        "batch": int(cursor.get("batch", 0))},
@@ -140,15 +140,16 @@ class CheckpointManager:
 
         The file is read to the host: load_state_dict copies the model's
         tensors onto its device, and the optimizer's puts each moment on its
-        parameter's device and keeps Adam's per-parameter step counts on the
-        host, where torch.optim keeps them (read to the card, every update
-        would read them back, one sync each)."""
+        parameter's device and Adam's per-parameter step counts where this
+        optimizer keeps them: on the card for the capturable optimizer of a
+        model on the card, on the host otherwise (train/step.py::Optimizer).
+        The learning rate is saved as a float and restored into either form."""
         step = self.latest_step()
         if step is None:
             return None
         payload = load_payload(step_file(self._dir, step))
         state.model.load_state_dict(payload["model"], strict=True)
-        state.optimizer.opt.load_state_dict(payload["optimizer"])
+        state.optimizer.load_state_dict(payload["optimizer"])
         state.optimizer.count = payload["count"]
         state.step = payload["step"]
         return state, dict(payload["cursor"])

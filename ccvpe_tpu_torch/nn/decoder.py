@@ -7,7 +7,8 @@ Conv3x3. The final stage's deconv feeds a head of the same shape with 1
 (localization) or 2 (orientation) output channels. The plain path stays
 PyTorch / cuDNN ops, as it is XLA ops in the JAX package; the fused path
 (`fused_stage_nchw`, ModelConfig.lmu_fused_min_res) runs the stage as one
-autograd.Function over the hand-written kernels of ops/lmu_cuda.py, and
+registered op over the hand-written kernels of ops/lmu_cuda.py (the
+forward kernel, its registered backward the backward kernel), and
 the phase path (ModelConfig.phase_space_min_res) on 2x2 packed maps
 (ops/phase_space.py; the final stage hands its packed deconv output to a
 packed head), each with the modules' own weights, so state dicts load any
@@ -31,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ccvpe_tpu_torch.nn.efficientnet import Conv2d
-from ccvpe_tpu_torch.ops.lmu_cuda import FusedStage
+from ccvpe_tpu_torch.ops.lmu_cuda import fused_stage
 from ccvpe_tpu_torch.ops.phase_space import conv3x3_packed, depth_to_space, phase_stage
 
 
@@ -102,8 +103,8 @@ def fused_stage_nchw(deconv: Deconv2x2, conv: DoubleConv, x: torch.Tensor,
     cl, dt = torch.channels_last, conv.compute_dtype
     xn = x.to(dt).contiguous(memory_format=cl).permute(0, 2, 3, 1)
     sn = None if skip is None else skip.to(dt).contiguous(memory_format=cl).permute(0, 2, 3, 1)
-    y = FusedStage.apply(xn, sn, deconv.weight, deconv.bias, conv[0].weight, conv[0].bias,
-                         conv[2].weight, conv[2].bias).permute(0, 3, 1, 2)
+    y = fused_stage(xn, sn, deconv.weight, deconv.bias, conv[0].weight, conv[0].bias,
+                    conv[2].weight, conv[2].bias).permute(0, 3, 1, 2)
     return y if isinstance(conv, HeadConv) else y.to(dt)
 
 

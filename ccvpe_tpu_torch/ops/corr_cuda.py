@@ -19,13 +19,18 @@ a multiple of 8, blocks); `corr_core_split_plain` repeats the kernel's
 arithmetic in plain torch. The CUDA route is a plain C interface built with nvcc
 (csrc/build.py) and loaded with ctypes; nothing here touches nvcc or the
 card until a CUDA tensor arrives, so the module imports on a CPU-only host.
-On a CPU tensor `corr_core` runs `corr_core_plain`.
+The forward is the registered op `ccvpe_tpu_torch::corr_fwd` (importing
+this module registers it): its CUDA implementation launches the kernel, its
+implementation for other devices is `corr_core_plain`, and its fake one
+gives the shapes, so `torch.export` records it as one node and a CUDA
+graph captures its launch. `corr_core` calls it.
 
-The kernel writes through raw pointers, so its output carries no autograd
-graph of its own: `CorrCore` (an autograd.Function whose backward is the
-plain products of corr_pallas.py:124-135) gives it one, and
-`rolled_corr_cuda` goes through it whenever a gradient is wanted. Its
-gradient of S comes back in S's dtype.
+The kernel writes through raw pointers, so the op's gradient is registered
+with it (`torch.library.register_autograd`, the counterpart of the
+jax.custom_vjp corr_core, corr_pallas.py:113-138): the plain products of
+corr_pallas.py:124-135 from the saved out and r, which the forward writes
+only where a gradient is wanted (`corr_core_diff`). Its gradient of S comes
+back in S's dtype; M gets none.
 """
 
 from __future__ import annotations
@@ -180,16 +185,30 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
-              need_r: bool = False, round_sq: bool = False):
-    """The fused kernel on a CUDA tensor, its plain version on a CPU one.
-    Same contract as corr_core_plain; S float32 or bf16 (round_sq only with
-    bf16), G' and M float32, M exact in TF32 (0/1 window masks are). Counts
-    calls, float32 S in corr_core.launches and bf16 S in
-    corr_core.bf16_launches: one a call, whether the plan launches one
-    kernel or the kernel and the slice reduce."""
-    if not s_flat.is_cuda:
-        return corr_core_plain(s_flat, g_mat, m_mat, need_r, round_sq)
+@torch.library.custom_op("ccvpe_tpu_torch::corr_fwd", mutates_args=())
+def corr_fwd(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor, need_r: bool,
+             round_sq: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's forward as a registered op: (out, r), r empty ([0]) without
+    need_r. This implementation serves every device but CUDA: the plain
+    version. The CUDA one (_corr_fwd_cuda) launches the kernel."""
+    if need_r:
+        return corr_core_plain(s_flat, g_mat, m_mat, True, round_sq)
+    return (corr_core_plain(s_flat, g_mat, m_mat, False, round_sq),
+            s_flat.new_empty((0,), dtype=torch.float32))
+
+
+@corr_fwd.register_fake
+def _corr_fwd_fake(s_flat, g_mat, m_mat, need_r, round_sq):
+    b, n, _ = s_flat.shape
+    out = s_flat.new_empty((b, n, g_mat.shape[1]), dtype=torch.float32)
+    return out, (torch.empty_like(out) if need_r else s_flat.new_empty((0,), dtype=torch.float32))
+
+
+@corr_fwd.register_kernel("cuda")
+def _corr_fwd_cuda(s_flat, g_mat, m_mat, need_r, round_sq):
+    """The kernel launch: one a call, whether the plan launches one kernel
+    or the kernel and the slice reduce; counted in corr_core.launches
+    (float32 S) or corr_core.bf16_launches (bf16 S)."""
     if s_flat.dim() != 3:
         raise ValueError(f"s_flat must be [B, N, D], got {tuple(s_flat.shape)}")
     b, n, d = s_flat.shape
@@ -207,7 +226,7 @@ def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
     lib = load_library()
     plan = corr_plan(b, n, d, k, _sm_count(dev.index), s_flat.element_size())
     out = torch.empty((b, n, k), device=dev, dtype=torch.float32)
-    r = torch.empty_like(out) if need_r else None
+    r = torch.empty_like(out) if need_r else out.new_empty((0,))
     part = (torch.empty(plan.slices * b * n * 2 * plan.kp, device=dev, dtype=torch.float32)
             if plan.slices > 1 else None)
     with torch.cuda.device(dev):
@@ -224,6 +243,17 @@ def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
         corr_core.bf16_launches += 1
     else:
         corr_core.launches += 1
+    return out, r
+
+
+def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
+              need_r: bool = False, round_sq: bool = False):
+    """The op corr_fwd: the fused kernel on a CUDA tensor, its plain
+    version on a CPU one. Same contract as corr_core_plain; S float32 or
+    bf16 (round_sq only with bf16), G' and M float32, M exact in TF32 (0/1
+    window masks are). Counts launches, float32 S in corr_core.launches and
+    bf16 S in corr_core.bf16_launches."""
+    out, r = corr_fwd(s_flat, g_mat, m_mat, need_r, round_sq)
     return (out, r) if need_r else out
 
 
@@ -244,32 +274,38 @@ def corr_core_bwd(grad_out: torch.Tensor, s_flat: torch.Tensor, g_mat: torch.Ten
     return grad_s, grad_g
 
 
-class CorrCore(torch.autograd.Function):
-    """Differentiable corr_core (the counterpart of the jax.custom_vjp
-    corr_core, corr_pallas.py:113-138): the forward is the kernel with
-    need_r on a CUDA tensor and corr_core_plain on a CPU one; the backward
-    is corr_core_bwd, the gradient of S in S's dtype. M gets no gradient."""
+def _corr_fwd_setup(ctx, inputs, output):
+    s_flat, g_mat, m_mat, need_r, _ = inputs
+    out, r = output
+    ctx.mark_non_differentiable(r)
+    ctx.set_materialize_grads(False)
+    ctx.need_r = need_r
+    ctx.save_for_backward(s_flat, g_mat, m_mat, out, r)
 
-    @staticmethod
-    def forward(ctx, s_flat, g_mat, m_mat, round_sq=False):
-        out, r = corr_core(s_flat, g_mat, m_mat, need_r=True, round_sq=round_sq)
-        ctx.save_for_backward(s_flat, g_mat, m_mat, out, r)
-        return out
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        s_flat, g_mat, m_mat, out, r = ctx.saved_tensors
-        grad_s, grad_g = corr_core_bwd(grad_out, s_flat, g_mat, m_mat, out, r)
-        return grad_s.to(s_flat.dtype), grad_g, None, None
+def _corr_fwd_backward(ctx, grad_out, _grad_r):
+    """corr_core_bwd from the saved out and r; the gradient of S in S's
+    dtype."""
+    if grad_out is None:
+        return None, None, None, None, None
+    if not ctx.need_r:
+        raise RuntimeError("corr_fwd saves r only with need_r=True: differentiate "
+                           "corr_core_diff, which sets it")
+    s_flat, g_mat, m_mat, out, r = ctx.saved_tensors
+    grad_s, grad_g = corr_core_bwd(grad_out, s_flat, g_mat, m_mat, out, r)
+    return grad_s.to(s_flat.dtype), grad_g, None, None, None
+
+
+corr_fwd.register_autograd(_corr_fwd_backward, setup_context=_corr_fwd_setup)
 
 
 def corr_core_diff(s_flat: torch.Tensor, g_mat: torch.Tensor,
                    m_mat: torch.Tensor, round_sq: bool = False) -> torch.Tensor:
-    """corr_core's out with gradients to S and G' when either needs them;
-    a forward without a graph launches the kernel without r."""
-    if torch.is_grad_enabled() and (s_flat.requires_grad or g_mat.requires_grad):
-        return CorrCore.apply(s_flat, g_mat, m_mat, round_sq)
-    return corr_core(s_flat, g_mat, m_mat, round_sq=round_sq)
+    """corr_core's out, with gradients to S and G' through the op's
+    registered backward; the kernel writes r only where either needs one."""
+    need_r = torch.is_grad_enabled() and (s_flat.requires_grad or g_mat.requires_grad)
+    out = corr_core(s_flat, g_mat, m_mat, need_r=need_r, round_sq=round_sq)
+    return out[0] if need_r else out
 
 
 def rolled_corr_cuda(sat: torch.Tensor, grd: torch.Tensor, shift: int,

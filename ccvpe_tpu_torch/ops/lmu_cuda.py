@@ -1,10 +1,7 @@
 """The fused LMU decoder stage on Hopper: the wrappers of csrc/lmu.cu
 (float32 activations) and csrc/lmu_bf16.cu (bf16 activations), the port of
 the Pallas kernels ccvpe_tpu/ops/lmu_pallas.py::_fused_stage_kernel (:264,
-forward) and ::_fused_stage_bwd_kernel (:404, backward), and `FusedStage`,
-the counterpart of the jax.custom_vjp fused_stage_diff (:685-726): it saves
-only the inputs, and its backward is the backward kernel, which recomputes
-h and g on chip.
+forward) and ::_fused_stage_bwd_kernel (:404, backward).
 
 `fused_stage` and `fused_stage_bwd` launch the kernels on CUDA tensors
 (counting launches, bf16 ones apart in `bf16_launches`) and run the plain
@@ -29,6 +26,17 @@ in ops/lmu.py: NHWC activations, float32 or bf16 (the TPU kernels' bf16
 policy, ops/lmu.py), contiguous (the NHWC view of a channels_last NCHW
 tensor is), torch weight layouts, which the wrappers turn into the
 kernels'. Nothing touches nvcc or the card until a CUDA tensor arrives.
+
+B2 is the registered op `ccvpe_tpu_torch::lmu_fwd` (importing this module
+registers it): its CUDA implementation launches the kernel, its
+implementation for other devices is `fused_stage_plain`, and its fake one
+gives y's shape, so `torch.export` records it as one node and a CUDA graph
+captures its launch. Its gradient is registered with it
+(`torch.library.register_autograd`, the counterpart of the jax.custom_vjp
+fused_stage_diff, lmu_pallas.py:685-726): the forward saves only the
+inputs, and the backward is `fused_stage_bwd`, kernel B3 on the card, which
+recomputes h and g on chip. B3 is a plain call from there: no exported
+program holds a backward.
 """
 from __future__ import annotations
 
@@ -707,19 +715,26 @@ def _check_inputs(dev, act, acts, biases) -> None:
         _check(name, t, dev)
 
 
-def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
-                bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                b2: torch.Tensor, tile: int = 0) -> torch.Tensor:
-    """Kernel B2 on a CUDA tensor, fused_stage_plain on a CPU one: y NHWC
-    [B, 2Hc, 2Wc, Cout] float32. x (and skip) float32 or bf16 (the bf16
-    kernel, ops/lmu.py's bf16 policy). Counts launches in
-    fused_stage.launches, bf16 ones in fused_stage.bf16_launches. `tile` 0
-    lets the kernel pick its fine tile T (fwd_tile); 16, 8 or 4 forces it,
-    for the checks that y does not depend on T."""
-    if tile not in (0,) + FWD_TILES:
-        raise ValueError(f"tile must be 0 or one of {FWD_TILES}, got {tile}")
-    if not x.is_cuda:
-        return fused_stage_plain(x, skip, wd, bd, w1, b1, w2, b2)
+@torch.library.custom_op("ccvpe_tpu_torch::lmu_fwd", mutates_args=())
+def lmu_fwd(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor, bd: torch.Tensor,
+            w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+            tile: int) -> torch.Tensor:
+    """B2's forward as a registered op: y NHWC [B, 2Hc, 2Wc, Cout] float32.
+    This implementation serves every device but CUDA: the plain version.
+    The CUDA one (_lmu_fwd_cuda) launches the kernel."""
+    return fused_stage_plain(x, skip, wd, bd, w1, b1, w2, b2)
+
+
+@lmu_fwd.register_fake
+def _lmu_fwd_fake(x, skip, wd, bd, w1, b1, w2, b2, tile):
+    b, hc, wc, _ = x.shape
+    return x.new_empty((b, 2 * hc, 2 * wc, w2.shape[0]), dtype=torch.float32)
+
+
+@lmu_fwd.register_kernel("cuda")
+def _lmu_fwd_cuda(x, skip, wd, bd, w1, b1, w2, b2, tile):
+    """The kernel launch, counted in fused_stage.launches (float32 x) or
+    fused_stage.bf16_launches (bf16 x)."""
     b, hc, wc, cin, cs, cd, c1, cout = _dims(x, skip, wd, w1, w2)
     dev, act = x.device, _act_dtype(x)
     bf16 = act == torch.bfloat16
@@ -744,6 +759,21 @@ def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
     else:
         fused_stage.launches += 1
     return y
+
+
+def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
+                bd: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor, tile: int = 0) -> torch.Tensor:
+    """The op lmu_fwd: kernel B2 on a CUDA tensor, fused_stage_plain on a
+    CPU one: y NHWC [B, 2Hc, 2Wc, Cout] float32. x (and skip) float32 or
+    bf16 (the bf16 kernel, ops/lmu.py's bf16 policy). Counts launches in
+    fused_stage.launches, bf16 ones in fused_stage.bf16_launches. `tile` 0
+    lets the kernel pick its fine tile T (fwd_tile); 16, 8 or 4 forces it,
+    for the checks that y does not depend on T. Differentiable: the
+    backward is fused_stage_bwd."""
+    if tile not in (0,) + FWD_TILES:
+        raise ValueError(f"tile must be 0 or one of {FWD_TILES}, got {tile}")
+    return lmu_fwd(x, skip, wd, bd, w1, b1, w2, b2, tile)
 
 
 fused_stage.launches = 0
@@ -865,19 +895,18 @@ def bwd_plan(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
                 tiles=b * -(-2 * hc // t) * -(-2 * wc // t))
 
 
-class FusedStage(torch.autograd.Function):
-    """Differentiable fused stage: B2 forward, B3 backward; only the inputs
-    are saved, so the 2x-resolution intermediates never persist."""
+def _lmu_fwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:8])
 
-    @staticmethod
-    def forward(ctx, x, skip, wd, bd, w1, b1, w2, b2):
-        ctx.save_for_backward(x, skip, wd, bd, w1, b1, w2, b2)
-        return fused_stage(x, skip, wd, bd, w1, b1, w2, b2)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, skip, wd, bd, w1, b1, w2, b2 = ctx.saved_tensors
-        return fused_stage_bwd(x, skip, dy.contiguous(), wd, bd, w1, b1, w2, b2)
+def _lmu_fwd_backward(ctx, dy):
+    """fused_stage_bwd from the saved inputs: the 2x-resolution
+    intermediates never persist."""
+    x, skip, wd, bd, w1, b1, w2, b2 = ctx.saved_tensors
+    return (*fused_stage_bwd(x, skip, dy.contiguous(), wd, bd, w1, b1, w2, b2), None)
+
+
+lmu_fwd.register_autograd(_lmu_fwd_backward, setup_context=_lmu_fwd_setup)
 
 
 def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -25,12 +26,16 @@ import numpy as np
 import torch
 
 from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
+from ccvpe_tpu_torch.core.graphs import Graph
 from ccvpe_tpu_torch.core.precision import float32_matmuls
 from ccvpe_tpu_torch.models.cvm import CVM, CVMOutput, build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.ops.gt import (gaussian_heatmap, gaussian_heatmap_window, maxpool_pyramid,
                                     orientation_bin_weights)
 from ccvpe_tpu_torch.train.losses import cross_entropy_loss, infonce_loss, orientation_loss
+
+# Optimizer.serial: a new number for each optimizer and each restore
+_SERIALS = itertools.count()
 
 # ImageNet normalization constants (ccvpe_tpu/data/transforms.py)
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -52,9 +57,14 @@ def device_normalize(img: torch.Tensor) -> torch.Tensor:
     (already normalized on the host)."""
     if img.dtype != torch.uint8:
         return img
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=img.device)
-    return (img.float() / 255.0 - mean) / std
+    return (img.float() / 255.0 - _filled(_IMAGENET_MEAN, img.device)) / _filled(
+        _IMAGENET_STD, img.device)
+
+
+def _filled(values, device) -> torch.Tensor:
+    """values as a float32 vector filled on `device` (torch.tensor's
+    values): a CUDA graph capture may not copy from pageable host memory."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in values])
 
 
 def warmup_cosine(peak: float, warmup_steps: int, total_steps: int) -> Callable[[int], float]:
@@ -73,7 +83,18 @@ def warmup_cosine(peak: float, warmup_steps: int, total_steps: int) -> Callable[
 class Optimizer:
     """make_optimizer's counterpart of the optax chain: optional clipping
     by global norm, then Adam or AdamW, at a constant or warmup-cosine
-    learning rate evaluated at the count of earlier updates (optax's)."""
+    learning rate evaluated at the count of earlier updates (optax's).
+
+    On the card the torch optimizer is capturable (its step counts and
+    bias corrections stay on the card) and its learning rate is a tensor
+    the schedule fills in place, so one CUDA graph holds the whole update
+    and reads the rate of each step (train/step.py::make_train_step). Eager
+    steps on the card take the same path, so eager and graphed steps give
+    the same bits. On the CPU it is the plain optimizer with a float rate.
+
+    `serial` names the tensors it holds: a new number for each optimizer
+    and after each load_state_dict, which replaces them. A captured step is
+    bound to it (state_binding)."""
 
     def __init__(self, params, train_cfg: TrainConfig):
         params = list(params)
@@ -91,13 +112,17 @@ class Optimizer:
                          if train_cfg.schedule == "warmup_cosine" else None)
         betas = (train_cfg.beta1, train_cfg.beta2)
         lr = self.schedule(0) if self.schedule else train_cfg.learning_rate
+        self.capturable = bool(params) and params[0].is_cuda
+        if self.capturable:
+            lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+        kw = dict(lr=lr, betas=betas, eps=1e-8, capturable=self.capturable)
         if train_cfg.optimizer == "adamw":
             # optax.adamw decays every parameter by lr * wd * param
-            self.opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8,
-                                         weight_decay=train_cfg.weight_decay)
+            self.opt = torch.optim.AdamW(params, weight_decay=train_cfg.weight_decay, **kw)
         else:
-            self.opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
+            self.opt = torch.optim.Adam(params, **kw)
         self.count = 0
+        self.serial = next(_SERIALS)
 
     def clip_(self) -> None:
         """optax.clip_by_global_norm: g * max_norm / ||g|| where ||g|| >= max_norm
@@ -107,18 +132,55 @@ class Optimizer:
         scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
         torch._foreach_mul_(grads, scale)
 
-    def step(self) -> None:
-        """One update from the parameters' .grad."""
+    def update(self) -> None:
+        """The device work of one update from the parameters' .grad:
+        clipping and the torch optimizer's step (what a CUDA graph holds)."""
         if self.clip:
             self.clip_()
         self.opt.step()
+
+    def advance(self) -> None:
+        """The host's part of an update: the count, and the schedule's rate
+        for the next one (a tensor rate is filled in place)."""
         self.count += 1
         if self.schedule:
+            lr = self.schedule(self.count)
             for group in self.opt.param_groups:
-                group["lr"] = self.schedule(self.count)
+                if torch.is_tensor(group["lr"]):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
+
+    def step(self) -> None:
+        """One update from the parameters' .grad."""
+        self.update()
+        self.advance()
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """The torch optimizer's state_dict with a float learning rate, so a
+        checkpoint restores on the card and on the CPU alike."""
+        sd = self.opt.state_dict()
+        sd["param_groups"] = [dict(g, lr=float(g["lr"])) for g in sd["param_groups"]]
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a state_dict of either form (float or tensor rate, saved
+        capturable or not) into this optimizer's own form: its capturable
+        flag (which puts Adam's step counts on the card or the host), and
+        its own rate tensor filled with the saved rate."""
+        own = self.opt.param_groups
+        groups = [dict(g, lr=float(g["lr"]), capturable=o["capturable"])
+                  for g, o in zip(sd["param_groups"], own)]
+        rates = [o["lr"] for o in own]
+        self.opt.load_state_dict(dict(sd, param_groups=groups))
+        self.serial = next(_SERIALS)
+        for group, rate in zip(self.opt.param_groups, rates):
+            if torch.is_tensor(rate):
+                rate.fill_(group["lr"])
+                group["lr"] = rate
 
 
 def make_optimizer(params, train_cfg: TrainConfig) -> Optimizer:
@@ -226,42 +288,147 @@ def to_batch(batch, device) -> Batch:
                                    device=device) for v in batch))
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def state_binding(state: TrainState, generator: Optional[torch.Generator]) -> Tuple:
+    """What a captured step is bound to: the state's model, its optimizer's
+    serial and the generator it draws from. Another state, a new optimizer
+    or one whose tensors the port replaced (Optimizer.load_state_dict, which
+    a checkpoint restore calls) gives another binding, and the step
+    captures again. A model load_state_dict copies into the same tensors
+    and keeps the binding, as the graph stays right. Tensors replaced
+    behind the port's back (assigning a parameter's .data, moving the
+    model) are not seen: give the step a new state. A few ids, not a walk
+    over the ~2.4k tensors of vigor()'s state, since it runs before every
+    replay."""
+    return (id(state.model), state.optimizer.serial, id(generator))
+
+
+class _StepGraph:
+    """One batch shape's captured step: its static inputs, the graph, the
+    static metrics and the gradients the graph writes; it holds the
+    generator, whose id is in the binding, so that no other takes that id
+    while the graph lives."""
+
+    def __init__(self, binding, inputs: Batch, graph: Graph, metrics, grads, generator):
+        self.binding, self.inputs, self.graph = binding, inputs, graph
+        self.metrics, self.grads, self.generator = metrics, grads, generator
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, cuda_graph: bool = True):
     """(state, batch, generator) -> (state, metrics). One optimizer update
     per call; with train_cfg.grad_accum_steps = A > 1 the batch runs as A
     sequential microbatches, each backward adding grad / A, and the BN
     running stats pass from one microbatch to the next. `generator` (on the
     model's device) draws the drop-connect masks; metrics are 0-d tensors
     on the device (averaged over microbatches). Forward, backward and the
-    update run in float32, TF32 off (core/precision.py)."""
-    accum = train_cfg.grad_accum_steps
-    if accum < 1:
-        raise ValueError(f"grad_accum_steps must be >= 1, got {accum}")
+    update run in float32, TF32 off (core/precision.py).
 
-    @float32_matmuls()
-    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        model = state.model
-        model.train()
-        device = next(model.parameters()).device
-        batch = to_batch(batch, device)
-        b = batch.grd.shape[0]
-        if b % accum:
-            raise ValueError(f"batch {b} does not split into {accum} microbatches")
-        loss_fn = make_loss_fn(model, model_cfg, train_cfg)
+    On the card, with `cuda_graph` (the counterpart of the JAX step's one
+    jitted executable), the whole step (zeroed grads, forwards and losses,
+    backwards, clipping and the optimizer's update) is one CUDA graph per
+    batch shape and dtype (core/graphs.py). The first call for a shape, and
+    the first after the state's binding changed (state_binding: another
+    state, restored optimizer tensors, another generator), runs eagerly: it
+    allocates Adam's moments and builds the kernels. The next call with the
+    same binding captures, then replays; later calls copy the batch into the
+    graph's static inputs and replay. The generator is registered with the
+    graph, so a seed set before a call gives the draws an eager call gives.
+    Gradients live in the graph's memory pool and are set on the parameters
+    after each replay; metrics come back as clones of its static outputs.
+    `step.captures` counts captures. A capture that fails raises, as does a
+    graphed call under NaN checks (anomaly mode cannot be captured: pass
+    cuda_graph=False). The graph's private memory pool comes on top of the
+    eager step's blocks: a stale graph's pool is given back before the
+    eager step (torch.cuda.graph empties the cache before a capture), and a
+    batch near the card's memory limit can take cuda_graph=False, which
+    keeps the eager step's memory alone. On the CPU every step runs
+    eagerly."""
+    if train_cfg.grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {train_cfg.grad_accum_steps}")
+    return TrainStep(model_cfg, train_cfg, cuda_graph)
+
+
+class TrainStep:
+    """The step make_train_step returns; `captures` counts its captures.
+    A class, not a closure: a closure that counted on itself would be a
+    reference cycle, and the graph's memory pool would outlive the step
+    until the garbage collector ran."""
+
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, cuda_graph: bool):
+        self.model_cfg, self.train_cfg, self.cuda_graph = model_cfg, train_cfg, cuda_graph
+        self.accum = train_cfg.grad_accum_steps
+        self.captures = 0
+        self._graphs: Dict[Tuple, _StepGraph] = {}
+        self._warmed: Dict[Tuple, Tuple] = {}    # batch key -> binding after its eager run
+
+    def _run(self, state: TrainState, batch: Batch, generator: Optional[torch.Generator]):
+        """The device work of one update; returns the averaged metrics."""
+        accum = self.accum
+        loss_fn = make_loss_fn(state.model, self.model_cfg, self.train_cfg)
         state.optimizer.zero_grad()
         sums: Dict[str, torch.Tensor] = {}
-        m = b // accum
+        m = batch.grd.shape[0] // accum
         for i in range(accum):
             mb = Batch(*(v[i * m:(i + 1) * m] for v in batch))
             total, metrics = loss_fn(mb, generator)
             (total / accum if accum > 1 else total).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
-        state.optimizer.step()
-        state.step += 1
-        return state, {k: v / accum for k, v in sums.items()}
+        state.optimizer.update()
+        return {k: v / accum for k, v in sums.items()}
 
-    return step
+    def _graphed(self, state: TrainState, batch, generator) -> Dict[str, torch.Tensor]:
+        if torch.is_anomaly_enabled():
+            raise RuntimeError("NaN checks (autograd anomaly mode) cannot run inside a CUDA "
+                               "graph: make the step with cuda_graph=False")
+        src = [v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)) for v in batch]
+        key = tuple((tuple(v.shape), v.dtype) for v in src)
+        binding = state_binding(state, generator)
+        entry = self._graphs.get(key)
+        if entry is None or entry.binding != binding:
+            device = next(state.model.parameters()).device
+            if entry is not None:
+                # a stale graph: its pool, and the gradients in it, go
+                # before the eager step allocates anything
+                del self._graphs[key], entry
+                state.optimizer.zero_grad()
+                torch.cuda.empty_cache()
+            if self._warmed.get(key) != binding:
+                metrics = self._run(state, to_batch(src, device), generator)
+                self._warmed[key] = state_binding(state, generator)
+                return metrics
+            inputs = Batch(*(torch.empty(v.shape, dtype=v.dtype, device=device) for v in src))
+            for dst, v in zip(inputs, src):
+                dst.copy_(v)
+            graph = Graph()
+            metrics = graph.capture(lambda: self._run(state, inputs, generator),
+                                    () if generator is None else (generator,))
+            grads = [p.grad for p in state.model.parameters()]
+            entry = self._graphs[key] = _StepGraph(binding, inputs, graph, metrics, grads,
+                                                   generator)
+            self.captures += 1
+        else:
+            for dst, v in zip(entry.inputs, src):
+                dst.copy_(v, non_blocking=True)
+        entry.graph.replay()
+        for p, g in zip(state.model.parameters(), entry.grads):
+            p.grad = g
+        return {k: v.clone() for k, v in entry.metrics.items()}
+
+    @float32_matmuls()
+    def __call__(self, state: TrainState, batch, generator: Optional[torch.Generator] = None):
+        model = state.model
+        model.train()
+        device = next(model.parameters()).device
+        b = batch[0].shape[0]
+        if b % self.accum:
+            raise ValueError(f"batch {b} does not split into {self.accum} microbatches")
+        if self.cuda_graph and device.type == "cuda":
+            metrics = self._graphed(state, batch, generator)
+        else:
+            metrics = self._run(state, to_batch(batch, device), generator)
+        state.optimizer.advance()
+        state.step += 1
+        return state, metrics
 
 
 @contextlib.contextmanager

@@ -3,7 +3,8 @@ resume (the port of ccvpe_tpu/train/trainer.py:30-201).
 
 Replaces the reference per-script loops (reference train_VIGOR.py:96-244,
 train_KITTI.py, train_OxfordRobotCar.py) with one driver over the config:
-train steps fed by a prefetching copy to the card, the eval decode step over
+train steps (one CUDA graph a batch shape on the card) fed by a prefetching
+copy to the card, the eval decode step over
 named validation sets, asynchronous checkpoints of the full state resumed at
 the exact (epoch, batch), and CSV/JSONL metric rows.
 
@@ -91,14 +92,19 @@ class Trainer:
         """Weights drawn from torch.Generator seed train_cfg.seed, on `device`
         (default the card, which raises without one). The newest checkpoint
         under workdir/train_cfg.checkpoint_dir, if any, wins over a warm
-        start or a pretrained backbone."""
+        start or a pretrained backbone. The train step runs as a CUDA graph
+        on the card (make_train_step's cuda_graph), unless NaN checks
+        (core/debug.py) are on when the Trainer is made: anomaly mode cannot
+        be captured. A restored state is another binding: its first step
+        runs eagerly and the next captures anew."""
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         self.state = create_train_state(model_cfg, train_cfg,
                                         torch.Generator().manual_seed(train_cfg.seed),
                                         device=self.device)
-        self.train_step = make_train_step(model_cfg, train_cfg)
+        self.train_step = make_train_step(model_cfg, train_cfg,
+                                          cuda_graph=not torch.is_anomaly_enabled())
         # the scalar eval step on the model being trained (it runs it in eval
         # mode); validate() brings back [B] vectors, never the maps
         self.eval_step = make_eval_decode_step(self.state.model)

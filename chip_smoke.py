@@ -25,7 +25,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      flushed, median) beside the bound from bytes and float32 operations,
      without r (serving) and with r (training), and each scale's plan;
   5. the correlation backward: grads of S and of the ground descriptor
-     through the kernel's autograd.Function against autograd through the
+     through the kernel's op and its registered backward against autograd through the
      plain version, at the six VIGOR scales;
   6. the LMU kernels' 3xTF32 mma.sync primitive alone (mma_probe) against
      a float64 matmul at ragged M x N x K, twice for the same bits, and
@@ -87,7 +87,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      counted); a run stopped by fake_fail_at_step=4 with a checkpoint every
      2 steps; a new Trainer resumed from it, whose parameters, BN buffers,
      Adam state, last validation summary and metric rows must equal the
-     control run's to the bit; Trainer.validate against eval_over_loader
+     control run's to the bit (the Trainer's step is a CUDA graph: the
+     control run captures once, the resumed Trainer anew on its restored
+     state); Trainer.validate against eval_over_loader
      called directly on the same weights, BN buffers unchanged; the
      Trainer's pairs/s from its log rows beside phase 9's p50, checkpoint
      size, host copy, write and restore times, the child's wall time;
@@ -127,24 +129,55 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (launches counted from zero over the first step: B1 1 + 5 bf16, B2 and
      B3 2 each on bf16; p50, pairs/s, peak memory, printed by the parent
      beside phase 12's unfused step, whose float32 first loss the bf16 one
-     must be near) and one InferenceEngine.predict batch (B2 4 on bf16);
+     must be near; the trace of one replayed step at batch 8 must show
+     those launches) and one InferenceEngine.predict batch (B2 4 on bf16);
      vigor(circular_impl='edgefix') and vigor(phase_space_min_res=256)
      against vigor(), float32, batch 8, deterministic mode: the forward's
      heatmap and one train step's losses and gradients, whether each is the
      same bits, and the forward's and step's p50 of both;
- 14. a {"kernels": [...], "probes": [...]} line (probes: the primitive
+ 14. the compiled executables at full width, in a fourth child process
+     (python3 chip_smoke.py --graphs <json>, phase 12's environment):
+     serve.py's export_program -> bytes -> load_program at vigor() batch 1
+     and 8 and vigor(lmu_fused_min_res=256) batch 8: the graph's B1 (6) and
+     B2 (0 or 4) nodes, one run's launches, its rows and cols equal to the
+     eager forward's, the angle within EXPORT_ANGLE_ATOL, the heatmap's
+     largest difference and whether it is the same bits, export seconds
+     and MB; InferenceEngine(cuda_graph=True) against cuda_graph=False on
+     phase 8's 20 requests: the same PoseResults, 18 B1 launches each, one
+     capture (warmup's), each one's p50 batch latency and busy share
+     (torch.profiler), whose trace of one batch must show 6 B1 kernels; in
+     deterministic mode, the fused float32 step and bench.py's options at
+     batch 8, 3 steps eager and 3 graphed from the same state and
+     generator seeds: losses, gradients, parameters, buffers and Adam
+     state the same bits, the same launches every step and in the trace of
+     one profiled step, each one's p50,
+     pairs/s, busy share and peak memory; bench.py's options at batch 96
+     graphed, with the eager first step's peak and the graph's;
+ 15. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
      launches in each eval loop; each kernel's driver_launches are its
      launches in phase 11's control Trainer.fit; corr_fwd_bf16 is B1 on a
      bf16 S, its launches from phase 12's train step; lmu_fwd_bf16 and
      lmu_bwd_bf16 are B2 and B3 on bf16 activations, their launches from
-     phase 13's train step, eval_launches from its predict batch), then
+     phase 13's train step, eval_launches from its predict batch;
+     graph_step_launches are the launches in the torch.profiler trace of
+     one replayed step in phase 14 (bf16 B2/B3: phase 13's at batch 8),
+     graph_serve_launches those of one
+     replayed serving batch, and
+     export_nodes the exported fused program's nodes), then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke.json (phase 11's also to
 chiprun_out/chip_smoke_driver.json, phase 12's to
 chiprun_out/chip_smoke_bench.json, phase 13's to
-chiprun_out/chip_smoke_options.json).
+chiprun_out/chip_smoke_options.json, phase 14's to
+chiprun_out/chip_smoke_graphs.json). InferenceEngine and make_train_step
+capture CUDA graphs by default, so phases 8-13 run graphed after each
+shape's first, eager call. A replay runs none of the wrappers that count
+launches (core/graphs.py adds the capture's count at each replay), so every
+call profiled under torch.profiler (phases 8, 9, 10, 12, 13 and 14) holds the
+counters' change to the kernels its trace shows, and fails on a
+difference.
 
 TF32 is off for matmuls and cuDNN throughout, so every comparison and time
 is strict float32 (the entry points force it too, core/precision.py), but
@@ -299,23 +332,45 @@ def vigor_corr_shapes(cfg, batch):
             for s in range(cfg.num_scales)]
 
 
+# each launch counter's kernel, as torch.profiler names it (demangled:
+# "(anonymous namespace)::corr_fwd_kernel<4, __nv_bfloat16, true>(...)");
+# one wrapper call launches one of these, and at most a reduce beside it
+TRACED_KERNELS = {
+    "corr_fwd": lambda n: "corr_fwd_kernel<" in n and "__nv_bfloat16" not in n,
+    "corr_fwd_bf16": lambda n: "corr_fwd_kernel<" in n and "__nv_bfloat16" in n,
+    "lmu_fwd": lambda n: "lmu_fwd_kernel" in n,
+    "lmu_bwd": lambda n: "lmu_bwd_kernel" in n,
+    "lmu_fwd_bf16": lambda n: "lmu_fwd_bf16_kernel" in n,
+    "lmu_bwd_bf16": lambda n: "lmu_bwd_bf16_kernel" in n,
+}
+
+
 def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_kernel")):
     """Where one call of fn spends device time: torch.profiler kernel
     totals, the device busy share of the window, the top kernels, and the
-    share of the kernels whose names contain one of `ours`."""
+    share of the kernels whose names contain one of `ours`. Also each
+    kernel's launches as the trace shows them (launches_traced) beside what
+    the wrappers' counters added over the call (launches_counted): a
+    replayed CUDA graph runs no wrapper, so this is where a replay's
+    counted launches (core/graphs.py) are held to the kernels it ran. A
+    difference fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = {k: v - before[k] for k, v in launch_counts().items()}
     # Kernels and copies only: CPU ops (aten::*) carry their kernels' time,
     # and the GPU-side user annotations span the same kernels again.
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                and e.self_device_time_total > 0]
+    traced = {k: sum(c for name, _, c in kernels if match(name))
+              for k, match in TRACED_KERNELS.items()}
     kernels.sort(key=lambda x: -x[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
     own = {k: sum(ms for name, ms, _ in kernels if k in name) for k in ours}
@@ -326,7 +381,13 @@ def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_k
         log(f"  {k}: {ms:.3f} ms ({ms / max(busy_ms, 1e-9):.2%} of device time)")
     for name, ms, count in kernels[:15]:
         log(f"  {ms:9.3f} ms {count:4d}x  {name[:110]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=own,
+    log(f"  launches in the trace {traced}, counted {counted} "
+        f"{'ok' if traced == counted else 'FAIL'}")
+    if traced != counted:
+        raise RuntimeError(f"profile {what}: the trace shows launches {traced}, the wrappers' "
+                           f"counters {counted}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=own, launches_traced=traced,
+                launches_counted=counted,
                 kernels=[dict(name=n, ms=ms, count=c) for n, ms, c in kernels[:40]])
 
 
@@ -733,7 +794,7 @@ def corr_grads(sat, grd, shift, bins, center, core, wgt):
 
 
 def fused_call_shapes(model, grd, sat):
-    """(B, Hc, Wc, Cin, Cs, Cd, C1, Cout) of every FusedStage call of one
+    """(B, Hc, Wc, Cin, Cs, Cd, C1, Cout) of every fused stage (lmu_fwd) call of one
     train-mode forward, read from the autograd graph's saved inputs."""
     out = model(grd, sat, torch.Generator(device=grd.device).manual_seed(0))
     roots = [out.logits, out.ori] + list(out.matching_scores)
@@ -743,7 +804,7 @@ def fused_call_shapes(model, grd, sat):
         if node is None or node in seen:
             continue
         seen.add(node)
-        if type(node).__name__ == "FusedStageBackward":
+        if "lmu_fwd" in type(node).__name__:       # the op's registered backward
             x, skip, wd, _, w1, _, w2, _ = node.saved_tensors
             shapes.append((*x.shape, 0 if skip is None else skip.shape[-1],
                            wd.shape[1], w1.shape[0], w2.shape[0]))
@@ -875,11 +936,13 @@ def run_training(card, report, lmu_shapes):
         log(f"FAIL: gradients {grad_bad[:10]}, stats {stat_bad[:10]}")
         return None
 
-    # p50 step time, pairs/s, peak memory
+    # p50 step time, pairs/s, peak memory (the second step captures the
+    # step's CUDA graph, whose pool holds its activations: counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(state, batch, gen)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for _ in range(8):
         t0 = time.perf_counter()
@@ -1206,6 +1269,7 @@ def run_driver(card, report) -> bool:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
         # the control run, counted
         control = Trainer(cfg, cfg_lib.TrainConfig(**base), workdir=f"{tmp}/control")
+        control_step = control.train_step
         steps, forwards, summaries = instrument(control)
         zero_launch_counts()
         t0 = time.perf_counter()
@@ -1275,6 +1339,7 @@ def run_driver(card, report) -> bool:
         resumed.ckpt.restore_latest(resumed.state)       # the same file again, timed alone
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
+        resumed_step = resumed.train_step
         _, _, resumed_summaries = instrument(resumed)
         resumed.fit(train_loaders, val_loaders, mpp)
         torch.cuda.synchronize()
@@ -1294,6 +1359,14 @@ def run_driver(card, report) -> bool:
             f"state ({len(bad_opt)} differ), last validation summary "
             f"({resumed_summaries[-1] == summaries[-1]}) and {len(got_rows)} metric rows "
             f"({got_rows == want_rows}) equal the control run's to the bit")
+
+        # the Trainer's step is a CUDA graph: the control run captured once,
+        # and the resumed Trainer's restored state captured anew
+        captures = dict(control=control_step.captures, resumed=resumed_step.captures)
+        out["captures"] = captures
+        check(captures == {"control": 1, "resumed": 1}, f"graph captures {captures}")
+        log(f"driver graphs: the control Trainer's step captured {captures['control']} graph; "
+            f"the resumed Trainer's captured {captures['resumed']} anew, on its restored state")
 
         sizes = [t["bytes"] for t in timings]
         copy_s = [t["copy_s"] for t in timings]
@@ -1578,9 +1651,10 @@ def check_window_and_remat(card, out, sd) -> bool:
 
 
 def time_steps(step, state, batch, gen, n):
-    """p50 of n steps (each read back), peak memory over them, losses."""
+    """p50 of n steps (each read back), peak memory since the caller reset
+    it (before the step's first call: the capture of its CUDA graph, whose
+    pool holds the activations, allocates then), losses."""
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -1605,6 +1679,7 @@ def run_bench_steps(card, out, sd) -> bool:
     for b in BENCH_BATCHES:
         batch = bench_batch(bench, b)
         zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         state, step, gen, first = one_step(bench, sd, batch)
         launches = launch_counts()
         step(state, batch, gen)                              # warm-up
@@ -1627,6 +1702,7 @@ def run_bench_steps(card, out, sd) -> bool:
         del state, step, batch
         torch.cuda.empty_cache()
     batch = bench_batch(vigor, 8)
+    torch.cuda.reset_peak_memory_stats()
     state, step, gen, first = one_step(vigor, sd, batch)
     step(state, batch, gen)
     p50, peak, times, losses = time_steps(step, state, batch, gen, 6)
@@ -1941,14 +2017,20 @@ def run_fused_bf16_steps(card, out, sd) -> bool:
     for b in BENCH_BATCHES:
         batch = bench_batch(cfg, b)
         zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         state, step, gen, first = one_step(cfg, sd, batch)
         launches = launch_counts()
         step(state, batch, gen)                              # warm-up
         p50, peak, times, losses = time_steps(step, state, batch, gen, 6 if b == 8 else 3)
-        ok = bool(launches == FUSED_BF16_STEP_LAUNCHES
+        # one replayed step at batch 8 under the profiler: its trace's launches
+        traced = (profile_call(lambda: step(state, batch, gen), "one replayed bench.py config "
+                               "+ lmu_fused_min_res=256 step at batch 8", card, p50 * 1e3,
+                               ours=("lmu_fwd_bf16_kernel", "lmu_bwd_bf16_kernel"))
+                  ["launches_traced"] if b == 8 else FUSED_BF16_STEP_LAUNCHES)
+        ok = bool(launches == FUSED_BF16_STEP_LAUNCHES and traced == FUSED_BF16_STEP_LAUNCHES
                   and np.isfinite(list(first.values())).all() and np.isfinite(losses).all())
         res[f"batch {b}"] = dict(first=first, launches=launches, p50_step_ms=p50 * 1e3,
-                                 pairs_per_s=b / p50, peak_bytes=peak,
+                                 pairs_per_s=b / p50, peak_bytes=peak, traced_launches=traced,
                                  step_ms=[t * 1e3 for t in times], losses=losses, ok=ok)
         log(f"train bench.py config + lmu_fused_min_res=256 batch {b} (bf16 B2/B3): launches "
             f"{launches} (want {FUSED_BF16_STEP_LAUNCHES}); p50 step {p50 * 1e3:.2f} ms, "
@@ -2075,6 +2157,335 @@ def options_main(out_path: str) -> int:
     return 0 if ok else 1
 
 
+# --- phase 14: the compiled executables (export, CUDA graphs), in a child ---
+
+GRAPHS_TIMEOUT_S = 400
+# the exported program against the eager forward on the same inputs: rows
+# and cols equal, the decoded angle within EXPORT_ANGLE_ATOL degrees
+EXPORT_ANGLE_ATOL = 1e-3
+# (name, ModelConfig options, batch, B1 nodes, B2 nodes): a forward
+# correlates at six scales; with the fused stages from 256 px, B2 takes
+# both decoders' two finest stages
+EXPORT_CASES = (("vigor batch 1", {}, 1, 6, 0), ("vigor batch 8", {}, 8, 6, 0),
+                ("vigor fused batch 8", dict(lmu_fused_min_res=256), 8, 6, 4))
+SERVE_REQUESTS, SERVE_TIMED = 20, 10
+GRAPH_STEPS, GRAPH_TIMED_STEPS = 3, 8    # steps held bitwise, then timed
+# (name, ModelConfig options, launches a step) of the train steps compared
+# eager against graphed at batch 8, in deterministic mode
+GRAPH_TRAIN_CASES = (("fused f32", dict(lmu_fused_min_res=256), DRIVER_STEP_LAUNCHES),
+                     ("bench.py options", BENCH_OPTIONS, BENCH_LAUNCHES))
+
+
+def op_nodes(blob: bytes) -> dict:
+    """The registered ops' nodes in an exported program's graph."""
+    import io
+    ep = torch.export.load(io.BytesIO(blob))
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    return {op: sum(t.startswith(f"ccvpe_tpu_torch.{op}.") for t in targets)
+            for op in ("corr_fwd", "lmu_fwd")}
+
+
+def run_export(card, out, sd) -> bool:
+    """export_program -> bytes -> load_program at EXPORT_CASES, on uint8
+    images of numpy seed 17 normalized on the card: the ops' nodes, the
+    program's launches, and its outputs against the eager forward and pose
+    decode of the same weights on the same inputs."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core.precision import float32_matmuls
+    from ccvpe_tpu_torch.models.cvm import build_cvm
+    from ccvpe_tpu_torch.ops import pose
+    from ccvpe_tpu_torch.serve import export_program, load_program
+    from ccvpe_tpu_torch.train.step import device_normalize
+    vigor = cfg_lib.vigor()
+    rng = np.random.default_rng(17)
+    g = device_normalize(torch.from_numpy(rng.integers(0, 256, (8, *vigor.grd_size, 3),
+                                                       dtype=np.uint8)).cuda())
+    s = device_normalize(torch.from_numpy(rng.integers(0, 256, (8, *vigor.sat_size, 3),
+                                                       dtype=np.uint8)).cuda())
+    res = out["export"] = {}
+    for name, over, b, want_b1, want_b2 in EXPORT_CASES:
+        cfg = dataclasses.replace(vigor, **over)
+        t0 = time.perf_counter()
+        blob = export_program(cfg, sd, batch_size=b)
+        export_s = time.perf_counter() - t0
+        nodes = op_nodes(blob)
+        t0 = time.perf_counter()
+        program = load_program(blob)
+        load_s = time.perf_counter() - t0
+        zero_launch_counts()
+        got = program(g[:b], s[:b])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        model = build_cvm(cfg, "cuda", state_dict=sd)
+        with torch.inference_mode(), float32_matmuls():
+            o = model(g[:b], s[:b])
+            want = (*pose.decode_pose(o.heatmap, o.ori), o.heatmap)
+        torch.cuda.synchronize()
+        same_rc = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        d = (got[2] - want[2]).abs()
+        angle_err = float(torch.minimum(d, 360.0 - d).max())
+        heat_err = float((got[3] - want[3]).abs().max())
+        same_heat = torch.equal(got[3], want[3])
+        ok = (nodes == {"corr_fwd": want_b1, "lmu_fwd": want_b2} and same_rc
+              and angle_err <= EXPORT_ANGLE_ATOL
+              and launches["corr_fwd"] == want_b1 and launches["lmu_fwd"] == want_b2)
+        res[name] = dict(batch=b, nodes=nodes, launches=launches, export_s=export_s,
+                         load_s=load_s, blob_mb=len(blob) / 1e6, rows_cols_equal=same_rc,
+                         angle_max_err_deg=angle_err, heatmap_max_abs=heat_err,
+                         heatmap_same_bits=same_heat, ok=ok)
+        log(f"export {name}: {len(blob) / 1e6:.1f} MB in {export_s:.2f} s, loaded in "
+            f"{load_s:.2f} s; nodes {nodes} (want B1 {want_b1}, B2 {want_b2}); one run launches "
+            f"B1 {launches['corr_fwd']}, B2 {launches['lmu_fwd']}; against the eager forward: "
+            f"rows and cols equal {same_rc}, angle max err {angle_err:.3g} deg (atol "
+            f"{EXPORT_ANGLE_ATOL}), heatmap max abs {heat_err:.3g}, same bits {same_heat} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        del program, model, got, want, o, blob
+        torch.cuda.empty_cache()
+        if not ok:
+            return False
+    return True
+
+
+def run_graph_serving(card, out, sd) -> bool:
+    """InferenceEngine with and without cuda_graph on phase 8's requests
+    (vigor(), SERVE_REQUESTS uint8 requests of numpy seed 17, batch 8, the
+    last batch padded): the same PoseResults and B1 launches, each one's p50
+    batch latency over SERVE_TIMED batches (host copies included), and the
+    device's busy share over one batch under torch.profiler."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.serve import InferenceEngine
+    vigor = cfg_lib.vigor()
+    rng = np.random.default_rng(17)
+    grd = rng.integers(0, 256, (SERVE_REQUESTS, *vigor.grd_size, 3), dtype=np.uint8)
+    sat = rng.integers(0, 256, (SERVE_REQUESTS, *vigor.sat_size, 3), dtype=np.uint8)
+    res = out["serving"] = {}
+    results = {}
+    for name, flag in (("eager", False), ("graphed", True)):
+        engine = InferenceEngine(vigor, sd, batch_size=8, cuda_graph=flag)
+        engine.warmup()
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        results[name] = engine.predict(grd, sat)
+        launches = launch_counts()
+        lat = []
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            engine.predict(grd[:8], sat[:8])
+            lat.append(time.perf_counter() - t0)
+        p50 = float(np.median(lat))
+        prof = profile_call(lambda: engine.predict(grd[:8], sat[:8]),
+                            f"one {name} serving batch", card, p50 * 1e3)
+        res[name] = dict(launches=launches, p50_batch_ms=p50 * 1e3, pairs_per_s=8 / p50,
+                         batch_ms=[t * 1e3 for t in lat], busy_share=prof["busy_ms"] / prof["wall_ms"],
+                         busy_ms=prof["busy_ms"], captures=engine.captures,
+                         traced_launches=prof["launches_traced"])
+        log(f"serving {name} vigor batch 8: {SERVE_REQUESTS} requests launch B1 "
+            f"{launches['corr_fwd']}; p50 batch latency {p50 * 1e3:.2f} ms, {8 / p50:.2f} pairs/s, "
+            f"device busy {prof['busy_ms']:.2f} ms of a profiled batch "
+            f"({res[name]['busy_share']:.1%}); graphs captured {engine.captures} [{card}]")
+        del engine
+        torch.cuda.empty_cache()
+    same = results["eager"] == results["graphed"]
+    want = 6 * -(-SERVE_REQUESTS // 8)
+    traced = [res[n]["traced_launches"]["corr_fwd"] for n in ("eager", "graphed")]
+    ok = (same and res["eager"]["launches"]["corr_fwd"] == want
+          and res["graphed"]["launches"]["corr_fwd"] == want and traced == [6, 6]
+          and res["graphed"]["captures"] == 1)
+    res["same_results"] = same
+    log(f"serving graphed vs eager: the same {SERVE_REQUESTS} PoseResults {same}; B1 launches "
+        f"{want} each; in the trace of one batch (eager, replayed) {traced}, want 6; graphs "
+        f"captured {res['graphed']['captures']}, want 1 (warmup's) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def train_state_bits(state) -> dict:
+    """Copies of what a step leaves: parameters, their gradients, buffers,
+    the optimizer's state."""
+    m = state.model
+    return dict(params={n: p.detach().clone() for n, p in m.named_parameters()},
+                grads={n: p.grad.detach().clone() for n, p in m.named_parameters()},
+                buffers={n: t.detach().clone() for n, t in m.named_buffers()},
+                adam={i: {k: v.detach().clone() for k, v in st.items()}
+                      for i, st in state.optimizer.opt.state_dict()["state"].items()})
+
+
+def binding_cost(state, gen, n=50):
+    """Median host microseconds of state_binding, which runs before every
+    replay, beside a walk over the data_ptr of every parameter, buffer and
+    optimizer state tensor (what binding a graph to the tensors' addresses
+    would cost)."""
+    from ccvpe_tpu_torch.train.step import state_binding
+
+    def walk():
+        ptrs = [t.data_ptr() for t in state.model.parameters()]
+        ptrs += [t.data_ptr() for t in state.model.buffers()]
+        for per_param in state.optimizer.opt.state.values():
+            ptrs += [v.data_ptr() for v in per_param.values() if torch.is_tensor(v)]
+        return len(ptrs)
+
+    out = []
+    for fn in (lambda: state_binding(state, gen), walk):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out.append(float(np.median(times)) * 1e6)
+    return out[0], out[1], walk()
+
+
+def run_graph_steps(card, out, sd) -> bool:
+    """GRAPH_TRAIN_CASES at batch 8, in deterministic mode: GRAPH_STEPS
+    steps with make_train_step(cuda_graph=False) and as many with the
+    graphed step (the first eager, the second captured and replayed, the
+    third replayed), each from the same state, its generator seeded before
+    every step as the Trainer does: the same losses, gradients, parameters,
+    buffers and Adam state to the bit, the same launches in every step; then
+    each one's p50, pairs/s and peak memory over GRAPH_TIMED_STEPS steps and
+    its busy share over one step under torch.profiler."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core.debug import deterministic
+    from ccvpe_tpu_torch.train.step import create_train_state, make_train_step
+    vigor = cfg_lib.vigor()
+    tc = cfg_lib.TrainConfig()
+    res = out["train"] = {}
+    for case, over, want in GRAPH_TRAIN_CASES:
+        cfg = dataclasses.replace(vigor, **over)
+        batch = bench_batch(cfg, 8)
+        row, bits = {}, {}
+        res[case] = row
+        for name, flag in (("eager", False), ("graphed", True)):
+            with deterministic():
+                state = create_train_state(cfg, tc, state_dict=sd)
+                step = make_train_step(cfg, tc, cuda_graph=flag)
+                gen = torch.Generator(device="cuda")
+                losses, per_step = [], []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(GRAPH_STEPS):
+                    gen.manual_seed(17 + i)
+                    zero_launch_counts()
+                    _, m = step(state, batch, gen)
+                    torch.cuda.synchronize()
+                    per_step.append(launch_counts())
+                    losses.append({k: float(v) for k, v in m.items()})
+                bits[name] = train_state_bits(state)
+                times = []
+                for i in range(GRAPH_TIMED_STEPS):
+                    gen.manual_seed(17 + GRAPH_STEPS + i)
+                    t0 = time.perf_counter()
+                    _, m = step(state, batch, gen)
+                    float(m["loss"])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+                p50 = float(np.median(times))
+                prof = profile_call(lambda: step(state, batch, gen), f"one {name} {case} step",
+                                    card, p50 * 1e3)
+            row[name] = dict(losses=losses, launches=per_step, p50_step_ms=p50 * 1e3,
+                             pairs_per_s=8 / p50, step_ms=[t * 1e3 for t in times],
+                             peak_bytes=peak, reserved_bytes=reserved,
+                             busy_ms=prof["busy_ms"], busy_share=prof["busy_ms"] / prof["wall_ms"],
+                             captures=getattr(step, "captures", 0),
+                             traced_launches=prof["launches_traced"])
+            if flag:
+                bind_us, walk_us, n_tensors = binding_cost(state, gen)
+                row[name].update(binding_us=bind_us, tensor_walk_us=walk_us,
+                                 state_tensors=n_tensors)
+                log(f"train graphed {case}: state_binding {bind_us:.2f} us a step (host); a "
+                    f"walk over the data_ptr of the state's {n_tensors} tensors {walk_us:.2f} "
+                    f"us [{card}]")
+            log(f"train {name} {case} batch 8 (deterministic mode): p50 step {p50 * 1e3:.2f} ms, "
+                f"{8 / p50:.2f} pairs/s, device busy {prof['busy_ms']:.2f} ms of a profiled step "
+                f"({row[name]['busy_share']:.1%}), peak memory {peak / 2 ** 30:.2f} GiB allocated, "
+                f"{reserved / 2 ** 30:.2f} GiB reserved; launches a step {per_step[-1]}; graphs "
+                f"captured {row[name]['captures']} [{card}]")
+            del state, step
+            torch.cuda.empty_cache()
+        e, gr = bits["eager"], bits["graphed"]
+        bad = {k: same_bits(e[k], gr[k]) for k in e}
+        bad["adam"] = same_bits({str(i): v for i, v in e["adam"].items()},
+                                {str(i): v for i, v in gr["adam"].items()})
+        same_losses = row["eager"]["losses"] == row["graphed"]["losses"]
+        launches_ok = (all(c == want for c in row["eager"]["launches"] + row["graphed"]["launches"])
+                       and all(row[n]["traced_launches"] == want for n in ("eager", "graphed")))
+        ok = same_losses and not any(bad.values()) and launches_ok
+        row.update(differ={k: v[:10] for k, v in bad.items()}, same_losses=same_losses, ok=ok)
+        log(f"train graphed vs eager, {case}, {GRAPH_STEPS} steps: losses the same bits "
+            f"{same_losses}; differing tensors {json.dumps({k: len(v) for k, v in bad.items()})} "
+            f"of {json.dumps({k: len(v) for k, v in e.items()})}; launches in every step "
+            f"{want}, and in the trace of a profiled (eager, replayed) step, {launches_ok} "
+            f"{'ok' if ok else 'FAIL'}")
+        del bits, e, gr
+        torch.cuda.empty_cache()
+        if not ok:
+            return False
+    # bench.py's options at batch 96, graphed: the eager first step's peak,
+    # then the peak with the graph's private pool on top
+    cfg = dataclasses.replace(vigor, **BENCH_OPTIONS)
+    batch = bench_batch(cfg, 96)
+    state = create_train_state(cfg, tc, state_dict=sd)
+    step = make_train_step(cfg, tc)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_reserved = torch.cuda.max_memory_reserved()
+    step(state, batch, gen)                            # captured, then replayed
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    p50 = float(np.median(times))
+    ok = step.captures == 1 and bool(np.isfinite(losses).all())
+    res["bench.py options batch 96"] = dict(
+        p50_step_ms=p50 * 1e3, pairs_per_s=96 / p50, step_ms=[t * 1e3 for t in times],
+        eager_peak_bytes=eager_peak, eager_reserved_bytes=eager_reserved, peak_bytes=peak,
+        reserved_bytes=reserved, losses=losses, ok=ok)
+    log(f"train graphed bench.py options batch 96: p50 step {p50 * 1e3:.2f} ms, "
+        f"{96 / p50:.2f} pairs/s; peak memory after the eager first step "
+        f"{eager_peak / 2 ** 30:.2f} GiB allocated ({eager_reserved / 2 ** 30:.2f} reserved), "
+        f"with the graph {peak / 2 ** 30:.2f} GiB allocated ({reserved / 2 ** 30:.2f} reserved) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    return ok
+
+
+def graphs_main(out_path: str) -> int:
+    """Phase 14 in its own process (the environment as phase 12's). The
+    kernels were built by the parent; loading finds them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --graphs: no CUDA device", file=sys.stderr)
+        return 2
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.models.cvm import CVM, random_init_
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    corr_cuda.load_library()
+    lmu_cuda.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    out = {}
+    sd = random_init_(CVM(cfg_lib.vigor()).to_empty(device="cpu"),
+                      torch.Generator().manual_seed(17)).state_dict()
+    t0 = time.perf_counter()
+    out["part_s"] = {}
+    ok = True
+    for part, run in (("export", run_export), ("serving", run_graph_serving),
+                      ("train", run_graph_steps)):
+        t1 = time.perf_counter()
+        ok = ok and run(card, out, sd)
+        out["part_s"][part] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"graphs": out}, f, indent=1)
+    return 0 if ok else 1
+
+
 def run_child(flag: str, name: str, timeout_s: int):
     """`python3 chip_smoke.py <flag> chiprun_out/<name>` as a child process
     with CUBLAS_WORKSPACE_CONFIG=:4096:8; returns its wall time and JSON, or
@@ -2083,6 +2494,8 @@ def run_child(flag: str, name: str, timeout_s: int):
     out_path = os.path.abspath(os.path.join(OUT_DIR, name))
     if os.path.exists(out_path):
         os.remove(out_path)
+    import gc
+    gc.collect()                    # the parent's dead graphs give their pools back
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
@@ -2338,14 +2751,14 @@ def main() -> int:
     report["timing_total"] = tot
 
     phase_done(4)
-    # 5. the corr backward on the card: grads through the kernel's Function
+    # 5. the corr backward on the card: grads through the kernel's op
     #    against autograd through its plain version, at the six VIGOR scales
     report["corr_bwd"] = []
     for name, b, n, d, length, shift, bins, center in cases[:6]:
         s_flat = torch.randn(b, n, d, device="cuda", generator=gen)
         grd_v = torch.randn(b, length, device="cuda", generator=gen)
         wgt = torch.randn(b, n, len(bins), device="cuda", generator=gen)
-        got = corr_grads(s_flat, grd_v, shift, bins, center, corr_cuda.CorrCore.apply, wgt)
+        got = corr_grads(s_flat, grd_v, shift, bins, center, corr_cuda.corr_core_diff, wgt)
         want = corr_grads(s_flat, grd_v, shift, bins, center, corr_core_plain, wgt)
         torch.cuda.synchronize()
         errs = [scaled_err(g, w) if g is not None else 1.0 for g, w in zip(got, want)]
@@ -2622,6 +3035,29 @@ def main() -> int:
         return 1
     bft = opts["lmu_bf16_timing_total"]
 
+    phase_done(13)
+    # 14. the compiled executables: exported programs, graphed serving and
+    #     graphed train steps against eager ones, in a child
+    res = run_child("--graphs", "chip_smoke_graphs.json", GRAPHS_TIMEOUT_S)
+    if res is None:
+        return 1
+    graphs = report["graphs"] = res[1]["graphs"]
+    graphs["child_wall_s"] = res[0]
+    log(f"graphs: child process wall {res[0]:.2f} s, {graphs['seconds']:.2f} s of checks and "
+        f"runs ({', '.join(f'{k} {v:.1f} s' for k, v in graphs['part_s'].items())}) [{card}]")
+    for case, _, _ in GRAPH_TRAIN_CASES:
+        e, g = graphs["train"][case]["eager"], graphs["train"][case]["graphed"]
+        log(f"graphs {case} batch 8 (deterministic mode): p50 step eager {e['p50_step_ms']:.2f} "
+            f"ms, graphed {g['p50_step_ms']:.2f} ms; device busy {e['busy_ms']:.2f} and "
+            f"{g['busy_ms']:.2f} ms [{card}]")
+    serve_e, serve_g = graphs["serving"]["eager"], graphs["serving"]["graphed"]
+    log(f"graphs serving batch 8: p50 eager {serve_e['p50_batch_ms']:.2f} ms, graphed "
+        f"{serve_g['p50_batch_ms']:.2f} ms [{card}]")
+    # launches in the trace of one replayed step and one replayed serving batch
+    graph_f32 = graphs["train"]["fused f32"]["graphed"]["traced_launches"]
+    graph_bench = graphs["train"]["bench.py options"]["graphed"]["traced_launches"]
+    nodes = graphs["export"]["vigor fused batch 8"]["nodes"]
+
     def by(key):
         t_b = lmu_tot[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
         return "bytes" if t_b >= lmu_tot[f"{key}_ops_ms"] else "operations"
@@ -2636,6 +3072,9 @@ def main() -> int:
         "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
         "eval_launches": eval_launches, "driver_launches": driver["fit_launches"]["corr_fwd"],
         "bench_launches": bench8["launches"]["corr_fwd"],
+        "graph_step_launches": graph_f32["corr_fwd"],
+        "graph_serve_launches": serve_g["traced_launches"]["corr_fwd"],
+        "export_nodes": nodes["corr_fwd"],
     }, {
         # B1 on a bf16 S: the decoder's maps in bench.py's configuration;
         # launches from its train step at batch 8, times at those five scales
@@ -2649,6 +3088,7 @@ def main() -> int:
         "f32_ms": bt["f32_ms"],
         "f32_r_ms": bt["f32_r_ms"], "f32_bound_ms": bt["f32_bound_ms"],
         "eval_launches": bench["predict"]["launches"]["corr_fwd_bf16"],
+        "graph_step_launches": graph_bench["corr_fwd_bf16"],
     }, {
         "name": "lmu_fwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:264",
@@ -2658,6 +3098,7 @@ def main() -> int:
         "library_ms": lmu_tot["fwd_chain_ms"], "tc_bound_ms": lmu_tot["fwd_tc_bound_ms"],
         "fma_bound_ms": lmu_tot["fwd_f32_bound_ms"],
         "driver_launches": driver["fit_launches"]["lmu_fwd"],
+        "graph_step_launches": graph_f32["lmu_fwd"], "export_nodes": nodes["lmu_fwd"],
     }, {
         "name": "lmu_bwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
         "replaces": "ccvpe_tpu/ops/lmu_pallas.py:404",
@@ -2667,6 +3108,7 @@ def main() -> int:
         "library_ms": lmu_tot["bwd_chain_ms"], "tc_bound_ms": lmu_tot["bwd_tc_bound_ms"],
         "fma_bound_ms": lmu_tot["bwd_f32_bound_ms"],
         "driver_launches": driver["fit_launches"]["lmu_bwd"],
+        "graph_step_launches": graph_f32["lmu_bwd"],
     }] + [{
         # B2 and B3 on bf16 activations (phase 13): launches from the bf16
         # fused train step at batch 8 (and a predict batch's), times at the
@@ -2679,6 +3121,7 @@ def main() -> int:
         "bound_ms": bft[f"{key}_bound_ms"], "bound_by": bft[f"{key}_bound_by"],
         "library_ms": bft[f"{key}_chain_ms"], "f32_ms": bft[f"{key}_f32_ms"],
         "eval_launches": opts["fused_bf16"]["predict"]["launches"][f"lmu_{key}_bf16"],
+        "graph_step_launches": fused8["traced_launches"][f"lmu_{key}_bf16"],
     } for key, line in (("fwd", 264), ("bwd", 404))]
     # the LMU kernels' tensor-core primitive alone (its entry "checks" names
     # the weight gradients it was first added for), on no path of the
@@ -2698,7 +3141,7 @@ def main() -> int:
     }]
     report["kernels"] = kernels
     report["probes"] = probes
-    phase_done(13)
+    phase_done(14)
     log("phase wall seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in report["phase_s"].items()))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2717,4 +3160,6 @@ if __name__ == "__main__":
         sys.exit(bench_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--model-options":
         sys.exit(options_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--graphs":
+        sys.exit(graphs_main(sys.argv[2]))
     sys.exit(main())

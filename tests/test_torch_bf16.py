@@ -318,7 +318,7 @@ def test_plain_core_computes_in_the_descriptors_dtype():
 
 
 def test_corr_gradient_comes_back_in_the_map_dtype():
-    """CorrCore's backward (two products in float32; S^2's rounding passes
+    """corr_fwd's registered backward (two products in float32; S^2's rounding passes
     the gradient through) gives a bf16 map a bf16 gradient: autograd's
     float32 one within bf16's rounding (half an ulp, at most 2^-8 relative) plus
     float32 roundoff of sums taken in another order (1e-5 of the largest)."""
@@ -327,7 +327,7 @@ def test_corr_gradient_comes_back_in_the_map_dtype():
     g = torch.randn(2, 20, 40, generator=torch.Generator().manual_seed(3))
     m = (torch.rand(20, 40, generator=torch.Generator().manual_seed(4)) > 0.3).float()
     w = torch.randn(2, 30, 20, generator=torch.Generator().manual_seed(5))
-    (corr_cuda.CorrCore.apply(s, g, m, True) * w).sum().backward()
+    (corr_cuda.corr_core_diff(s, g, m, True) * w).sum().backward()
     s32 = s.detach().float().requires_grad_()
     sq = s32 * s32
     sq = sq + (sq.detach().bfloat16().float() - sq.detach())     # rounded, straight through

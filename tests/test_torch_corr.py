@@ -173,7 +173,7 @@ def test_dispatch_rejects_bad_impl_and_cuda_on_cpu():
         tcorr.rolled_corr_dispatch(sat, grd, 1, 4, impl="cuda")
 
 
-# --- the backward (CorrCore, the counterpart of the custom VJP) ---
+# --- the backward (corr_fwd's registered one, the counterpart of the custom VJP) ---
 
 def test_corr_core_bwd_matches_jax_bwd(rng):
     """corr_core_bwd against JAX's _corr_core_bwd (plain jnp) on the same
@@ -206,7 +206,7 @@ GRAD_CASES = [(2, 4, 4, 80, 80, 4, 20, False, None),
 @pytest.mark.parametrize("case", GRAD_CASES, ids=["vigor", "center", "prior"])
 def test_corr_grads_match_jax(case, impl):
     """Gradients of sat and grd through the port (rolled_corr_cuda, i.e.
-    CorrCore, which a CUDA tensor takes; and rolled_corr_dispatch 'auto',
+    the op's registered backward, which a CUDA tensor takes; and rolled_corr_dispatch 'auto',
     the plain einsums on a CPU tensor) against jax.grad of the JAX
     package's ops/corr.py rolled_corr, for the loss sum(scores * weight)."""
     import jax
@@ -240,7 +240,7 @@ def test_corr_grads_match_jax(case, impl):
 
 def test_forward_without_grad_keeps_one_product():
     """With no gradient wanted, rolled_corr_cuda calls corr_core without r
-    (the serving path); with one, it goes through CorrCore."""
+    (the serving path); with one, with r for the op's backward."""
     from unittest import mock
 
     from ccvpe_tpu_torch.ops import corr_cuda

@@ -75,3 +75,20 @@ def test_build_dir_is_ignored_by_git():
     rel = build.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     lines = (ROOT / ".gitignore").read_text().split()
     assert rel in lines
+
+
+def test_importing_the_package_registers_the_ops():
+    """A program from serve.py::export_program loads after `import
+    ccvpe_tpu_torch` alone: the import registers B1's and B2's forward ops,
+    and builds nothing."""
+    code = ("import torch, ccvpe_tpu_torch\n"
+            "from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda\n"
+            "print(torch.ops.ccvpe_tpu_torch.corr_fwd.default._schema)\n"
+            "print(torch.ops.ccvpe_tpu_torch.lmu_fwd.default._schema)\n"
+            "assert corr_cuda.load_library.cache_info().currsize == 0\n"
+            "assert lmu_cuda.load_library.cache_info().currsize == 0\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "corr_fwd(Tensor s_flat" in proc.stdout and "lmu_fwd(Tensor x" in proc.stdout

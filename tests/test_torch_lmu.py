@@ -2,7 +2,7 @@
 backward kernels in CPU interpret mode (as tests/test_lmu_pallas.py runs
 them) and the jnp reference; the port side is the plain versions of
 ops/lmu.py, which the wrappers of ops/lmu_cuda.py run on CPU tensors, and
-FusedStage's gradients. The CUDA kernels themselves are held against the
+the op's registered gradients. The CUDA kernels themselves are held against the
 plain versions on the card by chip_smoke.py.
 
 Tolerances: forward atol/rtol 1e-5 as tests/test_lmu_pallas.py (f32 sums
@@ -18,7 +18,7 @@ from ccvpe_tpu.ops.lmu_pallas import (_flipT, fused_stage, fused_stage_bwd_palla
                                       fused_stage_reference)
 from ccvpe_tpu_torch.ops import lmu_cuda
 from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain
-from ccvpe_tpu_torch.ops.lmu_cuda import FusedStage, kernel_weights
+from ccvpe_tpu_torch.ops.lmu_cuda import kernel_weights
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_ATOL = 3e-4
@@ -112,7 +112,8 @@ def test_fused_stage_bwd_plain_matches_pallas(cskip, strip):
 
 @pytest.mark.parametrize("cskip", [3, 0])
 def test_fused_stage_function_grads_match_autograd(cskip):
-    """FusedStage.apply on CPU tensors (plain forward, plain backward from
+    """lmu_cuda.fused_stage on CPU tensors (plain forward, the op's registered
+    backward: fused_stage_bwd's plain version from
     the saved inputs) against autograd of the plain chain; launches nothing."""
     x, skip, ws = _case(3, 2, 8, 8, 5, 4, cskip, 6, 2)
     before = (lmu_cuda.fused_stage.launches, lmu_cuda.fused_stage_bwd.launches)
@@ -124,7 +125,7 @@ def test_fused_stage_function_grads_match_autograd(cskip):
         return ts
 
     a, b = leaves(), leaves()
-    (FusedStage.apply(*a) ** 2).sum().backward()
+    (lmu_cuda.fused_stage(*a) ** 2).sum().backward()
     (fused_stage_plain(*b) ** 2).sum().backward()
     for ta, tb, name in zip(a, b, NAMES):
         if ta is None:

@@ -38,7 +38,7 @@ from ccvpe_tpu_torch.models.cvm import build_cvm
 from ccvpe_tpu_torch.nn import efficientnet as teff
 from ccvpe_tpu_torch.ops import lmu_cuda
 from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain, round_bf16
-from ccvpe_tpu_torch.ops.lmu_cuda import (FusedStage, fused_stage_bf16_split_plain,
+from ccvpe_tpu_torch.ops.lmu_cuda import (fused_stage_bf16_split_plain,
                                           fused_stage_bwd_bf16_split_plain, kernel_weights,
                                           kernel_weights_bf16)
 from ccvpe_tpu_torch.train import step as tstep
@@ -150,14 +150,14 @@ def test_wrappers_on_cpu_take_the_bf16_plain_versions():
 
 
 def test_fused_stage_function_in_bf16():
-    """FusedStage.apply on bf16 CPU activations: float32 y; the backward's
+    """lmu_cuda.fused_stage on bf16 CPU activations: float32 y; the backward's
     dx and dskip in bf16 (the inputs' type), the weights' in float32, as
     fused_stage_bwd_plain gives them."""
     x, skip, ws, _ = _inputs(CASES[0], 5)
     xs = _t16(x).requires_grad_()
     ss = _t16(skip).requires_grad_()
     params = [w.clone().requires_grad_() for w in _torch_weights(ws)]
-    y = FusedStage.apply(xs, ss, *params)
+    y = lmu_cuda.fused_stage(xs, ss, *params)
     assert y.dtype == torch.float32
     dy = torch.randn(*y.shape, generator=torch.Generator().manual_seed(1))
     y.backward(dy)
