@@ -148,9 +148,10 @@ class TrainConfig:
     `epochs`, `seed` (the initial weights, and drop-connect's per-step seeds),
     `pretrained_backbone`, `warm_start`, `checkpoint_dir`, `keep_checkpoints`,
     `checkpoint_every_steps`, `log_every` and `fake_fail_at_step`.
-    `data_axis` and `model_axis` name the JAX package's sharding axes and
-    have no meaning on one card: they wait for scale-out (ROADMAP.md,
-    queue A6)."""
+    `data_axis` and `model_axis` name the mesh's two axes
+    (core/mesh.py::make_mesh, which the Trainer builds): the data axis is
+    every process of the run, the model axis has size 1 (ROADMAP.md, queue
+    A8)."""
 
     learning_rate: float = 1e-4
     beta1: float = 0.9

@@ -69,10 +69,13 @@ def _batch_crop(t: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
 
 
 # ModelConfig fields the port does not run yet: (field, default, the item
-# of ROADMAP.md queue A that brings it)
+# of ROADMAP.md queue A that brings it). The model axis shards the
+# correlation's spatial or orientation axis over a mesh's 'model' axis
+# (ccvpe_tpu/models/cvm.py:68-76, ops/corr.py:117-138,
+# ::rolled_corr_bin_sharded); the data axis is ported (core/mesh.py).
 _NOT_PORTED = (
-    ("spatial_axis", None, "A6, scale-out"),
-    ("ori_axis", None, "A6, scale-out"),
+    ("spatial_axis", None, "A8, model axis"),
+    ("ori_axis", None, "A8, model axis"),
 )
 
 

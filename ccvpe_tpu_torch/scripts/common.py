@@ -1,12 +1,22 @@
 """Flags and the TrainConfig that the three train scripts share: those of
-scripts/train_{vigor,kitti,oxford}.py without the distributed ones (the
-port runs one process on one card), plus --preset and --device."""
+scripts/train_{vigor,kitti,oxford}.py, the distributed ones included
+(core/mesh.py::add_distributed_flags), plus --preset and --device.
+
+Across processes, one command a process (its card cuda:(process_id %
+device_count); with --device cpu, gloo on the host):
+  python -m ccvpe_tpu_torch.scripts.train_vigor ... --coordinator host:port \\
+      --num_processes N --process_id i
+or the environment's CCVPE_COORDINATOR, CCVPE_NUM_PROCESSES and
+CCVPE_PROCESS_ID. --batch_size is the global batch; each process loads its
+block of batch_size / N rows."""
 
 from __future__ import annotations
 
 import argparse
+from typing import Tuple
 
 from ccvpe_tpu_torch.core import config as cfg_lib
+from ccvpe_tpu_torch.core import mesh
 
 
 def add_common_flags(p: argparse.ArgumentParser, name: str, epochs: int) -> None:
@@ -40,6 +50,19 @@ def add_common_flags(p: argparse.ArgumentParser, name: str, epochs: int) -> None
     p.add_argument("--device", default=None,
                    help="torch device; default the card, which raises without one "
                         "(pass cpu to run on the CPU)")
+    mesh.add_distributed_flags(p)
+
+
+def setup_processes(args) -> Tuple[int, int, int]:
+    """Join the process group the flags name (nccl on the cards, gloo with
+    --device cpu; nothing for one process). Returns (shard_id, num_shards,
+    the local batch) for the loaders."""
+    shard_id, num_shards = mesh.setup_distributed(args, device=args.device)
+    if args.batch_size % num_shards or args.batch_size < num_shards:
+        raise ValueError(f"global batch {args.batch_size} must be divisible by num_shards "
+                         f"{num_shards} (otherwise the actual global batch silently shrinks "
+                         f"and may stop dividing the mesh data axis)")
+    return shard_id, num_shards, args.batch_size // num_shards
 
 
 def train_config(args) -> cfg_lib.TrainConfig:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import argparse
 
 from ccvpe_tpu_torch.core import config as cfg_lib
-from ccvpe_tpu_torch.scripts.common import add_common_flags, train_config
+from ccvpe_tpu_torch.scripts.common import add_common_flags, setup_processes, train_config
 
 
 def main(argv=None):
@@ -24,6 +24,7 @@ def main(argv=None):
     p.add_argument("--rotation_range", type=float, default=180)
     add_common_flags(p, "kitti", epochs=6)
     args = p.parse_args(argv)
+    shard_id, num_shards, local_bs = setup_processes(args)
 
     if args.training == "True":
         from ccvpe_tpu_torch.data import kitti as kitti_data
@@ -47,11 +48,12 @@ def main(argv=None):
                           device=args.device)
         trainer.fit(
             train_loader_fn=lambda epoch: ThreadedLoader(
-                train_set, args.batch_size, shuffle=True, seed=epoch,
-                num_workers=args.num_workers),
+                train_set, local_bs, shuffle=True, seed=epoch,
+                num_workers=args.num_workers, shard_id=shard_id, num_shards=num_shards),
             val_loader_fn=lambda epoch: {
-                name: ThreadedLoader(ds, args.batch_size, shuffle=False,
-                                     num_workers=args.num_workers)
+                name: ThreadedLoader(ds, local_bs, shuffle=False,
+                                     num_workers=args.num_workers,
+                                     shard_id=shard_id, num_shards=num_shards)
                 for name, ds in eval_sets.items()},
             meters_per_pixel=train_set.meters_per_pixel,
         )

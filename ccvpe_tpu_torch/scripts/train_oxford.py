@@ -12,7 +12,7 @@ import argparse
 import numpy as np
 
 from ccvpe_tpu_torch.core import config as cfg_lib
-from ccvpe_tpu_torch.scripts.common import add_common_flags, train_config
+from ccvpe_tpu_torch.scripts.common import add_common_flags, setup_processes, train_config
 
 
 def main(argv=None):
@@ -21,6 +21,7 @@ def main(argv=None):
     p.add_argument("--sat_path", required=True, help="stitched aerial map path")
     add_common_flags(p, "oxford", epochs=50)
     args = p.parse_args(argv)
+    shard_id, num_shards, local_bs = setup_processes(args)
 
     from ccvpe_tpu_torch.data import oxford as oxford_data
     from ccvpe_tpu_torch.data.loader import ThreadedLoader
@@ -41,21 +42,22 @@ def main(argv=None):
                           device=args.device)
         trainer.fit(
             train_loader_fn=lambda epoch: ThreadedLoader(
-                train_set, args.batch_size, shuffle=True, seed=epoch,
-                num_workers=args.num_workers),
+                train_set, local_bs, shuffle=True, seed=epoch,
+                num_workers=args.num_workers, shard_id=shard_id, num_shards=num_shards),
             val_loader_fn=lambda epoch: ThreadedLoader(
-                val_set, args.batch_size, shuffle=False, num_workers=args.num_workers),
+                val_set, local_bs, shuffle=False, num_workers=args.num_workers,
+                shard_id=shard_id, num_shards=num_shards),
             meters_per_pixel=train_set.meters_per_pixel,
         )
         return trainer
 
     # sequential per-frame streaming eval over the 3 test traversals
     # (train_OxfordRobotCar.py:195-397), long/lat decomposition included
-    from ccvpe_tpu_torch.models.cvm import resolve_device
+    from ccvpe_tpu_torch.core import mesh
     from ccvpe_tpu_torch.train.evaluate import load_model
     from ccvpe_tpu_torch.train.stream import stream_eval
 
-    device = resolve_device(args.device)
+    device = mesh.process_device(args.device)
     dataset = oxford_data.OxfordDataset(args.grd_root, args.sat_path, split="test",
                                         grd_size=model_cfg.grd_size)
     model = load_model(model_cfg, args.checkpoint, device)
@@ -64,11 +66,13 @@ def main(argv=None):
     for t in range(3):
         summary = stream_eval(model, model_cfg, dataset,
                               indices=range(bounds[t], bounds[t + 1]),
-                              batch_size=args.batch_size,
+                              batch_size=local_bs,
                               meters_per_pixel=dataset.meters_per_pixel(),
-                              num_workers=args.num_workers, device=device)
+                              num_workers=args.num_workers, shard_id=shard_id,
+                              num_shards=num_shards, device=device)
         fps = summary.pop("fps")
-        print(f"traversal {t + 1}: {summary} stream rate {fps:.1f} FPS")
+        if shard_id == 0:
+            print(f"traversal {t + 1}: {summary} stream rate {fps:.1f} FPS/process")
         summaries.append(summary)
     return summaries
 

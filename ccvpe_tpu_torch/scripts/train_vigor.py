@@ -15,7 +15,7 @@ import argparse
 import numpy as np
 
 from ccvpe_tpu_torch.core import config as cfg_lib
-from ccvpe_tpu_torch.scripts.common import add_common_flags, train_config
+from ccvpe_tpu_torch.scripts.common import add_common_flags, setup_processes, train_config
 
 
 def main(argv=None):
@@ -27,6 +27,7 @@ def main(argv=None):
     p.add_argument("--ori_noise", type=float, default=180.0)
     add_common_flags(p, "vigor", epochs=15)
     args = p.parse_args(argv)
+    shard_id, num_shards, local_bs = setup_processes(args)
 
     # round ori_noise to the bin grid (train_VIGOR.py:49)
     ori_noise = 18.0 * (args.ori_noise // 18.0)
@@ -53,11 +54,12 @@ def main(argv=None):
                           device=args.device)
         trainer.fit(
             train_loader_fn=lambda epoch: ThreadedLoader(
-                dataset, args.batch_size, shuffle=True, seed=epoch,
-                num_workers=args.num_workers, indices=train_idx),
+                dataset, local_bs, shuffle=True, seed=epoch,
+                num_workers=args.num_workers, indices=train_idx,
+                shard_id=shard_id, num_shards=num_shards),
             val_loader_fn=lambda epoch: ThreadedLoader(
-                dataset, args.batch_size, shuffle=False, num_workers=args.num_workers,
-                indices=val_idx),
+                dataset, local_bs, shuffle=False, num_workers=args.num_workers,
+                indices=val_idx, shard_id=shard_id, num_shards=num_shards),
             meters_per_pixel=dataset.meters_per_pixel,
         )
         return trainer

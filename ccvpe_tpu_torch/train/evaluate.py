@@ -13,6 +13,12 @@ only after its batch was read, so no copy reads a buffer being refilled.
 Padded rows are dropped before any metric. On the CPU the same loop runs
 synchronously, with ordinary host tensors.
 
+Across processes (core/mesh.py) each process walks its shard of the loader
+and the raw per-sample errors of every process are pooled
+(mesh.all_hosts_concat) before any median or recall, as in the JAX
+package (ccvpe_tpu/train/evaluate.py:121-125): every process returns the
+summary of the whole set.
+
 Entry points take `device=None` as the card and raise without one; pass
 device="cpu" to run on the CPU.
 """
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from ccvpe_tpu_torch.core import config as cfg_lib
+from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.checkpoint import latest_model_state
 from ccvpe_tpu_torch.data.kitti import KittiDataset
 from ccvpe_tpu_torch.data.loader import ThreadedLoader
@@ -36,8 +43,18 @@ from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.train.step import make_eval_decode_step
 from ccvpe_tpu_torch.utils.convert import load_state_dict_file
 
-MULTI_HOST = ("pooling per-sample errors across processes is not ported "
-              "(ROADMAP.md, queue A: scale-out)")
+
+def check_shards(loader, what: str, shard_id: Optional[int] = None,
+                 num_shards: Optional[int] = None) -> None:
+    """Refuse a loader (or the shard_id / num_shards given) that is not this
+    process's shard of the data: (shard_id, num_shards) must be (rank,
+    world size), (0, 1) for one process."""
+    sid = getattr(loader, "shard_id", 0) if shard_id is None else shard_id
+    n = getattr(loader, "num_shards", 1) if num_shards is None else num_shards
+    if (sid, n) != (mesh.rank(), mesh.world_size()):
+        raise ValueError(f"{what} over shard {sid} of {n}: this is process {mesh.rank()} of "
+                         f"{mesh.world_size()}, whose shard is {mesh.rank()} of "
+                         f"{mesh.world_size()}")
 
 
 def load_model(model_cfg: cfg_lib.ModelConfig, checkpoint: str, device) -> CVM:
@@ -151,10 +168,10 @@ def eval_over_loader(
     `device` (default the card): six [B] vectors come back per batch, never
     the maps. `meters_per_pixel` is a float, or a callable city -> float
     applied to the batch's "city" field (VIGOR's per-city scales,
-    train_VIGOR.py:193-200)."""
-    if getattr(loader, "num_shards", 1) > 1:
-        raise NotImplementedError(f"eval_over_loader over {loader.num_shards} shards: "
-                                  + MULTI_HOST)
+    train_VIGOR.py:193-200). Across processes `loader` is this process's
+    shard (shard_id, num_shards = rank, world size), and the summary is
+    that of every process's samples together."""
+    check_shards(loader, "eval_over_loader")
     device = resolve_device(device)
     dist, ori_err, longi, lat, prob = [], [], [], [], []
 
@@ -179,6 +196,12 @@ def eval_over_loader(
         lat.extend(la.tolist())
         if with_prob_at_gt:
             prob.extend(prob_gt.tolist())
+    # every process's raw per-sample errors, so that medians and recalls are
+    # over the whole set
+    dist, ori_err, longi, lat = (mesh.all_hosts_concat(a).tolist()
+                                 for a in (dist, ori_err, longi, lat))
+    if with_prob_at_gt:
+        prob = mesh.all_hosts_concat(prob).tolist()
     summary = pose.summarize(np.array(dist), np.array(ori_err),
                              np.array(prob) if prob else None)
     if with_recalls:

@@ -12,6 +12,17 @@ step returning the new state), the port keeps the parameters and the BN
 running stats in the CVM module and the moments in the optimizer: the step
 updates `TrainState` in place and returns it. State lives on the card
 unless the caller passes device="cpu".
+
+Across N processes (core/mesh.py; one card each) the step is the JAX step
+on the global batch, each process holding its block of rows: BatchNorm's
+moments and the losses are the global batch's (nn/efficientnet.py,
+train/losses.py), each process backpropagates that loss, and the
+gradients are averaged in one flat float32 all-reduce (core/mesh.py's note
+says why the mean) before clipping and the update, so every process
+applies the same update. With gradient
+accumulation microbatch i is the global rows [i*M, (i+1)*M) of the global
+batch, M = N * B / A, as the JAX package's reshape slices it: every process
+gathers the global batch's inputs and runs its B / A rows of each.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
 from ccvpe_tpu_torch.core.graphs import Graph
 from ccvpe_tpu_torch.core.precision import float32_matmuls
@@ -336,7 +348,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, cuda_graph: 
     after each replay; metrics come back as clones of its static outputs.
     `step.captures` counts captures. A capture that fails raises, as does a
     graphed call under NaN checks (anomaly mode cannot be captured: pass
-    cuda_graph=False). The graph's private memory pool comes on top of the
+    cuda_graph=False) or under a process group other than nccl's (gloo's
+    collectives on the card cannot be captured: pass cuda_graph=False);
+    nccl's collectives are captured with the step. The graph's private memory pool comes on top of the
     eager step's blocks: a stale graph's pool is given back before the
     eager step (torch.cuda.graph empties the cache before a capture), and a
     batch near the card's memory limit can take cuda_graph=False, which
@@ -362,17 +376,24 @@ class TrainStep:
 
     def _run(self, state: TrainState, batch: Batch, generator: Optional[torch.Generator]):
         """The device work of one update; returns the averaged metrics."""
-        accum = self.accum
+        accum, world = self.accum, mesh.world_size()
         loss_fn = make_loss_fn(state.model, self.model_cfg, self.train_cfg)
         state.optimizer.zero_grad()
         sums: Dict[str, torch.Tensor] = {}
-        m = batch.grd.shape[0] // accum
-        for i in range(accum):
-            mb = Batch(*(v[i * m:(i + 1) * m] for v in batch))
+        m = batch.grd.shape[0] // accum         # this process's rows of a microbatch
+        if accum > 1 and world > 1:
+            # global microbatch i holds process r's rows from (i * N + r) * m
+            batch = Batch(*(mesh.gather_rows(v) for v in batch))
+            starts = [(i * world + mesh.rank()) * m for i in range(accum)]
+        else:
+            starts = [i * m for i in range(accum)]
+        for start in starts:
+            mb = Batch(*(v[start:start + m] for v in batch))
             total, metrics = loss_fn(mb, generator)
             (total / accum if accum > 1 else total).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
+        mesh.mean_grads(list(state.model.parameters()))
         state.optimizer.update()
         return {k: v / accum for k, v in sums.items()}
 
@@ -380,6 +401,9 @@ class TrainStep:
         if torch.is_anomaly_enabled():
             raise RuntimeError("NaN checks (autograd anomaly mode) cannot run inside a CUDA "
                                "graph: make the step with cuda_graph=False")
+        if not mesh.capturable():
+            raise RuntimeError(f"the collectives of a {mesh.backend()} process group cannot run "
+                               "inside a CUDA graph: make the step with cuda_graph=False")
         src = [v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)) for v in batch]
         key = tuple((tuple(v.shape), v.dtype) for v in src)
         binding = state_binding(state, generator)
@@ -421,7 +445,10 @@ class TrainStep:
         device = next(model.parameters()).device
         b = batch[0].shape[0]
         if b % self.accum:
-            raise ValueError(f"batch {b} does not split into {self.accum} microbatches")
+            world = mesh.world_size()
+            raise ValueError(f"batch {b} does not split into {self.accum} microbatches"
+                             + (f" of a multiple of {world} rows (one block a process of a "
+                                f"global batch of {b * world})" if world > 1 else ""))
         if self.cuda_graph and device.type == "cuda":
             metrics = self._graphed(state, batch, generator)
         else:

@@ -9,6 +9,13 @@ batches in flight (train/evaluate.py::pipelined: pinned staging, copies
 that do not block, an event per batch). It returns the summary (mean and
 median metres and degrees, longitudinal/lateral and orientation recalls)
 and the stream's frames per second, host decoding and copies included.
+
+Across processes (core/mesh.py) each process streams its shard of the
+traversal (shard_id, num_shards = rank, world size) and the raw per-frame
+errors are pooled before the summary, as in the JAX package
+(ccvpe_tpu/train/stream.py:132-151): `fps` is this process's rate,
+`aggregate_fps` the frames of every process over this process's wall time,
+`frames` every process's count.
 """
 
 from __future__ import annotations
@@ -19,11 +26,12 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.config import ModelConfig
 from ccvpe_tpu_torch.data.loader import ThreadedLoader
 from ccvpe_tpu_torch.models.cvm import CVM, resolve_device
 from ccvpe_tpu_torch.ops import pose
-from ccvpe_tpu_torch.train.evaluate import MULTI_HOST, pipelined, recall_summary
+from ccvpe_tpu_torch.train.evaluate import check_shards, pipelined, recall_summary
 from ccvpe_tpu_torch.train.step import make_eval_step
 
 
@@ -41,13 +49,13 @@ def stream_eval(
     pipeline_depth: int = 4,
     device=None,
 ) -> Dict[str, float]:
-    """Evaluate one traversal's frames in order; returns the summary and
-    `fps`. `model` must lie on `device` (default the card). `eval_step` is a
-    full-map step (train/step.py::make_eval_step), by default that of
-    `model`, which runs it in eval mode whatever mode it is in. One shard
-    only: pooling across processes is not ported."""
-    if num_shards > 1:
-        raise NotImplementedError(f"stream_eval over {num_shards} shards: " + MULTI_HOST)
+    """Evaluate one traversal's frames in order; returns the summary,
+    `fps`, `aggregate_fps` and `frames`. `model` must lie on `device`
+    (default the card). `eval_step` is a full-map step
+    (train/step.py::make_eval_step), by default that of `model`, which runs
+    it in eval mode whatever mode it is in. (shard_id, num_shards) must be
+    this process's (rank, world size)."""
+    check_shards(None, "stream_eval", shard_id, num_shards)
     device = resolve_device(device)
     on = next(model.parameters()).device
     if on.type != device.type or (device.index is not None and on.index != device.index):
@@ -79,9 +87,15 @@ def stream_eval(
         ori_err.extend(pose.angle_error(angle_pred, raw["angle_deg"]).tolist())
     elapsed = time.perf_counter() - t0
 
+    local_n = len(dist)
+    # every process's raw per-frame errors: medians and recalls over the
+    # whole traversal, not one process's stride
+    dist, ori_err, longi, lat = (mesh.all_hosts_concat(a).tolist()
+                                 for a in (dist, ori_err, longi, lat))
     n = len(dist)
     summary = pose.summarize(np.array(dist), np.array(ori_err))
     summary.update(recall_summary(longi, lat, ori_err))
-    summary["fps"] = n / elapsed if elapsed > 0 else 0.0
+    summary["fps"] = local_n / elapsed if elapsed > 0 else 0.0
+    summary["aggregate_fps"] = n / elapsed if elapsed > 0 else 0.0
     summary["frames"] = float(n)
     return summary

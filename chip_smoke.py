@@ -21,9 +21,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      largest K, with and without r, each twice for the same bits; against
      a float64 product at VIGOR s1 and KITTI s1; its launch plans' blocks
      per SM against the occupancy API;
-  4. its kernel / plain / two-matmul yardstick times (CUDA events, L2
-     flushed, median) beside the bound from bytes and float32 operations,
-     without r (serving) and with r (training), and each scale's plan;
+  4. its kernel / plain / two-matmul yardstick times (the kernels' own
+     durations in a torch.profiler trace, the calls told apart by the L2
+     flush before each, median; the kernel also from CUDA events around the
+     call, which count the op's host time of a short call, and the op's
+     host microseconds a call) beside the bound from bytes and float32
+     operations, without r (serving) and with r (training), and each
+     scale's plan;
   5. the correlation backward: grads of S and of the ground descriptor
      through the kernel's op and its registered backward against autograd through the
      plain version, at the six VIGOR scales;
@@ -153,6 +157,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      one profiled step, each one's p50,
      pairs/s, busy share and peak memory; bench.py's options at batch 96
      graphed, with the eager first step's peak and the graph's;
+ 16. scale-out, after phase 14, in a fifth child process (python3
+     chip_smoke.py --scale-out <json>, phase 12's environment): in
+     deterministic mode, the graphed fused float32 step at batch 8, 3 steps
+     in a nccl process group of one process against no group from the same
+     state and seeds: the same bits (losses, gradients, parameters,
+     buffers, Adam state), and the trace of one replayed step holds the
+     counters' 6/4/4 and the gradient mean's nccl kernel; then two rank
+     processes (--scale-out-rank) under gloo on the one card (nccl refuses
+     two ranks on one device), eager, drop-connect on, a global batch of 8
+     as 2 x 4 against one process at 8, with and without 2 microbatches:
+     losses within 1e-4, the first step's whole gradient within
+     SCALE_GRAD_RTOL (each tensor's worst beside the one process's own
+     floors: its step with BatchNorm's rounding changed, and with the
+     batch's halves swapped, drop-connect off), BN running var
+     within 2e-4, both ranks the same bits; eval_over_loader and
+     stream_eval over 2 shards against one: the same per-sample errors,
+     summaries within 1e-9, aggregate_fps; each run's p50 step time, a
+     reading;
  15. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
      launches in each eval loop; each kernel's driver_launches are its
@@ -164,14 +186,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      one replayed step in phase 14 (bf16 B2/B3: phase 13's at batch 8),
      graph_serve_launches those of one
      replayed serving batch, and
-     export_nodes the exported fused program's nodes), then
+     export_nodes the exported fused program's nodes; nccl_step_launches
+     those in the trace of one replayed step in phase 16's nccl group),
+     then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Details go to chiprun_out/chip_smoke.json (phase 11's also to
 chiprun_out/chip_smoke_driver.json, phase 12's to
 chiprun_out/chip_smoke_bench.json, phase 13's to
 chiprun_out/chip_smoke_options.json, phase 14's to
-chiprun_out/chip_smoke_graphs.json). InferenceEngine and make_train_step
+chiprun_out/chip_smoke_graphs.json, phase 16's to
+chiprun_out/chip_smoke_scale.json). InferenceEngine and make_train_step
 capture CUDA graphs by default, so phases 8-13 run graphed after each
 shape's first, eager call. A replay runs none of the wrappers that count
 launches (core/graphs.py adds the capture's count at each replay), so every
@@ -290,6 +315,57 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in times]))
 
 
+# the L2 flush between timed calls: its kernel separates the calls in a trace
+FLUSH_KERNEL = "FillFunctor<unsigned char>"
+
+
+def trace_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of fn() from the torch.profiler trace: the sum of
+    the durations of the kernels each call ran, the calls told apart by the
+    L2 flush (a uint8 fill) before each. Unlike events around the call, the
+    host's time between launches (dispatch, planning, the ctypes launch) is
+    not counted: a call of a 20-us kernel is the kernel's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    calls = []
+    for e in events:
+        if FLUSH_KERNEL in e.name:
+            calls.append(0.0)
+        elif calls:
+            calls[-1] += e.time_range.elapsed_us() / 1e3
+    if len(calls) != reps or not all(c > 0 for c in calls):
+        raise RuntimeError(f"trace_ms: {len(calls)} flushes for {reps} calls; kernels "
+                           f"{sorted({e.name[:80] for e in events})[:8]}")
+    return float(np.median(calls))
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Median host microseconds of one fn() call, which returns once its
+    work is queued (the kernels it launches are shorter than the host's
+    time, so the queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
 def corr_inputs(b, n, d, length, shift, bins, center, gen):
     from ccvpe_tpu_torch.ops.corr import build_roll_matrices
     s = torch.randn(b, n, d, device="cuda", generator=gen)
@@ -388,7 +464,8 @@ def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_k
                            f"counters {counted}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=own, launches_traced=traced,
                 launches_counted=counted,
-                kernels=[dict(name=n, ms=ms, count=c) for n, ms, c in kernels[:40]])
+                kernels=[dict(name=n, ms=ms, count=c) for n, ms, c in kernels[:40]],
+                names={n: c for n, _, c in kernels})
 
 
 # --- the fused LMU stage (B2 forward, B3 backward) ---
@@ -2486,6 +2563,440 @@ def graphs_main(out_path: str) -> int:
     return 0 if ok else 1
 
 
+# --- phase 16: scale-out (the data axis across processes), in a child ---
+
+SCALE_TIMEOUT_S = 480
+# a rank process of 16b: its wall time, the card's first touch included
+SCALE_RANK_TIMEOUT_S = 300
+SCALE_STEPS, SCALE_TIMED_STEPS = 3, 2
+# 16b's cases: (name, TrainConfig overrides); vigor(lmu_fused_min_res=256),
+# float32, eager, drop-connect on, a global batch of 8 as 2 x 4
+SCALE_CASES = (("fused f32", {}), ("fused f32, 2 microbatches", {"grad_accum_steps": 2}))
+# the JAX package's own bound on a multi-process loss trajectory
+# (tools/test_multiprocess.sh)
+SCALE_LOSS_RTOL = 1e-4
+# the first step's whole gradient (every tensor, float64 norms) against one
+# process's: float32 sums of ~1e6 terms in another order, a few 1e-6; one
+# element a tensor can move much more (a ReLU at 0 or a softmax's near
+# cancellation flips under any rounding change: the one process's own step
+# moves conv5/conv6 by ~1e-3 of their max abs with BatchNorm's moments taken
+# by the distributed formula, which phase 16 measures), so tensors over
+# STEP_GRAD_ATOL are listed beside that floor, and the gate is on the whole
+SCALE_GRAD_RTOL = 1e-3
+# 16c: samples of the pooled evaluation, one a batch, so that a sample's
+# forward is the same computation in either split
+SCALE_EVAL_N = 5
+SUMMARY_RTOL = 1e-9
+
+
+def grads_rel(got, want) -> float:
+    """||got - want|| / ||want|| over every gradient tensor, in float64."""
+    num = sum(float((got[k].double() - w.double()).square().sum()) for k, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def scale_rank_batch(cfg, b_global):
+    """This rank's block of bench_batch's global batch (all of it for one
+    process)."""
+    from ccvpe_tpu_torch.core import mesh
+    from ccvpe_tpu_torch.train.step import Batch
+    n, r = mesh.world_size(), mesh.rank()
+    b = b_global // n
+    return Batch(*(v[r * b:(r + 1) * b].contiguous() for v in bench_batch(cfg, b_global)))
+
+
+def scale_steps(cfg, tc, sd, card, what) -> dict:
+    """SCALE_STEPS eager steps of make_train_step(cuda_graph=False) on this
+    rank's block of the global batch of 8, the generator seeded 17 + i
+    before step i: per-step losses, the first step's gradients and the final
+    BN buffers on the host, and a digest of the final state; then the p50
+    of SCALE_TIMED_STEPS more steps."""
+    import hashlib
+
+    from ccvpe_tpu_torch.train.step import create_train_state, make_train_step
+    state = create_train_state(cfg, tc, state_dict=sd)
+    step = make_train_step(cfg, tc, cuda_graph=False)
+    gen = torch.Generator(device="cuda")
+    batch = scale_rank_batch(cfg, 8)
+    losses, grads = [], None
+    for i in range(SCALE_STEPS):
+        gen.manual_seed(17 + i)
+        _, m = step(state, batch, gen)
+        losses.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    bits = train_state_bits(state)
+    sha = hashlib.sha256()
+    for part in ("params", "buffers"):
+        for k, v in bits[part].items():
+            sha.update(v.detach().cpu().contiguous().numpy().tobytes())
+    for i, st in bits["adam"].items():
+        for k, v in st.items():
+            sha.update(v.detach().cpu().contiguous().numpy().tobytes())
+    buffers = {k: v.cpu() for k, v in bits["buffers"].items()}
+    times = []
+    for i in range(SCALE_TIMED_STEPS):
+        gen.manual_seed(17 + SCALE_STEPS + i)
+        t0 = time.perf_counter()
+        _, m = step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.median(times)) * 1e3
+    log(f"scale-out {what}: p50 step {p50:.2f} ms over {SCALE_TIMED_STEPS} eager steps, a "
+        f"reading, not a target [{card}]")
+    del state, step, bits
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grads=grads, buffers=buffers, digest=sha.hexdigest(),
+                p50_step_ms=p50, step_ms=[t * 1e3 for t in times])
+
+
+def halves_swapped(cfg, sd) -> dict:
+    """The one process's first-step gradients at 8 with drop-connect off,
+    on bench_batch and on it with its halves swapped (the same loss in
+    exact arithmetic): how far a row order alone moves each tensor."""
+    from unittest import mock
+
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.nn import efficientnet
+    from ccvpe_tpu_torch.train.step import Batch, create_train_state, make_train_step
+    batch = bench_batch(cfg, 8)
+    perm = torch.tensor([4, 5, 6, 7, 0, 1, 2, 3], device="cuda")
+    out = []
+    for b in (batch, Batch(*(v[perm] for v in batch))):
+        with mock.patch.object(efficientnet, "DROP_CONNECT_RATE", 0.0):
+            state = create_train_state(cfg, cfg_lib.TrainConfig(), state_dict=sd)
+        make_train_step(cfg, cfg_lib.TrainConfig(), cuda_graph=False)(state, b)
+        out.append({n: p.grad.detach().cpu() for n, p in state.model.named_parameters()})
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_eval(cfg, sd) -> dict:
+    """eval_over_loader and stream_eval on this rank's shard of an in-memory
+    VIGOR split of SCALE_EVAL_N samples, one a batch: each summary and the
+    arrays mesh.all_hosts_concat pooled."""
+    from unittest import mock
+
+    from ccvpe_tpu_torch.core import mesh
+    from ccvpe_tpu_torch.data import vigor as vigor_data
+    from ccvpe_tpu_torch.data.loader import ThreadedLoader
+    from ccvpe_tpu_torch.models.cvm import build_cvm
+    from ccvpe_tpu_torch.train.evaluate import eval_over_loader
+    from ccvpe_tpu_torch.train.step import make_eval_decode_step
+    from ccvpe_tpu_torch.train.stream import stream_eval
+    model = build_cvm(cfg, "cuda", state_dict=sd)
+    split = InMemorySplit(vigor_data.VigorSample, cfg, SCALE_EVAL_N,
+                          city=["NewYork"] * SCALE_EVAL_N)
+    r, n = mesh.rank(), mesh.world_size()
+    pooled, concat = [], mesh.all_hosts_concat
+
+    def record(x):
+        out = concat(x)
+        pooled.append(np.asarray(out, np.float64))
+        return out
+
+    with mock.patch.object(mesh, "all_hosts_concat", record):
+        loader = ThreadedLoader(split, 1, shuffle=False, num_workers=2, drop_last=False,
+                                shard_id=r, num_shards=n)
+        summary = eval_over_loader(make_eval_decode_step(model), loader, 0.1,
+                                   with_prob_at_gt=True, device="cuda")
+        eval_pooled = list(pooled)
+        pooled.clear()
+        stream = stream_eval(model, cfg, split, range(SCALE_EVAL_N), batch_size=1,
+                             meters_per_pixel=0.1, num_workers=2, shard_id=r, num_shards=n,
+                             device="cuda")
+    return dict(summary=summary, pooled=eval_pooled, stream=stream, stream_pooled=list(pooled))
+
+
+def scale_setup():
+    """vigor(lmu_fused_min_res=256) and its state dict from torch.Generator
+    seed 17, the kernels loaded, TF32 off."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.models.cvm import CVM, random_init_
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    corr_cuda.load_library()
+    lmu_cuda.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg_lib.vigor(), lmu_fused_min_res=256)
+    sd = random_init_(CVM(cfg).to_empty(device="cpu"),
+                      torch.Generator().manual_seed(17)).state_dict()
+    return cfg, sd
+
+
+def scale_rank_main(rank: int, world: int, url: str, out_path: str) -> int:
+    """One rank of 16b: gloo on the card (nccl refuses two ranks on one
+    device), SCALE_CASES' steps and the pooled evaluation; its results to
+    out_path."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --scale-out-rank: no CUDA device", file=sys.stderr)
+        return 2
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core import mesh
+    mesh.init_distributed(url, world, rank, device="cuda:0", backend="gloo")
+    card = card_line()
+    cfg, sd = scale_setup()
+    out = {}
+    for case, over in SCALE_CASES:
+        out[case] = scale_steps(cfg, cfg_lib.TrainConfig(**over), sd, card,
+                                f"{case}, rank {rank} of {world} (gloo on the card)")
+        if rank:
+            out[case].update(grads=None, buffers=None)
+    out["eval"] = scale_eval(cfg, sd)
+    torch.save(out, out_path)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def run_scale_ws1(card, out, cfg, sd) -> bool:
+    """16a, in deterministic mode: the graphed fused float32 step at batch
+    8, SCALE_STEPS steps without a process group, then as many in a nccl
+    group of one process from the same state and generator seeds: losses,
+    parameters, gradients, BN buffers and Adam state the same bits; the
+    trace of one replayed step of each holds the counters' launches, and
+    the nccl one shows the gradient mean's kernel."""
+    import torch.distributed as dist
+
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core.debug import deterministic
+    from ccvpe_tpu_torch.train.step import create_train_state, make_train_step
+    tc = cfg_lib.TrainConfig()
+    batch = bench_batch(cfg, 8)
+    res = out["world_size_1"] = {}
+    bits = {}
+    for name in ("no process group", "nccl, world size 1"):
+        nccl = name.startswith("nccl")
+        if nccl:
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                    world_size=1, rank=0)
+        with deterministic():
+            state = create_train_state(cfg, tc, state_dict=sd)
+            step = make_train_step(cfg, tc)
+            gen = torch.Generator(device="cuda")
+            losses, per_step = [], []
+            for i in range(SCALE_STEPS):
+                gen.manual_seed(17 + i)
+                zero_launch_counts()
+                _, m = step(state, batch, gen)
+                torch.cuda.synchronize()
+                per_step.append(launch_counts())
+                losses.append({k: float(v) for k, v in m.items()})
+            bits[name] = train_state_bits(state)
+            times = []
+            for i in range(GRAPH_TIMED_STEPS):
+                gen.manual_seed(17 + SCALE_STEPS + i)
+                t0 = time.perf_counter()
+                _, m = step(state, batch, gen)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            p50 = float(np.median(times)) * 1e3
+            prof = profile_call(lambda: step(state, batch, gen), f"one replayed step, {name}",
+                                card, p50)
+        nccl_kernels = {k: c for k, c in prof["names"].items()
+                        if "nccl" in k.lower() or "onerank" in k.lower()}
+        res[name] = dict(losses=losses, launches=per_step, p50_step_ms=p50,
+                         step_ms=[t * 1e3 for t in times], captures=step.captures,
+                         traced_launches=prof["launches_traced"], nccl_kernels=nccl_kernels,
+                         busy_ms=prof["busy_ms"])
+        log(f"scale-out world size 1, {name}: graphed fused f32 batch 8 (deterministic mode), "
+            f"p50 step {p50:.2f} ms; launches a step {per_step[-1]}; captures {step.captures}; "
+            f"nccl kernels in the trace of a replayed step {nccl_kernels} [{card}]")
+        del state, step
+        torch.cuda.empty_cache()
+        if nccl:
+            dist.destroy_process_group()
+    a, b = bits["no process group"], bits["nccl, world size 1"]
+    bad = {k: same_bits(a[k], b[k]) for k in a if k != "adam"}
+    bad["adam"] = same_bits({str(i): v for i, v in a["adam"].items()},
+                            {str(i): v for i, v in b["adam"].items()})
+    rows = list(res.values())
+    same_losses = rows[0]["losses"] == rows[1]["losses"]
+    launches_ok = all(c == DRIVER_STEP_LAUNCHES for r in rows for c in r["launches"]) and all(
+        r["traced_launches"] == DRIVER_STEP_LAUNCHES for r in rows)
+    nccl_ok = sum(rows[1]["nccl_kernels"].values()) >= 1 and not rows[0]["nccl_kernels"]
+    ok = same_losses and not any(bad.values()) and launches_ok and nccl_ok
+    res.update(differ={k: v[:10] for k, v in bad.items()}, same_losses=same_losses, ok=ok)
+    log(f"scale-out world size 1: nccl against no process group, {SCALE_STEPS} steps: losses "
+        f"the same bits {same_losses}; differing tensors "
+        f"{json.dumps({k: len(v) for k, v in bad.items()})} of "
+        f"{json.dumps({k: len(v) for k, v in a.items()})}; launches {DRIVER_STEP_LAUNCHES} in "
+        f"every step and trace {launches_ok}; the gradient mean's kernel in the nccl trace "
+        f"{nccl_ok} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_scale_gloo(card, out, cfg, sd) -> bool:
+    """16b and 16c: one process (no group) at the global batch of 8, then
+    two rank processes under gloo on the card at 4 each, SCALE_CASES; then
+    the pooled evaluation of both. Losses within SCALE_LOSS_RTOL, the first
+    step's gradients within STEP_GRAD_ATOL of their max abs, BN running var
+    within BN_VAR_RTOL, both ranks the same bits; the pooled per-sample
+    errors the one shard's multiset, summaries within SUMMARY_RTOL."""
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.nn import efficientnet
+    one = {case: scale_steps(cfg, cfg_lib.TrainConfig(**over), sd, card,
+                             f"{case}, one process at 8")
+           for case, over in SCALE_CASES}
+    one["eval"] = scale_eval(cfg, sd)
+    # the one process's own floor: its step with only BatchNorm's rounding
+    # changed (the moments by the distributed formula, forced at world size 1)
+    native = efficientnet.BatchNorm.forward
+    efficientnet.BatchNorm.forward = (
+        lambda self, x: self._global_batch(x) if self.training else native(self, x))
+    try:
+        bn_formula = scale_steps(cfg, cfg_lib.TrainConfig(), sd, card,
+                                 f"{SCALE_CASES[0][0]}, one process at 8, BatchNorm's moments "
+                                 f"by the distributed formula")
+    finally:
+        efficientnet.BatchNorm.forward = native
+    floor_worst, floor_over = grads_close(bn_formula["grads"], one[SCALE_CASES[0][0]]["grads"],
+                                          STEP_GRAD_ATOL)
+    floor_rel = grads_rel(bn_formula["grads"], one[SCALE_CASES[0][0]]["grads"])
+    log(f"scale-out one process at 8, its own floor: the step with BatchNorm's moments by the "
+        f"distributed formula against the native one: first step's gradients worst "
+        f"{floor_worst:.3g} of their max abs ({floor_over[:4]} over {STEP_GRAD_ATOL}), whole "
+        f"gradient rel {floor_rel:.3g} [{card}]")
+    native_order, swapped = halves_swapped(cfg, sd)
+    swap_worst, swap_over = grads_close(swapped, native_order, STEP_GRAD_ATOL)
+    swap_rel = grads_rel(swapped, native_order)
+    log(f"scale-out one process at 8, drop-connect off, the batch's halves swapped against not "
+        f"(the same loss in exact arithmetic): first step's gradients worst {swap_worst:.3g} of "
+        f"their max abs ({swap_over[:4]} over {STEP_GRAD_ATOL}), whole gradient rel "
+        f"{swap_rel:.3g} [{card}]")
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    url = f"tcp://localhost:{free_port()}"
+    outs = [os.path.abspath(os.path.join(OUT_DIR, f"scale_rank{r}.pt")) for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--scale-out-rank",
+                               str(r), "2", url, outs[r]]) for r in range(2)]
+    try:
+        codes = [p.wait(timeout=SCALE_RANK_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        log(f"FAIL: scale-out rank processes exited {codes} (timeout {SCALE_RANK_TIMEOUT_S} s)")
+        return False
+    ranks = [torch.load(p, weights_only=False) for p in outs]
+    for p in outs:
+        os.remove(p)
+    res = out["gloo_2_ranks"] = dict(rank_processes_wall_s=wall, floor_grad_worst=floor_worst,
+                                     floor_grads_over=floor_over[:10], floor_grad_rel=floor_rel,
+                                     swap_grad_worst=swap_worst, swap_grads_over=swap_over[:10],
+                                     swap_grad_rel=swap_rel)
+    ok = True
+    for case, _ in SCALE_CASES:
+        want, got = one[case], ranks[0][case]
+        rel = max(abs(g[k] - w[k]) / abs(w[k]) for gs, ws in
+                  ((r[case]["losses"], want["losses"]) for r in ranks)
+                  for g, w in zip(gs, ws) for k in w)
+        worst, over = grads_close(got["grads"], want["grads"], STEP_GRAD_ATOL)
+        g_rel = grads_rel(got["grads"], want["grads"])
+        var_rel = max(float(((got["buffers"][k] - v).abs() / v.abs()).max())
+                      for k, v in want["buffers"].items() if k.endswith("running_var"))
+        var_bad = [k for k, v in want["buffers"].items() if k.endswith("running_var")
+                   and not torch.allclose(got["buffers"][k], v, rtol=BN_VAR_RTOL,
+                                          atol=BN_VAR_ATOL)]
+        same_ranks = ranks[0][case]["digest"] == ranks[1][case]["digest"] and (
+            ranks[0][case]["losses"] == ranks[1][case]["losses"])
+        case_ok = (rel <= SCALE_LOSS_RTOL and g_rel <= SCALE_GRAD_RTOL and not var_bad
+                   and same_ranks)
+        ok = ok and case_ok
+        res[case] = dict(loss_rel=rel, grad_rel=g_rel, grad_worst=worst, grads_over=over[:10],
+                         running_var_rel=var_rel, running_var_bad=var_bad[:10],
+                         ranks_same_bits=same_ranks, ok=case_ok,
+                         one_p50_step_ms=want["p50_step_ms"],
+                         rank_p50_step_ms=[r[case]["p50_step_ms"] for r in ranks],
+                         losses_one=want["losses"], losses_ranks=[r[case]["losses"] for r in ranks])
+        log(f"scale-out gloo 2 ranks x 4 against one process at 8, {case}, {SCALE_STEPS} eager "
+            f"steps, drop-connect on: losses rel {rel:.3g} (rtol {SCALE_LOSS_RTOL}); first "
+            f"step's whole gradient rel {g_rel:.3g} (rtol {SCALE_GRAD_RTOL}), worst tensor "
+            f"{worst:.3g} of its max abs ({over[:4]} over {STEP_GRAD_ATOL}; the one process's "
+            f"floor above); running var rel {var_rel:.3g} (rtol {BN_VAR_RTOL}, "
+            f"{len(var_bad)} over); ranks the same bits {same_ranks}; p50 step one process "
+            f"{want['p50_step_ms']:.2f} ms, ranks {res[case]['rank_p50_step_ms'][0]:.2f} and "
+            f"{res[case]['rank_p50_step_ms'][1]:.2f} ms (a reading: gloo all-reduces through "
+            f"the host, which says nothing of nccl over NVLink) {'ok' if case_ok else 'FAIL'} "
+            f"[{card}]")
+    ev = res["eval"] = {}
+    for what, key in (("eval_over_loader", "pooled"), ("stream_eval", "stream_pooled")):
+        want = one["eval"][key]
+        same = all(len(r["eval"][key]) == len(want) and all(
+            np.array_equal(np.sort(g), np.sort(w)) for g, w in zip(r["eval"][key], want))
+            for r in ranks)
+        ev[what] = dict(same_multisets=same, lengths=[len(a) for a in want])
+    rates = ("fps", "aggregate_fps", "frames")
+    for what, key in (("eval_over_loader", "summary"), ("stream_eval", "stream")):
+        want = {k: v for k, v in one["eval"][key].items() if k not in rates}
+        worst = 0.0
+        for r in ranks:
+            got = r["eval"][key]
+            for k, v in want.items():
+                worst = max(worst, abs(got[k] - v) / max(abs(v), 1e-300))
+        close = worst <= SUMMARY_RTOL and all(r["eval"][key].keys() == one["eval"][key].keys()
+                                              for r in ranks)
+        ev[what].update(summary_rel=worst, summary_ok=close)
+    streams = [r["eval"]["stream"] for r in ranks]
+    rates_ok = all(s["frames"] == SCALE_EVAL_N and s["aggregate_fps"] > s["fps"] > 0
+                   for s in streams)
+    ev["stream_eval"].update(fps=[s["fps"] for s in streams],
+                             aggregate_fps=[s["aggregate_fps"] for s in streams],
+                             rates_ok=rates_ok)
+    eval_ok = rates_ok and all(ev[w]["same_multisets"] and ev[w]["summary_ok"] for w in ev)
+    ok = ok and eval_ok
+    log(f"scale-out pooled evaluation over 2 shards against one ({SCALE_EVAL_N} samples, one a "
+        f"batch): per-sample errors the same multisets {ev['eval_over_loader']['same_multisets']}"
+        f" and {ev['stream_eval']['same_multisets']}; summaries rel "
+        f"{ev['eval_over_loader']['summary_rel']:.3g} and {ev['stream_eval']['summary_rel']:.3g}"
+        f" (rtol {SUMMARY_RTOL}); stream_eval frames {[s['frames'] for s in streams]}, fps "
+        f"{[round(s['fps'], 2) for s in streams]}, aggregate_fps "
+        f"{[round(s['aggregate_fps'], 2) for s in streams]} {'ok' if eval_ok else 'FAIL'} "
+        f"[{card}]")
+    res["ok"] = ok
+    return ok
+
+
+def scale_main(out_path: str) -> int:
+    """Phase 16 in its own process (phase 12's environment); the kernels
+    were built by the parent."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --scale-out: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    cfg, sd = scale_setup()
+    out = {"part_s": {}}
+    t0 = time.perf_counter()
+    ok = True
+    for part, run in (("world size 1", run_scale_ws1), ("gloo 2 ranks", run_scale_gloo)):
+        t1 = time.perf_counter()
+        ok = ok and run(card, out, cfg, sd)
+        out["part_s"][part] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"scale_out": out}, f, indent=1, default=str)
+    return 0 if ok else 1
+
+
 def run_child(flag: str, name: str, timeout_s: int):
     """`python3 chip_smoke.py <flag> chiprun_out/<name>` as a child process
     with CUBLAS_WORKSPACE_CONFIG=:4096:8; returns its wall time and JSON, or
@@ -2704,7 +3215,7 @@ def main() -> int:
     report["timing"] = []
     tot = dict.fromkeys(("ms", "plain_ms", "matmul2_ms", "bound_ms", "bytes", "flops", "r_ms",
                          "r_plain_ms", "r_bound_ms", "r_bytes", "r_flops", "ops_ms",
-                         "r_ops_ms"), 0)
+                         "r_ops_ms", "event_ms", "r_event_ms", "host_us", "plan_us"), 0)
     for name, b, n, d, length, shift, bins, center in cases[:6]:
         s, g_mat, m_mat = corr_inputs(b, n, d, length, shift, bins, center, gen)
         k = len(bins)
@@ -2720,12 +3231,21 @@ def main() -> int:
         g_t, m_t = g_mat.transpose(1, 2), m_mat.t()
         row = dict(name=name, n=n, d=d, k=k, plan=dataclasses.asdict(plan), occupancy=occ,
                    smem=smem)
-        # kernel, yardstick, plain, one after the other; then with r
-        row["ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat))
-        row["matmul2_ms"] = time_ms(lambda: (torch.bmm(s, g_t), torch.matmul(s2, m_t)))
-        row["plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat))
-        row["r_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True))
-        row["r_plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True))
+        # kernel, yardstick, plain, one after the other; then with r; each
+        # from the trace's kernel durations (trace_ms), and the kernel also
+        # from events around the call, which since the op's dispatch counts
+        # the host's time of a short call; the op's host time a call, and
+        # corr_plan's alone
+        row["ms"] = trace_ms(lambda: corr_core(s, g_mat, m_mat))
+        row["matmul2_ms"] = trace_ms(lambda: (torch.bmm(s, g_t), torch.matmul(s2, m_t)))
+        row["plain_ms"] = trace_ms(lambda: corr_core_plain(s, g_mat, m_mat))
+        row["r_ms"] = trace_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True))
+        row["r_plain_ms"] = trace_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True))
+        row["event_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat))
+        row["r_event_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True))
+        row["host_us"] = host_us(lambda: corr_core(s, g_mat, m_mat))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["plan_us"] = host_us(lambda: corr_cuda.corr_plan(b, n, d, k, sms))
         for p, need_r in (("", False), ("r_", True)):
             bound, by, nbytes, flops, ops_ms = corr_bound(b, n, d, k, need_r)
             row.update({f"{p}bound_ms": bound, f"{p}bound_by": by, f"{p}bytes": nbytes,
@@ -2739,7 +3259,10 @@ def main() -> int:
             f"3.35 TB/s, {row['flops'] / 1e9:.2f} GFLOP of TF32 products {row['ops_ms']:.4f} "
             f"ms); with r: kernel "
             f"{row['r_ms']:.4f} ms, plain {row['r_plain_ms']:.4f} ms, bound "
-            f"{row['r_bound_ms']:.4f} ms ({row['r_bytes'] / 1e6:.1f} MB) [{card}]")
+            f"{row['r_bound_ms']:.4f} ms ({row['r_bytes'] / 1e6:.1f} MB); kernel times from "
+            f"the trace; events around the call {row['event_ms']:.4f} ms, with r "
+            f"{row['r_event_ms']:.4f} ms; host {row['host_us']:.1f} us a call, corr_plan "
+            f"{row['plan_us']:.1f} us of it [{card}]")
         report["timing"].append(row)
         for key in tot:
             tot[key] += row[key]
@@ -2747,7 +3270,9 @@ def main() -> int:
     log(f"time per VIGOR forward (6 launches): kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, two-matmul {tot['matmul2_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms; with r: kernel {tot['r_ms']:.4f} ms, plain "
-        f"{tot['r_plain_ms']:.4f} ms, bound {tot['r_bound_ms']:.4f} ms [{card}]")
+        f"{tot['r_plain_ms']:.4f} ms, bound {tot['r_bound_ms']:.4f} ms (from the trace); "
+        f"events around the calls {tot['event_ms']:.4f} ms, with r {tot['r_event_ms']:.4f} ms; "
+        f"host {tot['host_us']:.1f} us a forward's six calls [{card}]")
     report["timing_total"] = tot
 
     phase_done(4)
@@ -3069,6 +3594,7 @@ def main() -> int:
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "yardstick_ms": tot["matmul2_ms"], "r_ms": tot["r_ms"], "r_plain_ms": tot["r_plain_ms"],
+        "event_ms": tot["event_ms"], "host_us": tot["host_us"],
         "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
         "eval_launches": eval_launches, "driver_launches": driver["fit_launches"]["corr_fwd"],
         "bench_launches": bench8["launches"]["corr_fwd"],
@@ -3139,9 +3665,23 @@ def main() -> int:
         "max_abs_err": max(r["max_abs"] for r in report["probe_bf16"]),
         **probe_time_bf16,
     }]
+    phase_done(14)
+    # 16. scale-out: the data axis across processes, in a child
+    res = run_child("--scale-out", "chip_smoke_scale.json", SCALE_TIMEOUT_S)
+    if res is None:
+        return 1
+    scale = report["scale_out"] = res[1]["scale_out"]
+    scale["child_wall_s"] = res[0]
+    log(f"scale-out: child process wall {res[0]:.2f} s, {scale['seconds']:.2f} s of checks and "
+        f"runs ({', '.join(f'{k} {v:.1f} s' for k, v in scale['part_s'].items())}) [{card}]")
+    ws1 = scale["world_size_1"]["nccl, world size 1"]
+    for k in kernels:
+        if k["name"] in ("corr_fwd", "lmu_fwd", "lmu_bwd"):
+            # launches in the trace of one replayed step in a nccl group
+            k["nccl_step_launches"] = ws1["traced_launches"][k["name"]]
     report["kernels"] = kernels
     report["probes"] = probes
-    phase_done(14)
+    phase_done(16)
     log("phase wall seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in report["phase_s"].items()))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3162,4 +3702,8 @@ if __name__ == "__main__":
         sys.exit(options_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--graphs":
         sys.exit(graphs_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--scale-out":
+        sys.exit(scale_main(sys.argv[2]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--scale-out-rank":
+        sys.exit(scale_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -316,7 +316,9 @@ def test_entry_points_refuse(setup, monkeypatch, tmp_path):
         evaluate.evaluate_kitti(args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate.evaluate_vigor(args, 180.0, True)
-    with pytest.raises(NotImplementedError, match="scale-out"):
+    # a shard of 2 in a run of one process (2 shards pooled:
+    # tests/test_torch_distributed_driver.py)
+    with pytest.raises(ValueError, match="shard 0 of 2: this is process 0 of 1"):
         evaluate.eval_over_loader(step, ThreadedLoader(split, 2, num_shards=2), 1.0,
                                   device="cpu")
     with pytest.raises(ValueError, match="directory"):

@@ -154,8 +154,9 @@ def test_stream_eval_matches_jax(setup, monkeypatch):
         jax_step(setup["variables"]["params"], setup["variables"]["batch_stats"],
                  grd[idx], sat[idx])[0])[..., 0])
     np.testing.assert_allclose(got_s[2][same], want_s[2][same], atol=ANGLE_SAMPLE_ATOL)
-    assert got.keys() == want.keys() - {"aggregate_fps"}
+    assert got.keys() == want.keys()
     assert got["frames"] == want["frames"] == N and got["fps"] > 0
+    assert got["aggregate_fps"] == got["fps"]      # one process
     traversal = SyntheticTraversal(cfg, 12)
     rates = ("fps", "aggregate_fps", "frames")
     got_q, want_q = ({k: v for k, v in x.items() if k not in rates} for x in (got, want))
@@ -180,13 +181,15 @@ def test_depth_and_padding_leave_results_unchanged(setup):
         torch.testing.assert_close(heat, ref_heat, rtol=0, atol=0, msg=str(key))
         for a, b in zip(frames, ref_frames):
             np.testing.assert_array_equal(a, b, err_msg=str(key))
-    strip = lambda s: {k: v for k, v in s.items() if k != "fps"}
+    strip = lambda s: {k: v for k, v in s.items() if k not in ("fps", "aggregate_fps")}
     assert strip(runs[(1, N)][0]) == strip(runs[(4, N)][0])
 
 
 def test_stream_eval_refusals(setup, monkeypatch):
     ds = SyntheticTraversal(setup["cfg"], 4)
-    with pytest.raises(NotImplementedError, match="scale-out"):
+    # a shard of 2 in a run of one process (2 shards pooled:
+    # tests/test_torch_distributed_driver.py)
+    with pytest.raises(ValueError, match="shard 0 of 2: this is process 0 of 1"):
         stream_eval(setup["port"], tcfg.tiny(), ds, range(4), num_shards=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -11,8 +11,10 @@
 - a dict of two validation sets writes both sets' rows every epoch.
 - a checkpoint under the workdir wins over warm_start; without one, the
   warm start and the pretrained backbone fill the weights.
-- Trainer() takes the card by default and raises without one; a sharded
-  loader is refused.
+- Trainer() takes the card by default and raises without one; a loader
+  that is not this process's shard (num_shards other than the world size)
+  is refused. Training across processes is
+  tests/test_torch_distributed_driver.py.
 
 Tolerance: none, bit equality (the same ops on the same inputs in one
 process)."""
@@ -198,5 +200,5 @@ def test_sharded_loader_is_refused(data, tmp_path):
     cfg, train_set, _ = data
     trainer = Trainer(cfg, train_cfg(), workdir=str(tmp_path), device="cpu")
     loader = ThreadedLoader(train_set, BATCH // 2, num_shards=2, shard_id=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="shard 0 of 2: this is process 0 of 1"):
         trainer.train_epoch(loader, epoch=0)
