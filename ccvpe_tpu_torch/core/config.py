@@ -95,7 +95,12 @@ class ModelConfig:
     # packed maps (ops/phase_space.py); exclusive with lmu_fused_min_res
     phase_space_min_res: int = 0
 
-    # --- options of the JAX package the port does not run yet ---
+    # the model axis (core/mesh.py): the mesh axis that shards the
+    # decoders' rows from the first stage output of height 8 on (halo
+    # exchange for the 3x3 convs; exclusive with lmu_fused_min_res, as in
+    # the JAX package), and the one that shards every correlation's bins
+    # where the map is not row-sharded; None, or an axis of size 1, runs
+    # the unsharded model with its bits
     spatial_axis: Optional[str] = None
     ori_axis: Optional[str] = None
 
@@ -149,9 +154,9 @@ class TrainConfig:
     `pretrained_backbone`, `warm_start`, `checkpoint_dir`, `keep_checkpoints`,
     `checkpoint_every_steps`, `log_every` and `fake_fail_at_step`.
     `data_axis` and `model_axis` name the mesh's two axes
-    (core/mesh.py::make_mesh, which the Trainer builds): the data axis is
-    every process of the run, the model axis has size 1 (ROADMAP.md, queue
-    A8)."""
+    (core/mesh.py::make_mesh, which the Trainer builds with every process
+    on the data axis, as the JAX Trainer does; a (data, model) mesh under
+    core/mesh.py::set_mesh runs ModelConfig.spatial_axis and ori_axis)."""
 
     learning_rate: float = 1e-4
     beta1: float = 0.9

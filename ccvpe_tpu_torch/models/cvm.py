@@ -27,20 +27,27 @@ instead (the two are exclusive), such stages run in phase space
 output to the packed head. ModelConfig.compute_dtype, deconv_impl,
 circular_impl and the remat options reach the modules of nn/;
 remat_decoder checkpoints each decoder stage in train mode.
+
+ModelConfig.spatial_axis and ori_axis name the mesh's model axis
+(core/mesh.py): the decoders' rows, or the correlations' bins, are split
+over its processes and every output is gathered whole (CVM.forward says
+where). The numbers are the unsharded model's, as a sharding constraint
+changes none in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.config import (CIRCULAR_IMPLS, COMPUTE_DTYPES, CORR_IMPLS,
                                          DECONV_IMPLS, REMAT_POLICIES, ModelConfig)
 from ccvpe_tpu_torch.nn.decoder import (Deconv2x2, DoubleConv, HeadConv, decoder_stage,
-                                        fused_stage_nchw)
+                                        decoder_stage_rows, fused_stage_nchw)
 from ccvpe_tpu_torch.nn.efficientnet import B0_BLOCK_SPECS, EfficientNetB0
 from ccvpe_tpu_torch.nn.heads import GroundDescriptorHead, SatDescriptorHead, l2_normalize
 from ccvpe_tpu_torch.ops.corr import rolled_corr_dispatch
@@ -68,26 +75,9 @@ def _batch_crop(t: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
     return t.permute(0, 2, 3, 1)[idx, rows[:, :, None], cols[:, None, :]].permute(0, 3, 1, 2)
 
 
-# ModelConfig fields the port does not run yet: (field, default, the item
-# of ROADMAP.md queue A that brings it). The model axis shards the
-# correlation's spatial or orientation axis over a mesh's 'model' axis
-# (ccvpe_tpu/models/cvm.py:68-76, ops/corr.py:117-138,
-# ::rolled_corr_bin_sharded); the data axis is ported (core/mesh.py).
-_NOT_PORTED = (
-    ("spatial_axis", None, "A8, model axis"),
-    ("ori_axis", None, "A8, model axis"),
-)
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config option the port does not run,
-    ValueError for a value no package takes."""
-    for field, default, item in _NOT_PORTED:
-        value = getattr(cfg, field)
-        if value != default:
-            raise NotImplementedError(
-                f"ModelConfig.{field}={value!r} is not ported yet "
-                f"(ROADMAP.md, queue item {item})")
+    """Raise ValueError for an option value no package takes, or a
+    combination the JAX package refuses."""
     for field, allowed in (("corr_impl", CORR_IMPLS), ("deconv_impl", DECONV_IMPLS),
                            ("remat_policy", REMAT_POLICIES),
                            ("compute_dtype", COMPUTE_DTYPES),
@@ -101,6 +91,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.phase_space_min_res and cfg.lmu_fused_min_res:
         raise ValueError("phase_space_min_res and lmu_fused_min_res are exclusive, got "
                          f"{cfg.phase_space_min_res} and {cfg.lmu_fused_min_res}")
+    if cfg.lmu_fused_min_res and cfg.spatial_axis is not None:
+        # ccvpe_tpu/models/cvm.py:113-116
+        raise ValueError("lmu_fused_min_res cannot combine with spatial_axis sharding")
 
 
 class CVM(nn.Module):
@@ -111,6 +104,7 @@ class CVM(nn.Module):
         super().__init__()
         check_supported(config)
         self.config = cfg = config
+        self._row_block_params = {}       # id -> parameter: row_block_params
         n = cfg.num_scales
         dtype = getattr(torch, cfg.compute_dtype)
         remat = dict(compute_dtype=dtype, remat=cfg.remat_backbone,
@@ -159,13 +153,75 @@ class CVM(nn.Module):
         return deconv, conv
 
     def _run_stage(self, branch_suffix: str, s: int, x: torch.Tensor,
-                   skip: Optional[torch.Tensor], fused: bool, phase: bool) -> torch.Tensor:
-        """decoder_stage, checkpointed under remat_decoder in train mode."""
-        args = (*self._stage(branch_suffix, s), x, skip, fused, phase)
+                   skip: Optional[torch.Tensor], fused: bool, phase: bool,
+                   rows: Optional[List[int]] = None) -> torch.Tensor:
+        """decoder_stage (on this model rank's row block where `rows` is
+        set: decoder_stage_rows, the skip map's rows of the output block),
+        checkpointed under remat_decoder in train mode."""
+        deconv, conv = self._stage(branch_suffix, s)
+        if rows is None:
+            fn, args = decoder_stage, (deconv, conv, x, skip, fused, phase)
+        else:
+            self._on_rows(deconv, conv)
+            if skip is not None:
+                skip = mesh.take_rows(skip, [2 * r for r in rows])
+            fn, args = decoder_stage_rows, (deconv, conv, x, skip)
         if self.config.remat_decoder and self.training and torch.is_grad_enabled():
-            return checkpoint(decoder_stage, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        return decoder_stage(*args)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
+    def _sharded_stage(self, branch_suffix: str, s: int, x: torch.Tensor,
+                       rows: Optional[List[int]], skip: Optional[torch.Tensor],
+                       fused: bool, phase: bool, parts: int,
+                       last: bool) -> Tuple[torch.Tensor, Optional[List[int]]]:
+        """Stage s under ModelConfig.spatial_axis over `parts` model ranks
+        (1: no sharding). x is this rank's row block where `rows` (the
+        blocks' heights in model-index order) is set, else the whole map.
+        The output is row-sharded from the first stage whose output height
+        is at least 8 on (JAX's spatial_constraint, ccvpe_tpu/models/
+        cvm.py:68-76): a stage on a row block gives the doubled block, a
+        stage on the whole map hands on this rank's rows of its output
+        (mesh.blocks). A phase-space stage gathers its input and runs whole
+        (its output is then sharded again), and a phased final stage keeps
+        its packed output whole for the packed head. Returns the output and
+        its row blocks."""
+        if rows is not None and phase:
+            x, rows = mesh.gather_model(x, 2, rows), None
+        if rows is not None:
+            return self._run_stage(branch_suffix, s, x, skip, fused, phase, rows), \
+                [2 * r for r in rows]
+        y = self._run_stage(branch_suffix, s, x, skip, fused, phase)
+        if parts == 1 or y.shape[2] < 8 or (phase and last):
+            return y, None
+        out_rows = mesh.blocks(y.shape[2], parts)
+        if not all(out_rows):
+            raise ValueError(f"spatial_axis: {parts} model ranks cannot shard the decoder's "
+                             f"{y.shape[2]} rows without an empty block")
+        return mesh.take_rows(y, out_rows), out_rows
+
+    def _head(self, suffix: str, x: torch.Tensor, rows: Optional[List[int]],
+              packed: bool) -> torch.Tensor:
+        """The head on the whole map, or on this rank's row block gathered
+        over the model group."""
+        head = getattr(self, f"conv1{suffix}")
+        if rows is None:
+            return head(x, packed=packed)
+        self._on_rows(head)
+        return mesh.gather_model(head.forward_rows(x), 2, rows)
+
+    def _on_rows(self, *modules) -> None:
+        for mod in modules:
+            if mod is not None:
+                for p in mod.parameters():
+                    self._row_block_params[id(p)] = p
+
+    def row_block_params(self) -> List[nn.Parameter]:
+        """The parameters the last forward used only on row blocks
+        (ModelConfig.spatial_axis over a model axis of size > 1): their
+        gradients are partial, one block's part each, which the train
+        step's gradient mean weights by the model size (core/mesh.py's
+        note). Empty otherwise."""
+        return list(self._row_block_params.values())
 
     def forward(self, grd: torch.Tensor, sat: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -175,9 +231,23 @@ class CVM(nn.Module):
         encoders' drop-connect masks. `ori_window` (r0, c0), [B] integer
         fine-resolution origins (train/step.py::ori_window_starts), makes
         the two finest ori stages decode only the ModelConfig.ori_window
-        window there (with ori_window 0, the full field)."""
+        window there (with ori_window 0, the full field).
+
+        Under a mesh with a model axis of M > 1 processes (core/mesh.py::
+        set_mesh), ModelConfig.spatial_axis shards the decoders' rows over
+        it from the first stage output of height 8 on (not the ori window's
+        stages, which run whole on the gathered map), and B1 runs on each
+        rank's row block with all the bins; ModelConfig.ori_axis shards the
+        bins of every correlation of a map that is not row-sharded (the
+        bottleneck's, or every scale's without spatial_axis): B1 on each
+        rank's bin block. The encoders run replicated, and every output is
+        gathered whole on every model rank. With M = 1 both axes run the
+        unsharded code, with the same bits."""
         cfg = self.config
         n = cfg.num_scales
+        parts = mesh.shard_size(cfg.spatial_axis)
+        mesh.shard_size(cfg.ori_axis)           # raises for an axis the mesh lacks
+        self._row_block_params = {}
         grd = grd.permute(0, 3, 1, 2)   # NCHW views of NHWC = channels_last
         sat = sat.permute(0, 3, 1, 2)
         grd_feat, _ = self.grd_efficientnet(grd, generator)
@@ -189,10 +259,14 @@ class CVM(nn.Module):
         sat_desc = self.sat_feature_to_descriptors(sat_feat)       # [B,g,g,D]
         sat_desc = sat_desc.permute(0, 3, 1, 2)                      # NCHW view
 
-        def match(x, s, bins=None):
+        def match(x, s, bins=None, rows=None):
+            """The scores of x: on a row block with all the bins, else on
+            the bins' blocks under ori_axis."""
+            g = grd_descs[s] if rows is None else mesh.to_model(grd_descs[s])
             return rolled_corr_dispatch(
-                x.permute(0, 2, 3, 1), grd_descs[s], cfg.roll_shifts[s],
-                cfg.num_bins, cfg.center_window, bins, cfg.corr_impl, cfg.corr_bf16)
+                x.permute(0, 2, 3, 1), g, cfg.roll_shifts[s], cfg.num_bins,
+                cfg.center_window, bins, cfg.corr_impl, cfg.corr_bf16,
+                None if rows is not None else cfg.ori_axis)
 
         def fused(res_out: int) -> bool:
             return bool(cfg.lmu_fused_min_res) and res_out >= cfg.lmu_fused_min_res
@@ -208,24 +282,27 @@ class CVM(nn.Module):
         scores_loc = match(sat_desc, 0, restricted) if restricted else scores_full
         all_scores = [scores_full]
 
-        x = sat_desc
+        x, rows = sat_desc, None    # rows: x's row blocks where it is row-sharded
         for s in range(n):
             if s > 0:
-                scores_s = match(x, s, restricted)
-                all_scores.append(scores_s)
+                scores_s = match(x, s, restricted, rows)
+                all_scores.append(scores_s if rows is None
+                                  else mesh.gather_model(scores_s, 1, rows))
             else:
                 scores_s = scores_loc
             score_max = scores_s.amax(dim=-1, keepdim=True).permute(0, 3, 1, 2)
             x = torch.cat([score_max, l2_normalize(x, dim=1)], dim=1)
-            skip = skip_by_size.get(x.shape[2] * 2) if s < n - 1 else None
+            h = x.shape[2] if rows is None else sum(rows)
+            skip = skip_by_size.get(h * 2) if s < n - 1 else None
             last = s == n - 1
-            if last and fused(2 * x.shape[2]):
+            if last and fused(2 * h):
                 logits_map = fused_stage_nchw(self.deconv1, self.conv1, x, None)
             else:
-                phase = phased(2 * x.shape[2])
-                x = self._run_stage("", s, x, skip, fused(2 * x.shape[2]), phase)
+                phase = phased(2 * h)
+                x, rows = self._sharded_stage("", s, x, rows, skip, fused(2 * h), phase,
+                                              parts, last)
                 if last:
-                    logits_map = self.conv1(x, packed=phase)         # [B,1,H,W]
+                    logits_map = self._head("", x, rows, phase)      # [B,1,H,W]
         b, _, h, w = logits_map.shape
         logits = logits_map.reshape(b, h * w)
         heatmap = torch.softmax(logits, dim=-1).reshape(b, h, w, 1)
@@ -239,22 +316,27 @@ class CVM(nn.Module):
             r0, c0 = ori_window
         y = torch.cat([scores_full.permute(0, 3, 1, 2),
                        l2_normalize(sat_desc, dim=1)], dim=1)
+        rows = None
         for s in range(n):
             windowed = bool(win) and s >= n - 2
-            full_res = cfg.sat_grid * 2 ** s if windowed else y.shape[2]
             if win and s == n - 2:
+                if rows is not None:
+                    y, rows = mesh.gather_model(y, 2, rows), None
                 y = _batch_crop(y, r0 // 4, c0 // 4, win // 4)
+            h = y.shape[2] if rows is None else sum(rows)
+            full_res = cfg.sat_grid * 2 ** s if windowed else h
             skip = skip_by_size.get(full_res * 2) if s < n - 1 else None
             if windowed and skip is not None:
                 skip = _batch_crop(skip, r0 // 2, c0 // 2, win // 2)
             last = s == n - 1
-            if last and fused(2 * y.shape[2]):
+            if last and fused(2 * h):
                 ori_raw = fused_stage_nchw(self.deconv1_ori, self.conv1_ori, y, None)
             else:
-                phase = phased(2 * y.shape[2])
-                y = self._run_stage("_ori", s, y, skip, fused(2 * y.shape[2]), phase)
+                phase = phased(2 * h)
+                y, rows = self._sharded_stage("_ori", s, y, rows, skip, fused(2 * h), phase,
+                                              1 if windowed else parts, last)
                 if last:
-                    ori_raw = self.conv1_ori(y, packed=phase)        # [B,2,H,W]
+                    ori_raw = self._head("_ori", y, rows, phase)     # [B,2,H,W]
         ori = l2_normalize(ori_raw, dim=1).permute(0, 2, 3, 1)
         offsets = torch.stack([r0, c0], dim=-1) if win else None
         return CVMOutput(logits, heatmap, ori, tuple(all_scores), offsets)

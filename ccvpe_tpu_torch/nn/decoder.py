@@ -12,7 +12,9 @@ forward kernel, its registered backward the backward kernel), and
 the phase path (ModelConfig.phase_space_min_res) on 2x2 packed maps
 (ops/phase_space.py; the final stage hands its packed deconv output to a
 packed head), each with the modules' own weights, so state dicts load any
-way. Tensors are NCHW.
+way. Under ModelConfig.spatial_axis a stage can run on one model rank's
+row block of the map (`decoder_stage_rows`, halo exchange for the 3x3
+convs). Tensors are NCHW.
 
 Mixed precision (ModelConfig.compute_dtype) as in the JAX package: the
 deconv gives float32 (rounded per `impl`, see Deconv2x2), the skip concat
@@ -31,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.nn.efficientnet import Conv2d
 from ccvpe_tpu_torch.ops.lmu_cuda import fused_stage
 from ccvpe_tpu_torch.ops.phase_space import conv3x3_packed, depth_to_space, phase_stage
@@ -78,6 +81,23 @@ class DoubleConv(nn.Sequential):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.to(self.compute_dtype))
 
+    def forward_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """forward on this model rank's row block of the map (ModelConfig.
+        spatial_axis): each conv takes a one-row halo from the neighbouring
+        blocks (zero rows at the image's top and bottom,
+        core/mesh.py::halo_rows) and pads the columns only, so the block
+        of the whole map's output, in the same arithmetic. Each conv has
+        its own halo, so the intermediate's rows outside the image are the
+        second conv's zero padding, not relu(bias)."""
+        x = x.to(self.compute_dtype)
+        for i in (0, 2):
+            conv = self[i]
+            bias = conv.bias.to(x.dtype)
+            x = F.conv2d(mesh.halo_rows(x), conv.weight.to(x.dtype), bias, padding=(0, 1))
+            if i == 0:
+                x = F.relu(x)
+        return x
+
 
 class HeadConv(DoubleConv):
     """Final head Conv3x3 -> ReLU -> Conv3x3 to `cout` channels, float32 out.
@@ -92,6 +112,9 @@ class HeadConv(DoubleConv):
         g = conv3x3_packed(x.to(dt), self[0].weight, self[0].bias).to(dt)
         y = conv3x3_packed(F.relu(g), self[2].weight, self[2].bias)
         return depth_to_space(y, self[2].out_channels).float()
+
+    def forward_rows(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward_rows(x).float()
 
 
 def fused_stage_nchw(deconv: Deconv2x2, conv: DoubleConv, x: torch.Tensor,
@@ -128,4 +151,18 @@ def decoder_stage(deconv: Deconv2x2, conv: Optional[DoubleConv],
         x = torch.cat([x, skip.to(x.dtype)], dim=1)
     if conv is not None:
         x = conv(x)
+    return x
+
+
+def decoder_stage_rows(deconv: Deconv2x2, conv: Optional[DoubleConv],
+                       x: torch.Tensor, skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """decoder_stage on this model rank's row block x (ModelConfig.
+    spatial_axis): the 2x2 deconv is local (output rows 2i and 2i+1 read
+    input row i only), `skip` is the skip map's rows of the output block,
+    and the double conv exchanges halos (DoubleConv.forward_rows)."""
+    x = deconv(x)
+    if skip is not None:
+        x = torch.cat([x, skip.to(x.dtype)], dim=1)
+    if conv is not None:
+        x = conv.forward_rows(x)
     return x

@@ -25,9 +25,10 @@ float32 weights cast per call, BatchNorm keeps its statistics and running
 stats in float32 and returns its input's dtype, the SE gate's sigmoid runs
 in float32, the residual is added in the block's dtype.
 
-Across processes (core/mesh.py, world size N > 1) train mode is the
-global batch's, as under the JAX package's jit over a batch sharded on
-'data': BatchNorm's moments are those of every process's rows, from each
+Across processes (core/mesh.py, a data axis of D > 1 processes) train
+mode is the global batch's, as under the JAX package's jit over a batch
+sharded on 'data' (the encoders run replicated along a model axis):
+BatchNorm's moments are those of the data group's rows, from each
 process's count, mean and biased variance (one float32 all-reduce,
 differentiable, so the backward runs through them; combined as
 torch.nn.SyncBatchNorm combines them, where a sum of squares less the
@@ -35,8 +36,8 @@ squared mean, flax's fast variance, loses the digits of a channel whose
 mean is large against its spread), with flax's biased-variance EMA, the
 same on every process; and
 each block's drop-connect uniforms are drawn for the whole batch from the
-one generator, every process keeping its own rows. At world size 1 both
-take the single-process code.
+one generator, every process keeping its data index's rows. On a data
+axis of size 1 both take the single-process code.
 
 Remat (ModelConfig.remat_backbone): blocks from index `remat_skip` on run
 under torch.utils.checkpoint, 'save_dw' as two checkpointed segments split
@@ -89,7 +90,7 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if mesh.world_size() > 1:
+        if mesh.data_size() > 1:
             return self._global_batch(x)
         # normalisation with batch statistics (biased variance, as torch
         # and flax both normalise); running stats left to the update below
@@ -106,20 +107,21 @@ class BatchNorm(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
 
     def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over the processes' rows together: each process's
+        """Train mode over the data group's rows together: each process's
         count, mean and biased variance (two-pass, as one process takes
-        them) in its row of an [N, 2C + 1] table that one differentiable
-        all-reduce (mesh.global_sum) fills on every process, then the
-        global moments by the parallel-variance formula, in rank order, so
-        the same bits on every process; the EMA from them."""
+        them) in its data index's row of a [D, 2C + 1] table that one
+        differentiable all-reduce over the data group (mesh.global_sum)
+        fills, then the global moments by the parallel-variance formula, in
+        data-index order, so the same bits on every process; the EMA from
+        them."""
         c = x.shape[1]
         xf = x.float()
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
         row = torch.cat([count, mean, var])
         zeros = torch.zeros_like(row)
-        table = mesh.global_sum(torch.stack([row if r == mesh.rank() else zeros
-                                             for r in range(mesh.world_size())]))
+        table = mesh.global_sum(torch.stack([row if r == mesh.data_index() else zeros
+                                             for r in range(mesh.data_size())]))
         counts = table[:, :1]
         total = counts.sum()
         mean = (counts * table[:, 1:c + 1]).sum(dim=0) / total
@@ -139,14 +141,15 @@ def batch_norm(channels: int) -> BatchNorm:
 def drop_connect_uniforms(x: torch.Tensor,
                           generator: Optional[torch.Generator]) -> torch.Tensor:
     """U[0, 1) per sample of x, [B, 1, 1, 1] in x's dtype, from `generator`;
-    across N processes those of the rows of the global batch [N * B] that
-    this process holds (the one generator's draws, as one process draws
-    them for the global batch)."""
+    across a data axis of D processes those of the rows of the global batch
+    [D * B] that this process's data index holds (the one generator's
+    draws, as one process draws them for the global batch; the model ranks
+    of one data index draw the same masks)."""
     if generator is None:
         raise ValueError("train-mode drop-connect needs a torch.Generator")
-    b, n = x.shape[0], mesh.world_size()
+    b, n = x.shape[0], mesh.data_size()
     u = torch.rand((n * b, 1, 1, 1), generator=generator, device=x.device, dtype=x.dtype)
-    return u if n == 1 else u[mesh.rank() * b:(mesh.rank() + 1) * b]
+    return u if n == 1 else u[mesh.data_index() * b:(mesh.data_index() + 1) * b]
 
 
 def apply_drop_connect(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ccvpe_tpu_torch.core import mesh as mesh_lib
 from ccvpe_tpu_torch.core.config import CORR_IMPLS
 
 # the JAX package's TPU dispatch sends D >= 128 to its Pallas kernel
@@ -112,20 +113,90 @@ def rolled_corr_dispatch(
     bins: Optional[Sequence[int]] = None,
     impl: str = "auto",
     allow_bf16: bool = False,
+    ori_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Route by `impl` and the tensor's device: 'auto' takes the CUDA kernel
     for a CUDA tensor and the plain version for a CPU tensor, at every D
     and for a float32 or bf16 map; 'plain' always the plain version; 'cuda'
-    the kernel, raising on a CPU tensor. `allow_bf16`: ModelConfig.corr_bf16."""
+    the kernel, raising on a CPU tensor. `allow_bf16`: ModelConfig.corr_bf16.
+
+    `ori_axis` (ModelConfig.ori_axis) names the mesh axis the bins shard
+    over (core/mesh.py::shard_size): on an axis of M > 1 processes, model
+    rank m scores a contiguous block of the bins (mesh.blocks: ceil(K / M)
+    each, the last short or empty; an empty block launches nothing) by the
+    same route, from sat and grd copied into the sharded region
+    (mesh.to_model, so their gradients are whole), and the blocks are
+    gathered into [B, h, w, K] on every model rank."""
     if impl not in CORR_IMPLS:
         raise ValueError(f"corr_impl must be one of {CORR_IMPLS}, got {impl!r}")
     if impl == "cuda" and not sat.is_cuda:
         raise ValueError("corr_impl='cuda' needs a CUDA tensor; got one on "
                          f"{sat.device}")
+    parts = mesh_lib.shard_size(ori_axis)
+    if parts > 1:
+        return _bin_blocks(sat, grd, shift, num_bins, center, bins, impl, allow_bf16, parts)
     if impl == "plain" or (impl == "auto" and not sat.is_cuda):
         return rolled_corr(sat, grd, shift, num_bins, center, bins, allow_bf16)
     from ccvpe_tpu_torch.ops.corr_cuda import rolled_corr_cuda
     return rolled_corr_cuda(sat, grd, shift, num_bins, center, bins, allow_bf16)
+
+
+def _bin_blocks(sat, grd, shift, num_bins, center, bins, impl, allow_bf16,
+                parts: int) -> torch.Tensor:
+    """rolled_corr_dispatch on this model rank's block of the bins,
+    gathered over the model group."""
+    bins = tuple(range(num_bins)) if bins is None else tuple(bins)
+    sizes = mesh_lib.blocks(len(bins), parts)
+    m = mesh_lib.model_index()
+    start = sum(sizes[:m])
+    mine = bins[start:start + sizes[m]]
+    sat, grd = mesh_lib.to_model(sat), mesh_lib.to_model(grd)
+    if mine:
+        local = rolled_corr_dispatch(sat, grd, shift, num_bins, center, mine, impl, allow_bf16)
+    else:   # no bins here: an empty block, still on the autograd path of
+        # both inputs so this rank joins to_model's backward all-reduce
+        local = sat[..., :0].float() + grd[:, None, None, :0].float()
+    return mesh_lib.gather_model(local, -1, sizes)
+
+
+def rolled_corr_bin_sharded(
+    sat: torch.Tensor,
+    grd: torch.Tensor,
+    shift: int,
+    num_bins: int,
+    mesh: mesh_lib.Mesh,
+    axis: str = "model",
+    center: bool = False,
+    batch_axis: Optional[str] = "data",
+) -> torch.Tensor:
+    """The orientation-axis sharded correlation with explicit collectives
+    (the port of ccvpe_tpu/ops/corr.py::rolled_corr_bin_sharded, its
+    shard_map): each process along `axis` of `mesh` scores a contiguous
+    block of num_bins / M bins, M the axis's size, through
+    rolled_corr_dispatch (B1 on the card), and the blocks are gathered on
+    K. sat [B, h, w, D] and grd [B, L] are the global batch, the same on
+    every process, as a JAX global array is one logical array: with
+    `batch_axis` (the mesh's data axis) each process scores the rows of its
+    data index and returns that block [B / D, h, w, K]; with None the
+    whole batch [B, h, w, K]. Raises ValueError where M does not divide
+    num_bins, as JAX does."""
+    with mesh_lib.set_mesh(mesh):
+        parts = mesh_lib.shard_size(axis)
+        if num_bins % parts:
+            raise ValueError(f"num_bins={num_bins} not divisible by mesh axis '{axis}' of "
+                             f"size {parts}")
+        if batch_axis is not None:
+            if batch_axis != mesh.axis_names[0]:
+                raise ValueError(f"batch_axis must be the mesh's data axis "
+                                 f"'{mesh.axis_names[0]}' or None, got {batch_axis!r}")
+            b = sat.shape[0] // mesh.data
+            if b * mesh.data != sat.shape[0]:
+                raise ValueError(f"a batch of {sat.shape[0]} does not split over the data axis "
+                                 f"'{batch_axis}' of size {mesh.data}")
+            rows = slice(mesh_lib.data_index() * b, (mesh_lib.data_index() + 1) * b)
+            sat, grd = sat[rows], grd[rows]
+        return rolled_corr_dispatch(sat.float(), grd.float(), shift, num_bins, center,
+                                    ori_axis=axis)
 
 
 def rolled_corr_reference(

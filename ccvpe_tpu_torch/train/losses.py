@@ -4,9 +4,11 @@ reference's masked_select, in log space. Maps NHWC; scores flattened to
 [B, N].
 
 Each loss is the global batch's, as under the JAX package's jit over a
-batch sharded on 'data': across N processes (core/mesh.py) its sums are
-global sums (mesh.global_sum) and its batch the global one (N * B rows);
-at world size 1 the single-process expressions, with the same bits."""
+batch sharded on 'data': across a data axis of D processes (core/mesh.py)
+its sums are global sums over the data group (mesh.global_sum) and its
+batch the global one (D * B rows; the model ranks of a data index hold
+the same rows); on a data axis of size 1 the single-process expressions,
+with the same bits."""
 
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from ccvpe_tpu_torch.core import mesh
 
 
 def _global_rows(t: torch.Tensor) -> int:
-    return t.shape[0] * mesh.world_size()
+    return t.shape[0] * mesh.data_size()
 
 
 def infonce_loss(scores: torch.Tensor, labels: torch.Tensor,
@@ -29,7 +31,7 @@ def infonce_loss(scores: torch.Tensor, labels: torch.Tensor,
     z = scores / temperature
     if not global_negatives:
         logp = torch.log_softmax(z, dim=1)
-    elif mesh.world_size() == 1:
+    elif mesh.data_size() == 1:
         logp = z - torch.logsumexp(z.reshape(-1), dim=0)
     else:
         m = mesh.global_max(z.max())

@@ -13,16 +13,18 @@ running stats in the CVM module and the moments in the optimizer: the step
 updates `TrainState` in place and returns it. State lives on the card
 unless the caller passes device="cpu".
 
-Across N processes (core/mesh.py; one card each) the step is the JAX step
-on the global batch, each process holding its block of rows: BatchNorm's
-moments and the losses are the global batch's (nn/efficientnet.py,
-train/losses.py), each process backpropagates that loss, and the
-gradients are averaged in one flat float32 all-reduce (core/mesh.py's note
-says why the mean) before clipping and the update, so every process
-applies the same update. With gradient
-accumulation microbatch i is the global rows [i*M, (i+1)*M) of the global
-batch, M = N * B / A, as the JAX package's reshape slices it: every process
-gathers the global batch's inputs and runs its B / A rows of each.
+Across processes (core/mesh.py; one card each) the step is the JAX step
+on the global batch, each data index holding its block of rows (the model
+ranks of one data index the same rows): BatchNorm's moments and the
+losses are the global batch's (nn/efficientnet.py, train/losses.py), each
+process backpropagates that loss, and the gradients are averaged over
+every process in one flat float32 all-reduce (the partial gradients of
+the parameters run on row blocks under ModelConfig.spatial_axis weighted
+by the model size; core/mesh.py's note says why) before clipping and the
+update, so every process applies the same update. With gradient accumulation microbatch i is the global rows
+[i*M, (i+1)*M) of the global batch, M = D * B / A, as the JAX package's
+reshape slices it: every process gathers the data group's inputs and runs
+its B / A rows of each.
 """
 
 from __future__ import annotations
@@ -376,15 +378,15 @@ class TrainStep:
 
     def _run(self, state: TrainState, batch: Batch, generator: Optional[torch.Generator]):
         """The device work of one update; returns the averaged metrics."""
-        accum, world = self.accum, mesh.world_size()
+        accum, data = self.accum, mesh.data_size()
         loss_fn = make_loss_fn(state.model, self.model_cfg, self.train_cfg)
         state.optimizer.zero_grad()
         sums: Dict[str, torch.Tensor] = {}
         m = batch.grd.shape[0] // accum         # this process's rows of a microbatch
-        if accum > 1 and world > 1:
-            # global microbatch i holds process r's rows from (i * N + r) * m
+        if accum > 1 and data > 1:
+            # global microbatch i holds data index d's rows from (i * D + d) * m
             batch = Batch(*(mesh.gather_rows(v) for v in batch))
-            starts = [(i * world + mesh.rank()) * m for i in range(accum)]
+            starts = [(i * data + mesh.data_index()) * m for i in range(accum)]
         else:
             starts = [i * m for i in range(accum)]
         for start in starts:
@@ -393,7 +395,7 @@ class TrainStep:
             (total / accum if accum > 1 else total).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
-        mesh.mean_grads(list(state.model.parameters()))
+        mesh.mean_grads(list(state.model.parameters()), state.model.row_block_params())
         state.optimizer.update()
         return {k: v / accum for k, v in sums.items()}
 
@@ -445,10 +447,10 @@ class TrainStep:
         device = next(model.parameters()).device
         b = batch[0].shape[0]
         if b % self.accum:
-            world = mesh.world_size()
+            data = mesh.data_size()
             raise ValueError(f"batch {b} does not split into {self.accum} microbatches"
-                             + (f" of a multiple of {world} rows (one block a process of a "
-                                f"global batch of {b * world})" if world > 1 else ""))
+                             + (f" of a multiple of {data} rows (one block a data index of a "
+                                f"global batch of {b * data})" if data > 1 else ""))
         if self.cuda_graph and device.type == "cuda":
             metrics = self._graphed(state, batch, generator)
         else:

@@ -175,6 +175,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      stream_eval over 2 shards against one: the same per-sample errors,
      summaries within 1e-9, aggregate_fps; each run's p50 step time, a
      reading;
+ 17. the model axis (ModelConfig.spatial_axis, ori_axis), after phase 16,
+     in a sixth child process (python3 chip_smoke.py --model-axis <json>,
+     phase 12's environment), vigor() at full width, float32: (a) in a
+     nccl group of one under set_mesh(make_mesh(1, 1)), both axes 'model'
+     against neither, 3 graphed unfused steps at batch 8 in deterministic
+     mode: the same bits, 6 B1 launches in every step and in the trace of
+     a replayed step; (b) two rank processes (--model-axis-rank) under gloo
+     on the one card as the mesh (1, 2), eager, against one process at the
+     global batch of 8: the forward with both axes (heatmap 1e-5, logits
+     2e-3, scores 1e-4, ori 1e-4 where the raw head norm exceeds 1e-2;
+     6 B1 launches a rank, held to its trace), 2 train steps with both
+     axes and ori_window=160, drop-connect on, and 2 with ori_axis and
+     the fused stages from 256 (6/4/4 B1/B2/B3 a rank a step): losses
+     within 1e-4, the first step's whole gradient within SCALE_GRAD_RTOL,
+     BN running var within 2e-4, every rank the same bits; (c) four rank
+     processes as (2, 2): one forward and one step with both axes at a
+     global batch of 4 against one process, the same checks; each rank's
+     p50 and peak allocated memory beside one process's (readings);
  15. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
      launches in each eval loop; each kernel's driver_launches are its
@@ -187,7 +205,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      graph_serve_launches those of one
      replayed serving batch, and
      export_nodes the exported fused program's nodes; nccl_step_launches
-     those in the trace of one replayed step in phase 16's nccl group),
+     those in the trace of one replayed step in phase 16's nccl group;
+     model_axis_launches those of a step on rank 0 of phase 17's (1, 2)
+     mesh with ori_axis and the fused stages),
      then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -196,7 +216,8 @@ chiprun_out/chip_smoke_driver.json, phase 12's to
 chiprun_out/chip_smoke_bench.json, phase 13's to
 chiprun_out/chip_smoke_options.json, phase 14's to
 chiprun_out/chip_smoke_graphs.json, phase 16's to
-chiprun_out/chip_smoke_scale.json). InferenceEngine and make_train_step
+chiprun_out/chip_smoke_scale.json, phase 17's to
+chiprun_out/chip_smoke_model.json). InferenceEngine and make_train_step
 capture CUDA graphs by default, so phases 8-13 run graphed after each
 shape's first, eager call. A replay runs none of the wrappers that count
 launches (core/graphs.py adds the capture's count at each replay), so every
@@ -2997,6 +3018,394 @@ def scale_main(out_path: str) -> int:
     return 0 if ok else 1
 
 
+# --- phase 17: the model axis, in a child ---
+
+MODEL_TIMEOUT_S = 420
+# a rank process of 17b and 17c: its wall time, the card's first touch included
+MODEL_RANK_TIMEOUT_S = 240
+# (name, ModelConfig overrides) on vigor(), float32; BOTH as __graft_entry__.py::
+# dryrun_multichip sets them
+MODEL_BOTH = {"spatial_axis": "model", "ori_axis": "model"}
+MODEL_NO_AXES = {"spatial_axis": None, "ori_axis": None}
+# 17b's train cases: both axes with the train-time ori window (spatial_axis
+# refuses fused stages, as JAX does), and ori_axis with the fused stages
+MODEL_TRAIN_CASES = (("both axes, ori_window 160", {**MODEL_BOTH, "ori_window": 160}),
+                     ("ori_axis, fused from 256", {"ori_axis": "model",
+                                                   "lmu_fused_min_res": 256}))
+MODEL_STEPS, MODEL_TIMED_STEPS = 2, 2
+# the forward against one process: tests/test_spatial_sharding.py's bounds;
+# ori where the raw head vector's norm exceeds the floor (elsewhere the
+# normalisation amplifies roundoff: tests/_helpers.py::assert_ori_close)
+MODEL_HEATMAP_ATOL, MODEL_LOGITS_ATOL, MODEL_SCORES_ATOL = 1e-5, 2e-3, 1e-4
+MODEL_ORI_ATOL, MODEL_ORI_FLOOR, MODEL_ORI_DEGENERATE_ATOL = 1e-4, 1e-2, 5e-2
+# 17a: B1 at six scales, no fused stage; a forward's B1 launches on a rank
+UNFUSED_STEP_LAUNCHES = dict(DRIVER_STEP_LAUNCHES, lmu_fwd=0, lmu_bwd=0)
+MODEL_FWD_B1 = 6
+
+
+def model_forward(cfg, sd, batch) -> dict:
+    """The eval forward of `batch` (this rank's data block) on the card:
+    its outputs and the raw ori head's norm on the host, the launches
+    counted over it, its time, and a second call profiled (the launches in
+    its trace held to the counters)."""
+    from ccvpe_tpu_torch.models.cvm import build_cvm
+    from ccvpe_tpu_torch.train.step import device_normalize
+    model = build_cvm(cfg, "cuda", state_dict=sd)
+    raw = {}
+    hook = model.conv1_ori.register_forward_hook(lambda m, i, o: raw.update(ori=o))
+    g, s = device_normalize(batch.grd), device_normalize(batch.sat)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = model(g, s)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    hook.remove()
+    res = dict(logits=out.logits.cpu(), heatmap=out.heatmap.cpu(), ori=out.ori.cpu(),
+               scores=[t.cpu() for t in out.matching_scores], launches=launches, ms=ms)
+    if "ori" in raw:        # the head ran on the whole map (on a row block it is gathered)
+        res["raw_norm"] = torch.linalg.vector_norm(raw["ori"], dim=1)[..., None].cpu()
+
+    def again():
+        with torch.inference_mode():
+            model(g, s)
+    res["profile"] = profile_call(again, f"forward, {cfg.spatial_axis=}, {cfg.ori_axis=}",
+                                  card_line(), ms)["launches_traced"]
+    del model, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def model_steps(cfg, sd, b_global, what, steps=MODEL_STEPS, timed=MODEL_TIMED_STEPS) -> dict:
+    """`steps` eager steps of make_train_step(cuda_graph=False) on this
+    rank's data block of bench_batch's global batch, drop-connect on, the
+    generator seeded 17 + i: per-step losses and launches, the first step's
+    gradients and the final BN buffers on the host, a digest of the final
+    state, the peak allocated memory; then the p50 of `timed` more steps."""
+    import hashlib
+
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core import mesh
+    from ccvpe_tpu_torch.train.step import Batch, create_train_state, make_train_step
+    tc = cfg_lib.TrainConfig()
+    b = b_global // mesh.data_size()
+    d = mesh.data_index()
+    batch = Batch(*(v[d * b:(d + 1) * b].contiguous() for v in bench_batch(cfg, b_global)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, tc, state_dict=sd)
+    step = make_train_step(cfg, tc, cuda_graph=False)
+    gen = torch.Generator(device="cuda")
+    losses, launches, grads = [], [], None
+    for i in range(steps):
+        gen.manual_seed(17 + i)
+        zero_launch_counts()
+        _, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        launches.append(launch_counts())
+        losses.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    bits = train_state_bits(state)
+    bits["adam"] = {f"{i}.{k}": v for i, st in bits["adam"].items() for k, v in st.items()}
+    digest = {}
+    for part in ("params", "buffers", "adam"):
+        sha = hashlib.sha256()
+        for v in bits[part].values():
+            sha.update(v.detach().cpu().contiguous().numpy().tobytes())
+        digest[part] = sha.hexdigest()
+    buffers = {k: v.cpu() for k, v in bits["buffers"].items()}
+    times = []
+    for i in range(timed):
+        gen.manual_seed(17 + steps + i)
+        t0 = time.perf_counter()
+        _, m = step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"model axis {what}: p50 step {p50:.2f} ms over {timed} eager steps, peak allocated "
+        f"{peak:.2f} GiB, launches a step {launches[-1]} (readings, not targets) [{card_line()}]")
+    del state, step, bits
+    torch.cuda.empty_cache()
+    return dict(losses=losses, launches=launches, grads=grads, buffers=buffers,
+                digest=digest, p50_step_ms=p50, step_ms=[t * 1e3 for t in times],
+                peak_gib=peak)
+
+
+def model_rank_main(rank: int, world: int, url: str, out_path: str) -> int:
+    """One rank of 17b (world 2: the mesh (1, 2), a global batch of 8) or
+    17c (world 4: (2, 2), a global batch of 4): gloo on the card (nccl
+    refuses two ranks on one device), the forward with both axes, then the
+    train cases; its results to out_path."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --model-axis-rank: no CUDA device", file=sys.stderr)
+        return 2
+    from ccvpe_tpu_torch.core import mesh
+    mesh.init_distributed(url, world, rank, device="cuda:0", backend="gloo")
+    cfg, sd = scale_setup()
+    shape = (1, 2) if world == 2 else (2, 2)
+    b_global = 8 if world == 2 else 4
+    out = {}
+    with mesh.set_mesh(mesh.make_mesh(*shape)):
+        d, b = mesh.data_index(), b_global // shape[0]
+        batch = bench_batch(cfg, b_global)
+        block = type(batch)(*(v[d * b:(d + 1) * b] for v in batch))
+        out["forward"] = model_forward(dataclasses.replace(cfg, lmu_fused_min_res=0,
+                                                           **MODEL_BOTH), sd, block)
+        cases = MODEL_TRAIN_CASES if world == 2 else MODEL_TRAIN_CASES[:1]
+        for case, over in cases:
+            c = dataclasses.replace(cfg, **{"lmu_fused_min_res": 0, **over})
+            out[case] = model_steps(c, sd, b_global, f"{case}, rank {rank} of {shape} "
+                                    f"(gloo on the card)", 1 if world == 4 else MODEL_STEPS)
+            if rank:
+                out[case].update(grads=None)
+        if mesh.model_index():      # model index 0 keeps its data block's outputs
+            out["forward"].update(scores=None, ori=None, logits=None)
+    torch.save(out, out_path)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def run_model_ws1(card, out, cfg, sd) -> bool:
+    """17a, in deterministic mode: the graphed unfused float32 step at
+    batch 8 in a nccl group of one process under set_mesh(make_mesh(1,
+    1)), MODEL_STEPS + 1 steps with neither axis, then with both
+    'model', from the same state and seeds: the same bits, the same
+    launches in every step and in the trace of one replayed step."""
+    import torch.distributed as dist
+
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core import mesh
+    from ccvpe_tpu_torch.core.debug import deterministic
+    from ccvpe_tpu_torch.train.step import create_train_state, make_train_step
+    tc = cfg_lib.TrainConfig()
+    batch = bench_batch(cfg, 8)
+    res = out["world_size_1"] = {}
+    bits = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for name, over in (("no axes", MODEL_NO_AXES), ("both axes 'model'", MODEL_BOTH)):
+            c = dataclasses.replace(cfg, lmu_fused_min_res=0, **over)
+            with deterministic(), mesh.set_mesh(mesh.make_mesh(1, 1)):
+                state = create_train_state(c, tc, state_dict=sd)
+                step = make_train_step(c, tc)
+                gen = torch.Generator(device="cuda")
+                losses, per_step, times = [], [], []
+                for i in range(MODEL_STEPS + 1):
+                    gen.manual_seed(17 + i)
+                    zero_launch_counts()
+                    t0 = time.perf_counter()
+                    _, m = step(state, batch, gen)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    per_step.append(launch_counts())
+                    losses.append({k: float(v) for k, v in m.items()})
+                bits[name] = train_state_bits(state)
+                prof = profile_call(lambda: step(state, batch, gen),
+                                    f"one replayed step, nccl world size 1, {name}", card,
+                                    times[-1] * 1e3)
+            res[name] = dict(losses=losses, launches=per_step, captures=step.captures,
+                             step_ms=[t * 1e3 for t in times],
+                             traced_launches=prof["launches_traced"])
+            log(f"model axis world size 1 (nccl), {name}: graphed unfused f32 batch 8 "
+                f"(deterministic mode), the last step {times[-1] * 1e3:.2f} ms (a replay); "
+                f"launches a step {per_step[-1]}; in the trace of a replayed step "
+                f"{prof['launches_traced']}; captures {step.captures} [{card}]")
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    a, b = bits["no axes"], bits["both axes 'model'"]
+    bad = {k: same_bits(a[k], b[k]) for k in a if k != "adam"}
+    bad["adam"] = same_bits({str(i): v for i, v in a["adam"].items()},
+                            {str(i): v for i, v in b["adam"].items()})
+    rows = [res["no axes"], res["both axes 'model'"]]
+    same_losses = rows[0]["losses"] == rows[1]["losses"]
+    launches_ok = all(c == UNFUSED_STEP_LAUNCHES for r in rows for c in r["launches"]) and all(
+        r["traced_launches"] == UNFUSED_STEP_LAUNCHES for r in rows)
+    ok = same_losses and not any(bad.values()) and launches_ok and all(
+        r["captures"] == 1 for r in rows)
+    res.update(differ={k: v[:10] for k, v in bad.items()}, same_losses=same_losses, ok=ok)
+    log(f"model axis world size 1: both axes against neither, {MODEL_STEPS + 1} graphed steps: "
+        f"losses the same bits {same_losses}; differing tensors "
+        f"{json.dumps({k: len(v) for k, v in bad.items()})}; launches "
+        f"{UNFUSED_STEP_LAUNCHES} in every step and trace {launches_ok} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def forward_close(got, want) -> dict:
+    """A rank's forward against one process's rows: each output's max
+    abs error and whether it is within its bound."""
+    err = {k: float((got[k] - want[k]).abs().max()) for k in ("heatmap", "logits")}
+    err["scores"] = max(float((a - w).abs().max()) for a, w in zip(got["scores"], want["scores"]))
+    ori_err = (got["ori"] - want["ori"]).abs()
+    well = (want["raw_norm"] > MODEL_ORI_FLOOR).expand_as(ori_err)
+    err["ori"], err["ori_all"] = float(ori_err[well].max()), float(ori_err.max())
+    shapes = [tuple(a.shape) == tuple(w.shape) for a, w in zip(got["scores"], want["scores"])]
+    ok = (err["heatmap"] <= MODEL_HEATMAP_ATOL and err["logits"] <= MODEL_LOGITS_ATOL
+          and err["scores"] <= MODEL_SCORES_ATOL and err["ori"] <= MODEL_ORI_ATOL
+          and err["ori_all"] <= MODEL_ORI_DEGENERATE_ATOL and all(shapes)
+          and len(shapes) == 6)
+    return dict(err, ok=ok)
+
+
+def rows_of(ref, rows) -> dict:
+    return {k: ([t[rows] for t in v] if k == "scores" else v[rows])
+            for k, v in ref.items() if k in ("heatmap", "logits", "ori", "scores", "raw_norm")}
+
+
+def run_model_ranks(card, out, cfg, sd, world, refs) -> bool:
+    """17b (world 2, the mesh (1, 2), a global batch of 8) or 17c (world 4,
+    (2, 2), a global batch of 4): the rank processes under gloo on the card
+    against the one-process references `refs`: the forward at the sharding
+    tests' bounds with 6 B1 launches a rank, held to its trace; each train
+    case's losses within SCALE_LOSS_RTOL, the first step's whole gradient
+    within SCALE_GRAD_RTOL, BN running var within BN_VAR_RTOL, every rank
+    the same bits and the expected launches a step."""
+    shape = (1, 2) if world == 2 else (2, 2)
+    url = f"tcp://localhost:{free_port()}"
+    outs = [os.path.abspath(os.path.join(OUT_DIR, f"model_rank{r}.pt")) for r in range(world)]
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--model-axis-rank",
+                               str(r), str(world), url, outs[r]]) for r in range(world)]
+    try:
+        codes = [p.wait(timeout=MODEL_RANK_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if codes != [0] * world:
+        log(f"FAIL: model axis rank processes {shape} exited {codes} "
+            f"(timeout {MODEL_RANK_TIMEOUT_S} s)")
+        return False
+    ranks = [torch.load(p, weights_only=False) for p in outs]
+    for p in outs:
+        os.remove(p)
+    res = out[f"gloo_{shape[0]}x{shape[1]}"] = dict(rank_processes_wall_s=wall)
+    b = refs["b_global"] // shape[0]
+    fwd_errs, fwd_ok = [], True
+    for r, got in enumerate(ranks):
+        f = got["forward"]
+        launches_ok = (f["launches"]["corr_fwd"] == MODEL_FWD_B1
+                       and f["profile"] == f["launches"])
+        if f["logits"] is not None:
+            d = r // shape[1]
+            e = forward_close(f, rows_of(refs["forward"], slice(d * b, (d + 1) * b)))
+            fwd_errs.append(e)
+            fwd_ok = fwd_ok and e["ok"]
+        fwd_ok = fwd_ok and launches_ok
+    res["forward"] = dict(errors=fwd_errs, launches=[g["forward"]["launches"] for g in ranks],
+                          traced=[g["forward"]["profile"] for g in ranks],
+                          rank_ms=[g["forward"]["ms"] for g in ranks],
+                          one_ms=refs["forward"]["ms"], ok=fwd_ok)
+    log(f"model axis {shape} gloo ranks, forward with both axes at a global batch of "
+        f"{refs['b_global']}: errors against one process {fwd_errs} (heatmap "
+        f"{MODEL_HEATMAP_ATOL}, logits {MODEL_LOGITS_ATOL}, scores {MODEL_SCORES_ATOL}, ori "
+        f"{MODEL_ORI_ATOL} where the raw norm > {MODEL_ORI_FLOOR}); B1 launches a rank "
+        f"{[g['forward']['launches']['corr_fwd'] for g in ranks]}, in the traces "
+        f"{[g['forward']['profile']['corr_fwd'] for g in ranks]}; forward ms one process "
+        f"{refs['forward']['ms']:.2f}, ranks {[round(g['forward']['ms'], 2) for g in ranks]} "
+        f"{'ok' if fwd_ok else 'FAIL'} [{card}]")
+    ok = fwd_ok
+    for case, over in (MODEL_TRAIN_CASES if world == 2 else MODEL_TRAIN_CASES[:1]):
+        want, got = refs[case], ranks[0][case]
+        rel = max(abs(g[k] - w[k]) / abs(w[k]) for r in ranks
+                  for g, w in zip(r[case]["losses"], want["losses"]) for k in w)
+        worst, over_atol = grads_close(got["grads"], want["grads"], STEP_GRAD_ATOL)
+        g_rel = grads_rel(got["grads"], want["grads"])
+        var_rel = max(float(((got["buffers"][k] - v).abs() / v.abs()).max())
+                      for k, v in want["buffers"].items() if k.endswith("running_var"))
+        var_bad = [k for k, v in want["buffers"].items() if k.endswith("running_var")
+                   and not torch.allclose(got["buffers"][k], v, rtol=BN_VAR_RTOL,
+                                          atol=BN_VAR_ATOL)]
+        differ = sorted({part for r in ranks for part, h in r[case]["digest"].items()
+                         if h != got["digest"][part]}
+                        | ({"losses"} if any(r[case]["losses"] != got["losses"] for r in ranks)
+                           else set()))
+        same_ranks = not differ
+        expect = dict(UNFUSED_STEP_LAUNCHES) if "fused" not in case else dict(
+            DRIVER_STEP_LAUNCHES)
+        launches_ok = all(c == expect for r in ranks for c in r[case]["launches"])
+        case_ok = (rel <= SCALE_LOSS_RTOL and g_rel <= SCALE_GRAD_RTOL and not var_bad
+                   and same_ranks and launches_ok)
+        ok = ok and case_ok
+        res[case] = dict(loss_rel=rel, grad_rel=g_rel, grad_worst=worst,
+                         grads_over=over_atol[:10], running_var_rel=var_rel,
+                         running_var_bad=var_bad[:10], ranks_same_bits=same_ranks,
+                         ranks_differ_in=differ,
+                         launches=[r[case]["launches"] for r in ranks], ok=case_ok,
+                         one_p50_step_ms=want["p50_step_ms"], one_peak_gib=want["peak_gib"],
+                         rank_p50_step_ms=[r[case]["p50_step_ms"] for r in ranks],
+                         rank_peak_gib=[r[case]["peak_gib"] for r in ranks],
+                         losses_one=want["losses"], losses_ranks=[r[case]["losses"] for r in ranks])
+        log(f"model axis {shape} gloo ranks against one process at {refs['b_global']}, {case}, "
+            f"{len(want['losses'])} eager steps, drop-connect on: losses rel {rel:.3g} (rtol "
+            f"{SCALE_LOSS_RTOL}); first step's whole gradient rel {g_rel:.3g} (rtol "
+            f"{SCALE_GRAD_RTOL}), worst tensor {worst:.3g} of its max abs ({over_atol[:4]} over "
+            f"{STEP_GRAD_ATOL}); running var rel {var_rel:.3g} ({len(var_bad)} over "
+            f"{BN_VAR_RTOL}); ranks the same bits {same_ranks} {differ}; launches a step "
+            f"{ranks[0][case]['launches'][-1]} (expected {expect}) {launches_ok}; p50 step one "
+            f"process {want['p50_step_ms']:.2f} ms, ranks "
+            f"{[round(r[case]['p50_step_ms'], 2) for r in ranks]} ms; peak allocated one "
+            f"process {want['peak_gib']:.2f} GiB, ranks "
+            f"{[round(r[case]['peak_gib'], 2) for r in ranks]} GiB (readings: gloo goes "
+            f"through the host) {'ok' if case_ok else 'FAIL'} [{card}]")
+    res["ok"] = ok
+    return ok
+
+
+def model_main(out_path: str) -> int:
+    """Phase 17 in its own process (phase 12's environment); the kernels
+    were built by the parent. 17a in a nccl group of one; the one-process
+    references with no group; then the 17b and 17c rank processes, one rig
+    at a time, while this process holds no tensor on the card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --model-axis: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    cfg, sd = scale_setup()
+    out = {"part_s": {}}
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    ok = run_model_ws1(card, out, cfg, sd)
+    out["part_s"]["world size 1"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    unfused = dataclasses.replace(cfg, lmu_fused_min_res=0)
+    refs = {}
+    for world, b_global in ((2, 8), (4, 4)):
+        r = refs[world] = {"b_global": b_global}
+        r["forward"] = model_forward(unfused, sd, bench_batch(cfg, b_global))
+        for case, over in (MODEL_TRAIN_CASES if world == 2 else MODEL_TRAIN_CASES[:1]):
+            c = dataclasses.replace(cfg, **{"lmu_fused_min_res": 0, **over, **MODEL_NO_AXES})
+            r[case] = model_steps(c, sd, b_global, f"{case}, one process at {b_global}",
+                                  MODEL_STEPS if world == 2 else 1)
+    out["part_s"]["one-process references"] = time.perf_counter() - t1
+    for world in (2, 4):
+        t1 = time.perf_counter()
+        ok = run_model_ranks(card, out, cfg, sd, world, refs[world]) and ok
+        out["part_s"][f"gloo {world} ranks"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = ok
+    with open(out_path, "w") as f:
+        json.dump({"model_axis": out}, f, indent=1, default=str)
+    return 0 if ok else 1
+
+
 def run_child(flag: str, name: str, timeout_s: int):
     """`python3 chip_smoke.py <flag> chiprun_out/<name>` as a child process
     with CUBLAS_WORKSPACE_CONFIG=:4096:8; returns its wall time and JSON, or
@@ -3679,9 +4088,26 @@ def main() -> int:
         if k["name"] in ("corr_fwd", "lmu_fwd", "lmu_bwd"):
             # launches in the trace of one replayed step in a nccl group
             k["nccl_step_launches"] = ws1["traced_launches"][k["name"]]
+    phase_done(16)
+    # 17. the model axis: a nccl group of one, then gloo ranks on the card
+    #     at (1, 2) and (2, 2), in a child
+    res = run_child("--model-axis", "chip_smoke_model.json", MODEL_TIMEOUT_S)
+    if res is None:
+        return 1
+    model_axis = report["model_axis"] = res[1]["model_axis"]
+    model_axis["child_wall_s"] = res[0]
+    log(f"model axis: child process wall {res[0]:.2f} s, {model_axis['seconds']:.2f} s of "
+        f"checks and runs ({', '.join(f'{k} {v:.1f} s' for k, v in model_axis['part_s'].items())})"
+        f" [{card}]")
+    fused_case = model_axis["gloo_1x2"][MODEL_TRAIN_CASES[1][0]]["launches"][0][-1]
+    for k in kernels:
+        if k["name"] in ("corr_fwd", "lmu_fwd", "lmu_bwd"):
+            # launches a step on rank 0 of the (1, 2) mesh, ori_axis with the
+            # fused stages: B1 on the rank's bin block, B2 and B3 whole
+            k["model_axis_launches"] = fused_case[k["name"]]
     report["kernels"] = kernels
     report["probes"] = probes
-    phase_done(16)
+    phase_done(17)
     log("phase wall seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in report["phase_s"].items()))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3706,4 +4132,8 @@ if __name__ == "__main__":
         sys.exit(scale_main(sys.argv[2]))
     if len(sys.argv) == 6 and sys.argv[1] == "--scale-out-rank":
         sys.exit(scale_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--model-axis":
+        sys.exit(model_main(sys.argv[2]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--model-axis-rank":
+        sys.exit(model_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

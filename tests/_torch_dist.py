@@ -88,9 +88,10 @@ def spawn(fn_name: str, world: int, tmp_path, *args, timeout: float = JOIN_TIMEO
 # --- worker functions (run in every rank; also callable in one process) ---
 
 def block(batch):
-    """This rank's contiguous block of a global batch (a tuple of arrays)."""
+    """This rank's contiguous block of a global batch (a tuple of arrays):
+    its data index's, the same on every model rank."""
     from ccvpe_tpu_torch.core import mesh
-    n, r = mesh.world_size(), mesh.rank()
+    n, r = mesh.data_size(), mesh.data_index()
     b = len(batch[0]) // n
     return tuple(np.asarray(v)[r * b:(r + 1) * b] for v in batch)
 
@@ -136,11 +137,76 @@ def train_steps(cfg, train_cfg, state_dict, batches, seeds, drop_connect=True):
     return out
 
 
-def train_cases(cases, state_dict, batches):
+def train_cases(cases, state_dict, batches, mesh_shape=None):
     """train_steps for each (ModelConfig, TrainConfig, seeds, drop_connect)
-    of `cases`, in one process group."""
-    return [train_steps(cfg, tc, state_dict, batches, seeds, drop)
-            for cfg, tc, seeds, drop in cases]
+    of `cases`, in one process group; under set_mesh(make_mesh(*mesh_shape))
+    where given."""
+    import contextlib
+
+    from ccvpe_tpu_torch.core import mesh
+    ctx = (mesh.set_mesh(mesh.make_mesh(*mesh_shape)) if mesh_shape
+           else contextlib.nullcontext())
+    with ctx:
+        return [train_steps(cfg, tc, state_dict, batches, seeds, drop)
+                for cfg, tc, seeds, drop in cases]
+
+
+def model_axis_forwards(mesh_shape, cases, state_dict, grd, sat):
+    """Under set_mesh(make_mesh(*mesh_shape)): the eval forward of each
+    ModelConfig of `cases` (name -> config) on this rank's data block of
+    the global batch (grd, sat), as numpy (logits, heatmap, ori, scores)."""
+    from ccvpe_tpu_torch.core import mesh
+    from ccvpe_tpu_torch.models.cvm import build_cvm
+    out = {}
+    with mesh.set_mesh(mesh.make_mesh(*mesh_shape)):
+        g, s = block((grd, sat))
+        for name, cfg in cases.items():
+            model = build_cvm(cfg, "cpu", state_dict=state_dict)
+            with torch.inference_mode():
+                o = model(torch.from_numpy(g), torch.from_numpy(s))
+            out[name] = dict(logits=o.logits.numpy(), heatmap=o.heatmap.numpy(),
+                             ori=o.ori.numpy(), scores=[t.numpy() for t in o.matching_scores])
+    return out
+
+
+def model_axis_suite(shape, corr_args, forward_args, train_runs):
+    """A (data, model) mesh's checks in one process group: bin_sharded over
+    `corr_args` (where given), model_axis_forwards over `forward_args`, and
+    train_cases for each (cases, state_dict, batches) of `train_runs`."""
+    return dict(corr=bin_sharded(*corr_args) if corr_args else None,
+                forwards=model_axis_forwards(shape, *forward_args),
+                train=[train_cases(cases, sd, batches, shape)
+                       for cases, sd, batches in train_runs])
+
+
+def bin_sharded(shapes, sat, grd, shift, num_bins, bins_cases, cot):
+    """ops/corr.py on this rank: rolled_corr_bin_sharded over each (data,
+    model) of `shapes` with batch_axis 'data' and None; the ori_axis route
+    of rolled_corr_dispatch at each mesh of `shapes` for each bins of
+    `bins_cases`, with the gradients of sum(out * cot) of both inputs;
+    18 bins' refusal."""
+    from ccvpe_tpu_torch.core import mesh
+    from ccvpe_tpu_torch.ops.corr import rolled_corr_bin_sharded, rolled_corr_dispatch
+    out = {}
+    for shape in shapes:
+        m = mesh.make_mesh(*shape)
+        for batch_axis in ("data", None):
+            out[("bin_sharded", shape, batch_axis)] = rolled_corr_bin_sharded(
+                torch.from_numpy(sat), torch.from_numpy(grd), shift, num_bins, m,
+                batch_axis=batch_axis).numpy()
+        try:
+            rolled_corr_bin_sharded(torch.from_numpy(sat), torch.from_numpy(grd), shift, 18, m)
+        except ValueError as e:
+            out[("18 bins", shape)] = str(e)
+        with mesh.set_mesh(m):
+            for bins in bins_cases:
+                s = torch.from_numpy(sat).requires_grad_()
+                g = torch.from_numpy(grd).requires_grad_()
+                o = rolled_corr_dispatch(s, g, shift, num_bins, bins=bins, ori_axis="model")
+                (o * torch.from_numpy(cot[..., :o.shape[-1]])).sum().backward()
+                out[("ori_axis", shape, bins)] = (o.detach().numpy(), s.grad.numpy(),
+                                                 g.grad.numpy())
+    return out
 
 
 def mesh_checks(x_global, w_global):
@@ -162,9 +228,20 @@ def mesh_checks(x_global, w_global):
     total.backward()
     out["sum"], out["sum_grad"] = total.detach(), x.grad
     try:
-        mesh.make_mesh(model=2)
-    except NotImplementedError as e:
+        mesh.make_mesh(model=3)
+    except ValueError as e:
         out["model_axis_error"] = str(e)
+    with mesh.set_mesh(mesh.make_mesh(data=1, model=2)):
+        out["model_mesh"] = (mesh.data_size(), mesh.model_size(), mesh.data_index(),
+                             mesh.model_index())
+        # rows 3 and 2 of a [1, 1, 5, 2] map; the halo, a gather, their
+        # backward: the cotangent of the gathered map is 1, of the halo 10
+        x = (torch.arange(10.0).reshape(1, 1, 5, 2)[:, :, (0, 3)[r]:(3, 5)[r]]).requires_grad_()
+        halo = mesh.halo_rows(x)
+        whole = mesh.gather_model(x, 2, [3, 2])
+        (whole.sum() + 10 * halo.sum()).backward()
+        out["model_collectives"] = dict(halo=halo.detach(), whole=whole.detach(),
+                                        grad=x.grad)
     from ccvpe_tpu_torch.core import config as tcfg
     from ccvpe_tpu_torch.train.step import make_train_step
     try:   # the graphed path, which a step on the card takes, under gloo

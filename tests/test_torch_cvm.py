@@ -108,16 +108,23 @@ def test_ori_prior_returns_full_bottleneck_stack():
     assert ks == [4, 3, 3, 3, 3, 3]
 
 
-# (test id, ModelConfig overrides, the field the message names)
-UNPORTED = [("spatial_axis", {"spatial_axis": "model"}, "spatial_axis"),
-            ("ori_axis", {"ori_axis": "model"}, "ori_axis")]
-
-
-@pytest.mark.parametrize("over,field", [u[1:] for u in UNPORTED], ids=[u[0] for u in UNPORTED])
-def test_unported_options_raise(over, field):
-    cfg = dataclasses.replace(tcfg.tiny(), **over)
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-        CVM(cfg)
+@pytest.mark.parametrize("field", ["spatial_axis", "ori_axis"])
+def test_model_axis_options_build_and_run_unsharded(field):
+    """ModelConfig's model-axis fields build and, with one process (the
+    mesh (1, 1): a model axis of size 1), run the unsharded forward with
+    its bits (tests/test_torch_model_axis.py runs them sharded)."""
+    cfg = dataclasses.replace(tcfg.tiny(), **{field: "model"})
+    check_supported(cfg)
+    hg, wg = cfg.grd_size
+    hs, ws = cfg.sat_size
+    grd, sat = torch.zeros(1, hg, wg, 3), torch.ones(1, hs, ws, 3)
+    outs = []
+    for c in (cfg, tcfg.tiny()):
+        model = build_cvm(c, "cpu", generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            outs.append(model(grd, sat))
+    assert torch.equal(outs[0].logits, outs[1].logits)
+    assert torch.equal(outs[0].ori, outs[1].ori)
 
 
 def test_bad_corr_impl_raises():

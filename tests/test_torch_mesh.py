@@ -9,8 +9,10 @@ parameter gradients mean_grads averages (core/mesh.py's note); a train-mode
 BatchNorm over 2 ranks' blocks gives the one-process BatchNorm of the
 whole batch: outputs, input and parameter gradients, running stats (float32
 sums in another order: atol 1e-5 on unit-scale values, rtol 1e-5); a model
-axis raises, naming ROADMAP A8; the graphed train step refuses a gloo
-group (its collectives cannot be captured)."""
+axis that does not divide the processes raises, and a (1, 2) mesh gives
+each rank its model index, a halo from the true neighbour rows and a
+gather of unequal blocks, with their backward; the graphed train step
+refuses a gloo group (its collectives cannot be captured)."""
 
 import argparse
 
@@ -60,10 +62,14 @@ def test_one_process_is_a_no_op():
     mesh.mean_grads([t])
     assert torch.equal(t.grad, torch.ones(4))
     assert mesh.capturable()
-    with pytest.raises(NotImplementedError, match="A8, model axis"):
+    with pytest.raises(ValueError, match="does not divide the 1 processes"):
         mesh.make_mesh(model=2)
     with pytest.raises(ValueError, match="2 processes"):
         mesh.make_mesh(data=2)
+    assert mesh.current_mesh() == mesh.Mesh(1, 1)
+    assert (mesh.data_size(), mesh.model_size(), mesh.data_index(), mesh.model_index()) == (
+        1, 1, 0, 0)
+    assert mesh.to_model(t) is t and mesh.gather_model(t, 0, [4]) is t
 
 
 def test_process_device():
@@ -92,7 +98,19 @@ def test_two_rank_collectives(ranks):
         assert out["gather"].tolist() == [[0, 0], [1, 2]]
         assert out["rows"].tolist() == [0, 1, 2, 10, 11, 12]
         assert out["max"].tolist() == [1.0, 0.0]
-        assert "A8, model axis" in out["model_axis_error"]
+        assert "does not divide the 2 processes" in out["model_axis_error"]
+        # (data 1, model 2): each rank its model index; rank 0 holds rows
+        # 0-2 of the 5-row map, rank 1 rows 3-4; the halo's rows come from
+        # the true neighbours, and its backward adds the cotangent 10 of a
+        # neighbour's halo row into this rank's edge row
+        assert out["model_mesh"] == (1, 2, 0, r)
+        mc = out["model_collectives"]
+        whole = torch.arange(10.0).reshape(1, 1, 5, 2)
+        assert torch.equal(mc["whole"], whole)
+        padded = torch.nn.functional.pad(whole, (0, 0, 1, 1))
+        assert torch.equal(mc["halo"], padded[:, :, (0, 3)[r]:(5, 7)[r]])
+        edge = torch.tensor([[11.0], [11.0], [21.0]] if r == 0 else [[21.0], [11.0]])
+        assert torch.equal(mc["grad"][0, 0], edge.expand(-1, 2))
         assert "gloo" in out["graph_refusal"] and "cuda_graph=False" in out["graph_refusal"]
         # global sum 1 + 4 + 4 + 16; its gradient 2 x, N times on each rank
         assert float(out["sum"]) == 25.0
