@@ -2,21 +2,22 @@
 package's one compiled executable per shape (ccvpe_tpu/serve.py:55,
 ccvpe_tpu/train/step.py:249).
 
-`InferenceEngine` (serve.py) and the step of `make_train_step`
-(train/step.py) capture their fixed-shape work on the card once and replay
-it. A replay runs the captured kernels and nothing of the Python that
-launched them, so the launch counters that the kernels' wrappers bump on
-the host (corr_core.launches and the like) would count only the capture,
-which runs no kernel. `Graph` records each counter's change over the
-capture, takes it back, and adds it at every replay: a replayed step counts
-the launches an eager one counts. These counts are bookkeeping, not
-observations of a replay: chip_smoke.py holds them to the kernels that a
-torch.profiler trace of a replayed step and serving batch shows.
+`InferenceEngine` (serve.py), the step of `make_train_step` and the eval
+steps (train/step.py, through `GraphCache`) capture their fixed-shape work
+on the card once and replay it. A replay runs the captured kernels and
+nothing of the Python that launched them, so the launch counters that the
+kernels' wrappers bump on the host (corr_core.launches and the like)
+would count only the capture, which runs no kernel. `Graph` records each
+counter's change over the capture, takes it back, and adds it at every
+replay: a replayed step counts the launches an eager one counts. These
+counts are bookkeeping, not observations of a replay: chip_smoke.py holds
+them to the kernels that a torch.profiler trace of a replayed step,
+serving batch and eval loop shows.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,3 +81,72 @@ class Graph:
             raise RuntimeError("replay before capture")
         self.cuda_graph.replay()
         add_counts(self.launches)
+
+
+class _Entry:
+    """One key's graph: its binding, static inputs and static outputs."""
+
+    def __init__(self, binding, inputs, graph: Graph, outputs):
+        self.binding, self.inputs, self.graph, self.outputs = binding, inputs, graph, outputs
+
+
+class GraphCache:
+    """A fixed-shape call as one CUDA graph per (input shapes, dtypes) and
+    binding: the eval steps' counterpart of jax.jit (train/step.py).
+
+    `cache(fn, binding, *inputs)` returns fn's tensors for `inputs` (host
+    tensors, pinned for a copy that does not block, or tensors on the
+    device). The first call for a key runs fn eagerly (it builds the
+    kernels, cuDNN's plans and the workspaces); the second captures fn into
+    static device inputs and replays the graph once; every later call copies
+    its inputs into those static inputs (one copy each, no allocation) and
+    replays. `binding` names what the graph reads besides its inputs (the
+    eval steps pass the model's identity and the mesh's shape): another
+    binding drops the key's graph, and its pool, then runs eagerly and
+    captures anew, as make_train_step does for another state. In-place
+    changes of what the graph reads keep it valid: the optimizer's update,
+    BatchNorm's lerp_ of its running stats, load_state_dict's copy of a
+    restored checkpoint. Tensors replaced behind the binding's back (a
+    parameter's .data assigned, the model moved) are not seen.
+
+    Outputs are clones of the graph's static outputs, so the next call
+    overwrites none of them. fn is not kept: a cache that held it would keep
+    what it closes over (the model) alive. A capture that fails raises
+    (Graph.capture leaves the launch counters as they were); nothing falls
+    back to eager execution. `make_graph` makes each Graph (the CPU tests
+    pass a stand-in)."""
+
+    def __init__(self, device, make_graph: Callable[[], Graph] = Graph):
+        self.device = torch.device(device)
+        self._make_graph = make_graph
+        self._graphs: Dict[Tuple, _Entry] = {}
+        self._warmed: Dict[Tuple, object] = {}    # key -> binding of its eager call
+        self.captures = 0
+
+    def __call__(self, fn: Callable[..., Sequence[torch.Tensor]], binding,
+                 *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        key = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        entry = self._graphs.get(key)
+        if entry is not None and entry.binding != binding:
+            # a stale graph: its pool goes before the eager call allocates
+            del self._graphs[key]
+            entry = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        if entry is None:
+            if key not in self._warmed or self._warmed[key] != binding:
+                out = tuple(fn(*(t.to(self.device, non_blocking=True) for t in inputs)))
+                self._warmed[key] = binding
+                return out
+            static = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in inputs]
+            for dst, src in zip(static, inputs):
+                dst.copy_(src)
+            graph = self._make_graph()
+            outputs = graph.capture(lambda: tuple(fn(*static)))
+            entry = self._graphs[key] = _Entry(binding, static, graph, outputs)
+            self.captures += 1
+        else:
+            for dst, src in zip(entry.inputs, inputs):
+                dst.copy_(src, non_blocking=True)
+        entry.graph.replay()
+        return tuple(o.clone() for o in entry.outputs)

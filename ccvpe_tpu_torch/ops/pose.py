@@ -34,10 +34,11 @@ def decode_angle(cos_v: torch.Tensor, sin_v: torch.Tensor) -> torch.Tensor:
 
 def _linspace64(n: int, device) -> torch.Tensor:
     """np.linspace(-n/2, n/2, n) to the bit, on `device`: i * step + start
-    in float64, the last point set to the end, as numpy computes it."""
-    grid = torch.arange(n, dtype=torch.float64, device=device) * (n / (n - 1)) + (-n / 2.0)
-    grid[-1] = n / 2.0
-    return grid
+    in float64, the last point set to the end, as numpy computes it (by
+    masked_fill, a kernel that takes the value as an argument, which a CUDA
+    graph can capture)."""
+    i = torch.arange(n, dtype=torch.float64, device=device)
+    return (i * (n / (n - 1)) + (-n / 2.0)).masked_fill(i == n - 1, n / 2.0)
 
 
 def gt_location_device(height: int, width: int, row_offset: torch.Tensor,

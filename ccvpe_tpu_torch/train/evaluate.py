@@ -6,7 +6,9 @@ Reference protocols: train_VIGOR.py:246-338, train_KITTI.py:281-432.
 
 The loop keeps `pipeline_depth` batches in flight on the card. Each batch is
 staged in a pinned host buffer of a small ring, zero-padded to the loader's
-batch size, and copied to the card without blocking; the step's [B] results
+batch size, and copied to the card without blocking (by the graphed eval
+step straight into its graph's static inputs: one copy a batch, no device
+allocation, and one shape for a whole split); the step's [B] results
 come back without blocking into pinned host tensors, behind a CUDA event, and
 are read `pipeline_depth` batches later. A slot of the ring is written again
 only after its batch was read, so no copy reads a buffer being refilled.
@@ -105,8 +107,12 @@ def pipelined(step: Callable[..., Sequence[torch.Tensor]], batches: Iterable,
     `inputs(raw)` gives the step's host arrays, each with the batch's rows
     first; a batch of fewer than `batch_size` rows is zero-padded to it.
     Yields, in order, (the step's outputs as numpy arrays cut to the batch's
-    own rows, raw)."""
+    own rows, raw). A step that copies its inputs to the card itself
+    (`takes_host_inputs`: train/step.py::EvalStep, whose graph copies them
+    into its static inputs) is handed the slot's pinned buffers; any other
+    step gets them copied to `device`."""
     depth = max(1, depth)
+    host_inputs = getattr(step, "takes_host_inputs", False)
     pin = device.type == "cuda"
     ring = [_Slot() for _ in range(depth + 1)]
     pending: collections.deque = collections.deque()   # (slot, rows, raw)
@@ -125,7 +131,8 @@ def pipelined(step: Callable[..., Sequence[torch.Tensor]], batches: Iterable,
         for buf, src in zip(slot.inputs, srcs):
             buf[:rows].copy_(src)
             buf[rows:].zero_()
-        outs = step(*(buf.to(device, non_blocking=True) for buf in slot.inputs))
+        outs = step(*(slot.inputs if host_inputs
+                      else [buf.to(device, non_blocking=True) for buf in slot.inputs]))
         if len(slot.outputs) != len(outs):
             slot.outputs = [None] * len(outs)
         slot.outputs = [_host_buffer(h, o.shape, o.dtype, pin)
@@ -165,9 +172,10 @@ def eval_over_loader(
     @1/3/5 m and deg (train_VIGOR.py:290-326, train_KITTI.py:320-360).
 
     `decode_step` is train/step.py::make_eval_decode_step's step, on
-    `device` (default the card): six [B] vectors come back per batch, never
-    the maps. `meters_per_pixel` is a float, or a callable city -> float
-    applied to the batch's "city" field (VIGOR's per-city scales,
+    `device` (default the card; there one CUDA graph a batch shape by
+    default): six [B] vectors come back per batch, never the maps.
+    `meters_per_pixel` is a float, or a callable city -> float applied to
+    the batch's "city" field (VIGOR's per-city scales,
     train_VIGOR.py:193-200). Across processes `loader` is this process's
     shard (shard_id, num_shards = rank, world size), and the summary is
     that of every process's samples together."""

@@ -25,14 +25,20 @@ update, so every process applies the same update. With gradient accumulation mic
 [i*M, (i+1)*M) of the global batch, M = D * B / A, as the JAX package's
 reshape slices it: every process gathers the data group's inputs and runs
 its B / A rows of each.
+
+The eval steps (make_eval_step, make_eval_decode_step) are, as the JAX
+package's jitted ones, one compiled executable per input shape: one CUDA
+graph on the card (EvalStep, core/graphs.py::GraphCache).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import math
+import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,7 +46,7 @@ import torch
 
 from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
-from ccvpe_tpu_torch.core.graphs import Graph
+from ccvpe_tpu_torch.core.graphs import Graph, GraphCache
 from ccvpe_tpu_torch.core.precision import float32_matmuls
 from ccvpe_tpu_torch.models.cvm import CVM, CVMOutput, build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
@@ -475,43 +481,117 @@ def eval_mode(model: CVM):
         model.train(was)
 
 
-def make_eval_step(model: CVM) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
-    """Forward only, returning the full maps (heatmap [B,H,W,1], ori
+def graph_cache(device: torch.device, cuda_graph: bool) -> Optional[GraphCache]:
+    """The eval steps' graphs: a GraphCache on the card with `cuda_graph`,
+    None (every call eager) otherwise."""
+    return GraphCache(device) if cuda_graph and device.type == "cuda" else None
+
+
+def forward_collectives(model_cfg: ModelConfig) -> bool:
+    """Whether an eval-mode forward under the current mesh runs
+    collectives: only where ModelConfig.spatial_axis or ori_axis names a
+    model axis of more than one process (core/mesh.py). The data axis puts
+    none there: an eval-mode BatchNorm reads its running stats and never
+    reaches _global_batch (nn/efficientnet.py), no drop-connect runs, and
+    the eval loops pool their errors on the host after the loop."""
+    return mesh.shard_size(model_cfg.spatial_axis) > 1 or mesh.shard_size(model_cfg.ori_axis) > 1
+
+
+class EvalStep:
+    """The step make_eval_step and make_eval_decode_step return:
+    step(*inputs) -> the body's tensors on the model's device, under
+    torch.inference_mode, in float32 with TF32 off (core/precision.py), the
+    model in eval mode (see eval_mode).
+
+    Inputs are tensors on the host (pinned ones copy without blocking) or
+    on the model's device; train/evaluate.py::pipelined hands it its pinned
+    staging buffers (`takes_host_inputs`), so each batch is one
+    host-to-device copy. On the card with `cuda_graph` (the counterpart of
+    the JAX package's jitted eval steps) the body is one CUDA graph per
+    input shapes and dtypes (core/graphs.py::GraphCache): the first call of
+    a shape runs eagerly, the second captures, later calls copy the inputs
+    into the graph's static inputs and replay. The graph is bound to the
+    model's identity and the mesh's shape; it reads the model's parameters
+    and BN buffers where they lie, so the train step's in-place updates and
+    a checkpoint restored by load_state_dict are seen by the next replay.
+    Outputs are clones, which the next call does not overwrite. `captures`
+    counts captures. A capture that fails raises, as does a graphed call
+    under NaN checks (anomaly mode cannot be captured) or where the forward
+    runs collectives (forward_collectives: a model axis) under a process
+    group whose collectives cannot be captured (gloo's): pass
+    cuda_graph=False there, or for a reference run. A data axis alone under
+    gloo graphs: its eval forward runs no collective. On the CPU every call
+    runs eagerly. `weak` holds the model by a weak reference (stream_eval's
+    cache of steps, which must not keep a dropped model and its graphs
+    alive); a call after the model was dropped raises."""
+
+    takes_host_inputs = True
+
+    def __init__(self, model: CVM, body: Callable[..., Tuple[torch.Tensor, ...]],
+                 cuda_graph: bool = True, weak: bool = False):
+        self._model = weakref.ref(model) if weak else (lambda: model)
+        self._body = body
+        self.device = next(model.parameters()).device
+        self.graphs = graph_cache(self.device, cuda_graph)
+
+    @property
+    def model(self) -> CVM:
+        model = self._model()
+        if model is None:
+            raise RuntimeError("the eval step's model was dropped")
+        return model
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.graphs is None else self.graphs.captures
+
+    @torch.inference_mode()
+    @float32_matmuls()
+    def __call__(self, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        model = self.model
+        body = functools.partial(self._body, model)
+        if self.graphs is None:
+            return tuple(body(*(t.to(self.device, non_blocking=True) for t in inputs)))
+        if torch.is_anomaly_enabled():
+            raise RuntimeError("NaN checks (autograd anomaly mode) cannot run inside a CUDA "
+                               "graph: make the eval step with cuda_graph=False")
+        if not mesh.capturable() and forward_collectives(model.config):
+            raise RuntimeError(f"the forward's model-axis collectives cannot run inside a CUDA "
+                               f"graph under a {mesh.backend()} process group: make the eval "
+                               "step with cuda_graph=False")
+        return self.graphs(body, (id(model), mesh.current_mesh()), *inputs)
+
+
+def forward_maps(model: CVM, grd, sat) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval-mode forward's heatmap and ori field (the eval steps' body)."""
+    with eval_mode(model):
+        out = model(device_normalize(grd), device_normalize(sat))
+    return out.heatmap, out.ori
+
+
+def _decoded(model: CVM, grd, sat, row_offset, col_offset) -> Tuple[torch.Tensor, ...]:
+    heatmap, ori = forward_maps(model, grd, sat)
+    rows, cols, angle = pose.decode_pose(heatmap, ori)
+    b, hs, ws = heatmap.shape[:3]
+    gt_rows, gt_cols = pose.gt_location_device(hs, ws, row_offset, col_offset)
+    prob_gt = heatmap[torch.arange(b, device=heatmap.device), gt_rows, gt_cols, 0]
+    return rows, cols, angle, gt_rows, gt_cols, prob_gt
+
+
+def make_eval_step(model: CVM, cuda_graph: bool = True) -> EvalStep:
+    """(grd, sat) -> forward only, the full maps (heatmap [B,H,W,1], ori
     [B,H,W,2]) on the model's device: for where the maps themselves are the
-    product (visualization, golden parity, the stream's decode). Metric
-    loops use make_eval_decode_step, which brings back six [B] vectors in
-    place of the maps. Runs in float32, TF32 off (core/precision.py), and
-    in eval mode (see eval_mode)."""
-
-    @torch.inference_mode()
-    @float32_matmuls()
-    def step(grd, sat):
-        with eval_mode(model):
-            out = model(device_normalize(grd), device_normalize(sat))
-        return out.heatmap, out.ori
-
-    return step
+    product (visualization, golden parity). Metric loops use
+    make_eval_decode_step, which brings back six [B] vectors in place of
+    the maps. One CUDA graph per shape on the card (EvalStep); a replay's
+    maps come back as clones."""
+    return EvalStep(model, forward_maps, cuda_graph)
 
 
-def make_eval_decode_step(model: CVM) -> Callable[..., Tuple[torch.Tensor, ...]]:
-    """Forward + pose decode + GT location + prob@GT, returning six [B]
-    tensors (pred rows, cols, angle deg, GT rows, cols, prob@GT) on the
-    model's device; the heatmap never leaves it. Inputs are NHWC tensors on
-    that device, images uint8 or normalized f32, offsets [B]. Runs in
-    float32, TF32 off (core/precision.py), and in eval mode (see
-    eval_mode)."""
-
-    @torch.inference_mode()
-    @float32_matmuls()
-    def step(grd, sat, row_offset, col_offset):
-        with eval_mode(model):
-            out = model(device_normalize(grd), device_normalize(sat))
-        rows, cols, angle = pose.decode_pose(out.heatmap, out.ori)
-        hs, ws = out.heatmap.shape[1:3]
-        gt_rows, gt_cols = pose.gt_location_device(hs, ws, row_offset, col_offset)
-        b = out.heatmap.shape[0]
-        idx = torch.arange(b, device=out.heatmap.device)
-        prob_gt = out.heatmap[idx, gt_rows, gt_cols, 0]
-        return rows, cols, angle, gt_rows, gt_cols, prob_gt
-
-    return step
+def make_eval_decode_step(model: CVM, cuda_graph: bool = True) -> EvalStep:
+    """(grd, sat, row_offset, col_offset) -> forward + pose decode + GT
+    location + prob@GT, six [B] tensors (pred rows, cols, angle deg, GT
+    rows, cols, prob@GT) on the model's device; the heatmap never leaves
+    it. Images NHWC uint8 or normalized f32, offsets [B]. One CUDA graph
+    per shape on the card (EvalStep)."""
+    return EvalStep(model, _decoded, cuda_graph)

@@ -4,9 +4,9 @@ resume (the port of ccvpe_tpu/train/trainer.py:30-201).
 Replaces the reference per-script loops (reference train_VIGOR.py:96-244,
 train_KITTI.py, train_OxfordRobotCar.py) with one driver over the config:
 train steps (one CUDA graph a batch shape on the card) fed by a prefetching
-copy to the card, the eval decode step over
-named validation sets, asynchronous checkpoints of the full state resumed at
-the exact (epoch, batch), and CSV/JSONL metric rows.
+copy to the card, the eval decode step (one CUDA graph a batch shape too)
+over named validation sets, asynchronous checkpoints of the full state
+resumed at the exact (epoch, batch), and CSV/JSONL metric rows.
 
 Across processes (core/mesh.py: one process a card, the default process
 group as the data axis named by TrainConfig.data_axis; a model axis,
@@ -98,11 +98,14 @@ class Trainer:
         (default this process's card, cuda:(rank % device_count), which
         raises without one). The newest checkpoint
         under workdir/train_cfg.checkpoint_dir, if any, wins over a warm
-        start or a pretrained backbone. The train step runs as a CUDA graph
-        on the card (make_train_step's cuda_graph), unless NaN checks
+        start or a pretrained backbone. The train step and the validation
+        step run as CUDA graphs on the card (make_train_step's and
+        make_eval_decode_step's cuda_graph), unless NaN checks
         (core/debug.py) are on when the Trainer is made: anomaly mode cannot
-        be captured. A restored state is another binding: its first step
-        runs eagerly and the next captures anew."""
+        be captured. A restored state is another binding of the train step:
+        its first step runs eagerly and the next captures anew; the
+        validation step's graph stays, as the restore copies into the
+        model's tensors."""
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.mesh = mesh.make_mesh(axis_names=(train_cfg.data_axis, train_cfg.model_axis))
@@ -111,11 +114,13 @@ class Trainer:
         self.state = create_train_state(model_cfg, train_cfg,
                                         torch.Generator().manual_seed(train_cfg.seed),
                                         device=self.device)
-        self.train_step = make_train_step(model_cfg, train_cfg,
-                                          cuda_graph=not torch.is_anomaly_enabled())
+        graphed = not torch.is_anomaly_enabled()
+        self.train_step = make_train_step(model_cfg, train_cfg, cuda_graph=graphed)
         # the scalar eval step on the model being trained (it runs it in eval
-        # mode); validate() brings back [B] vectors, never the maps
-        self.eval_step = make_eval_decode_step(self.state.model)
+        # mode), built once: on the card one CUDA graph a batch shape, which
+        # each validate() replays on the weights and BN stats the train
+        # step changed in place; it brings back [B] vectors, never the maps
+        self.eval_step = make_eval_decode_step(self.state.model, cuda_graph=graphed)
         # drop-connect's masks, re-seeded before every step (step_seed)
         self.generator = torch.Generator(device=self.device)
         self.metrics = MetricWriter(workdir, model_cfg.name) if self.is_main else None

@@ -69,18 +69,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
  10. the evaluation path at full width, from in-memory splits of 20
      samples (uint8 images and the sample classes' fields from numpy seed
      17, no image files or PIL) through the port's ThreadedLoader:
-     eval_over_loader at VIGOR 360, FoV 90 (a 160-column ground image) and
-     the orientation prior (45 degrees), and at KITTI; stream_eval at
-     Oxford; seeded random weights; each loop once to warm up, once
-     counted, then EVAL_TIMED_LOOPS times timed. Each loop's B1 launches
-     (6 a forward, 7 under the prior), its decoded rows, cols and angles
-     against InferenceEngine.predict on the same inputs, its summary in
-     range, its median pairs/s (Oxford: frames/s) over the timed loops
-     with their spread; at each of the five, one batch of the
-     loop's own inputs (the FoV-sliced ground image, the prior's restricted
-     bins) through the forward with the kernel against the plain
-     correlation; the device's idle share over one VIGOR loop under
-     torch.profiler;
+     eval_over_loader at VIGOR 360, FoV 90 (a 160-column ground image),
+     the orientation prior (45 degrees) and the fused stages from 256 px,
+     and at KITTI; stream_eval at Oxford; seeded random weights; each loop
+     with the eager step (cuda_graph=False) and the graphed one (the
+     default: one CUDA graph a batch shape), each once to warm up (the
+     graph captured), once counted, then EVAL_TIMED_LOOPS times each, in
+     turns, timed. Per configuration: the graphed decodes, GT pixels and
+     prob@GT (the stream's rows, cols and angles) equal the eager ones to
+     the bit, and the eager ones InferenceEngine.predict's on the same
+     inputs; one capture (stream_eval's step kept across its calls);
+     each loop's launches (B1 6 a forward, 7 under the prior; B2 4 a
+     fused forward) held to the torch.profiler trace of one graphed loop;
+     the summary in range; the median pairs/s (Oxford: frames/s) of each
+     step's timed loops with their spread; the reserved memory the graph's
+     pool adds, given back when the model and its steps are dropped; one
+     batch of the loop's own inputs (the FoV-sliced ground image, the
+     prior's restricted bins) through the forward with the kernel against
+     the plain correlation; the device's idle share over one VIGOR loop,
+     eager and graphed;
  11. the driver at full width, in a child process (python3 chip_smoke.py
      --driver <json>) whose environment sets CUBLAS_WORKSPACE_CONFIG=:4096:8
      and which runs under core/debug.py::deterministic(), so neither
@@ -93,18 +100,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Adam state, last validation summary and metric rows must equal the
      control run's to the bit (the Trainer's step is a CUDA graph: the
      control run captures once, the resumed Trainer anew on its restored
-     state); Trainer.validate against eval_over_loader
-     called directly on the same weights, BN buffers unchanged; the
-     Trainer's pairs/s from its log rows beside phase 9's p50, checkpoint
-     size, host copy, write and restore times, the child's wall time;
+     state); the Trainer's validation step is a CUDA graph too, captured
+     once a Trainer: after each epoch, and in the resumed run, its summary
+     equals eval_over_loader with an eager step on the same weights to the
+     bit (the graph reads the weights and BN stats the train step changed
+     in place); Trainer.validate against eval_over_loader called directly
+     on the same weights, BN buffers unchanged; the reserved memory with
+     both graphs alive and its peak; the Trainer's pairs/s from its log
+     rows beside phase 9's p50, checkpoint size, host copy, write and
+     restore times, the child's wall time;
  12. bench.py's mixed-precision train configuration at full width, in a
      child process (python3 chip_smoke.py --bench-config <json>, the same
      environment as phase 11's): B1 on a bf16 S at the five decoder scales
      of a VIGOR forward (batch 8) and a ragged shape, with and without r,
      S^2 rounded and not, each twice for the same bits, against its plain
      version and, unrounded, against the float32 kernel on S.float() to the
-     bit; its times beside the float32 kernel's, the two-matmul yardstick
-     on bf16 operands and the bound from 2-byte S;
+     bit; its times (from the trace, the kernel also from events around
+     the call) beside the float32 kernel's, the two-matmul yardstick on
+     bf16 operands and the bound from 2-byte S;
      in deterministic mode, float32, batch 8: the ori_window=160 step
      against the full field (losses, every gradient) and three remat
      combinations against none (losses and BN buffers to the bit,
@@ -124,7 +137,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      at the VIGOR and KITTI calls (batch 8) and phase 6's ragged,
      large-bias and tensor-core cases, each twice for the same bits; B2's
      y at every tile that fits to the same bits, B3's plan against the
-     Python mirror; their times at the VIGOR calls beside the float32
+     Python mirror; their times at the VIGOR calls (from the trace, the
+     kernels also from events around the call) beside the float32
      kernel on the same values, the plain versions and the bf16 cuDNN
      chain, the bounds from 2-byte activations and the wrapper's channel
      pads; B3 on bf16 by phase (lmu_bf16.cu's timed build); bench.py's
@@ -172,8 +186,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      floors: its step with BatchNorm's rounding changed, and with the
      batch's halves swapped, drop-connect off), BN running var
      within 2e-4, both ranks the same bits; eval_over_loader and
-     stream_eval over 2 shards against one: the same per-sample errors,
-     summaries within 1e-9, aggregate_fps; each run's p50 step time, a
+     stream_eval over 2 shards against one, their steps graphed in every
+     process (the data axis puts no collective in an eval forward, so gloo
+     ranks capture): the same per-sample errors, summaries within 1e-9,
+     one capture each, aggregate_fps; each run's p50 step time, a
      reading;
  17. the model axis (ModelConfig.spatial_axis, ori_axis), after phase 16,
      in a sixth child process (python3 chip_smoke.py --model-axis <json>,
@@ -195,7 +211,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      p50 and peak allocated memory beside one process's (readings);
  15. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
-     launches in each eval loop; each kernel's driver_launches are its
+     launches in each graphed eval loop, and eval_traced_launches, those in
+     that loop's trace; B2's those of the fused eval loop; each kernel's driver_launches are its
      launches in phase 11's control Trainer.fit; corr_fwd_bf16 is B1 on a
      bf16 S, its launches from phase 12's train step; lmu_fwd_bf16 and
      lmu_bwd_bf16 are B2 and B3 on bf16 activations, their launches from
@@ -217,9 +234,9 @@ chiprun_out/chip_smoke_bench.json, phase 13's to
 chiprun_out/chip_smoke_options.json, phase 14's to
 chiprun_out/chip_smoke_graphs.json, phase 16's to
 chiprun_out/chip_smoke_scale.json, phase 17's to
-chiprun_out/chip_smoke_model.json). InferenceEngine and make_train_step
-capture CUDA graphs by default, so phases 8-13 run graphed after each
-shape's first, eager call. A replay runs none of the wrappers that count
+chiprun_out/chip_smoke_model.json). InferenceEngine, make_train_step and
+the eval steps capture CUDA graphs by default, so phases 8-13 run graphed
+after each shape's first, eager call. A replay runs none of the wrappers that count
 launches (core/graphs.py adds the capture's count at each replay), so every
 call profiled under torch.profiler (phases 8, 9, 10, 12, 13 and 14) holds the
 counters' change to the kernels its trace shows, and fails on a
@@ -233,6 +250,7 @@ for the one forward timed with TF32 on and phases 12-13's bf16 ones.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -352,24 +370,34 @@ def trace_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.fill_(1)
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-                    key=lambda e: e.time_range.start)
-    calls = []
-    for e in events:
-        if FLUSH_KERNEL in e.name:
-            calls.append(0.0)
-        elif calls:
-            calls[-1] += e.time_range.elapsed_us() / 1e3
-    if len(calls) != reps or not all(c > 0 for c in calls):
-        raise RuntimeError(f"trace_ms: {len(calls)} flushes for {reps} calls; kernels "
-                           f"{sorted({e.name[:80] for e in events})[:8]}")
-    return float(np.median(calls))
+    # The trace of a child process's window can lose some flushes' records
+    # (a few in 20, now and then all). Two calls then read as one, at about
+    # twice a call's time: with at least 3/4 of the flushes seen, fewer than
+    # a third of the calls merge and the median is still one call's time.
+    # A window with fewer is profiled again, at most three times in all.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                        key=lambda e: e.time_range.start)
+        calls = []
+        for e in events:
+            if FLUSH_KERNEL in e.name:
+                calls.append(0.0)
+            elif calls:
+                calls[-1] += e.time_range.elapsed_us() / 1e3
+        if len(calls) >= reps * 3 // 4 and all(c > 0 for c in calls):
+            if len(calls) < reps:
+                log(f"trace_ms: {len(calls)} flushes for {reps} calls in the trace; the median "
+                    f"of {len(calls)}")
+            return float(np.median(calls))
+        log(f"trace_ms: {len(calls)} flushes for {reps} calls in the trace; profiling again")
+    raise RuntimeError(f"trace_ms: {len(calls)} flushes for {reps} calls; kernels "
+                       f"{sorted({e.name[:80] for e in events})[:8]}")
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -466,6 +494,16 @@ def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_k
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                and e.self_device_time_total > 0]
+    # the time at least one kernel or copy ran: the union of their spans
+    # (a replayed graph runs some kernels side by side, so the sum of their
+    # times can exceed the window)
+    union_us, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and not e.is_user_annotation):
+        if end > reach:
+            union_us += end - max(start, reach)
+            reach = end
+    union_ms = union_us / 1e3
     traced = {k: sum(c for name, _, c in kernels if match(name))
               for k, match in TRACED_KERNELS.items()}
     kernels.sort(key=lambda x: -x[1])
@@ -473,7 +511,7 @@ def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_k
     own = {k: sum(ms for name, ms, _ in kernels if k in name) for k in ours}
     log(f"profile {what}: wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms "
         f"({busy_ms / wall_ms:.1%} of the profiled wall, {busy_ms / p50_ms:.1%} of the "
-        f"unprofiled p50) [{card}]")
+        f"unprofiled p50), {union_ms:.2f} ms with a kernel or copy running [{card}]")
     for k, ms in own.items():
         log(f"  {k}: {ms:.3f} ms ({ms / max(busy_ms, 1e-9):.2%} of device time)")
     for name, ms, count in kernels[:15]:
@@ -483,7 +521,8 @@ def profile_call(fn, what, card, p50_ms, ours=("corr_fwd_kernel", "corr_reduce_k
     if traced != counted:
         raise RuntimeError(f"profile {what}: the trace shows launches {traced}, the wrappers' "
                            f"counters {counted}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=own, launches_traced=traced,
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_union_ms=union_ms, ours_ms=own,
+                launches_traced=traced,
                 launches_counted=counted,
                 kernels=[dict(name=n, ms=ms, count=c) for n, ms, c in kernels[:40]],
                 names={n: c for n, _, c in kernels})
@@ -922,7 +961,13 @@ def forward_auto_vs_plain(model, g, s):
     with torch.inference_mode():
         for impl in ("auto", "plain"):
             model.config = dataclasses.replace(cfg, corr_impl=impl)
+            raw.pop("ori", None)
             outs[impl] = model(g, s)
+            if "ori" not in raw:
+                # a fused final stage runs its head inside B2: the raw head
+                # output from the cuDNN stages, for the mask alone
+                model.config = dataclasses.replace(cfg, corr_impl=impl, lmu_fused_min_res=0)
+                model(g, s)
             raw[impl] = torch.linalg.vector_norm(raw["ori"], dim=1)[..., None]
     hook.remove()
     model.config = cfg
@@ -1090,35 +1135,98 @@ class InMemorySplit:
                                **{k: v[i] for k, v in self.fields.items()})
 
 
+@contextlib.contextmanager
+def recorded_outputs(store):
+    """Inside the block, every pipelined eval loop (eval_over_loader's and
+    stream_eval's) appends each batch's host outputs, cut to its own rows,
+    to `store`: the loop's results as it brought them back, with the step
+    unwrapped (so a graphed step gets the pinned buffers as it does in
+    use)."""
+    from unittest import mock
+
+    from ccvpe_tpu_torch.train import evaluate, stream
+    real = evaluate.pipelined
+
+    def recording(*args, **kwargs):
+        for outs, raw in real(*args, **kwargs):
+            store.append(outs)
+            yield outs, raw
+
+    with mock.patch.object(evaluate, "pipelined", recording), \
+            mock.patch.object(stream, "pipelined", recording):
+        yield
+
+
+def queued_device_ms(fn, reps: int = 5, spin_cycles: int = 10 ** 9) -> float:
+    """Median device time of fn()'s work with the host out of the way: each
+    call is queued behind a spin kernel (about half a second) that the host
+    outlasts, between CUDA events recorded after the spin and after fn's
+    work, so gaps the host's dispatch would leave do not count (for work of
+    more launches than the launch queue holds, a part is queued while the
+    first runs: then an upper bound)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def reserved_after_gc() -> int:
+    """The allocator's reserved bytes once dead objects and cached blocks
+    are given back (a live graph's pool stays reserved)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
 def run_eval(card, report):
     """The evaluation path at full width on the card: eval_over_loader at
-    VIGOR 360, FoV 90 and the orientation prior, and at KITTI; stream_eval
-    at Oxford; 20 samples each (batches of 8, the last of 4 padded), random
-    weights from torch.Generator seed 17. For each: one batch's forward
-    with the kernel against the plain correlation, on the loop's own inputs
-    (the FoV-sliced ground image, the prior's restricted bins); the loop
-    run once to warm up, once counted, then EVAL_TIMED_LOOPS times timed;
-    B1's launches in the counted loop, its decoded rows, cols and angles
-    against InferenceEngine.predict on the same inputs, the summary's
-    values in range; the median pairs (frames) per second of the timed
-    loops and their spread, host decoding and copies included; the
-    device's idle share over one profiled VIGOR loop. The entry points take the card as they
-    do by default. Returns B1's launches per configuration, or None on a
-    failure (logged)."""
+    VIGOR 360, FoV 90, the orientation prior and the fused stages from 256
+    px, and at KITTI; stream_eval at Oxford; 20 samples each (batches of 8,
+    the last of 4 padded), random weights from torch.Generator seed 17.
+    For each: one batch's forward with the kernel against the plain
+    correlation, on the loop's own inputs (the FoV-sliced ground image, the
+    prior's restricted bins); then the loop with the eager step
+    (cuda_graph=False) and with the graphed one (the default), each run
+    once to warm up (the graphed step's first batch eager, its second
+    captured), once counted, then EVAL_TIMED_LOOPS times each, in turns,
+    timed. Per configuration: the graphed decodes, GT pixels and prob@GT
+    (the stream's rows, cols and angles) equal the eager ones to the bit,
+    the eager ones InferenceEngine.predict's; one capture per shape
+    (stream_eval's step cached across its calls); the launches of each
+    counted loop; a torch.profiler trace of one graphed loop, whose kernels
+    must equal the counters' (profile_call); the summary's values in range;
+    the median pairs (frames) per second of each step's timed loops and
+    their spread, host decoding and copies included; the reserved memory
+    the graph's pool adds, and that it is given back when the model and its
+    steps are dropped. The device's idle share over one profiled VIGOR loop,
+    eager beside graphed. The entry points take the card as they do by
+    default. Returns each configuration's launches in its graphed loop and
+    in that loop's trace, or None on a failure (logged)."""
     from ccvpe_tpu_torch.core import config as cfg_lib
     from ccvpe_tpu_torch.data import kitti as kitti_data
     from ccvpe_tpu_torch.data import oxford as oxford_data
     from ccvpe_tpu_torch.data import vigor as vigor_data
     from ccvpe_tpu_torch.data.loader import ThreadedLoader
     from ccvpe_tpu_torch.models.cvm import CVM, build_cvm, random_init_, resolve_device
-    from ccvpe_tpu_torch.ops import corr_cuda, pose
     from ccvpe_tpu_torch.serve import InferenceEngine
+    from ccvpe_tpu_torch.train import stream as stream_mod
     from ccvpe_tpu_torch.train.evaluate import eval_over_loader, slice_fov
-    from ccvpe_tpu_torch.train.step import device_normalize, make_eval_decode_step, make_eval_step
+    from ccvpe_tpu_torch.train.step import device_normalize, make_eval_decode_step
     from ccvpe_tpu_torch.train.stream import stream_eval
 
     dev = resolve_device(None)
     n, b = 20, 8
+    n_batches = -(-n // b)
     cities = [("NewYork", "Seattle", "SanFrancisco", "Chicago")[i % 4] for i in range(n)]
     vigor, kitti, oxford = cfg_lib.vigor(), cfg_lib.kitti(), cfg_lib.oxford()
     splits = {
@@ -1129,25 +1237,34 @@ def run_eval(card, report):
         "oxford": InMemorySplit(oxford_data.OxfordSample, oxford, n),
     }
     vigor_mpp = lambda city: vigor_data.METER_PER_PIXEL[city] / vigor.sat_size[0] * 640.0
-    # name -> (config, split, FoV, metres per pixel, B1 launches a forward)
+    # name -> (config, split, FoV, metres per pixel, launches a forward)
     runs = {
-        "vigor": (vigor, "vigor", None, vigor_mpp, 6),
-        "vigor FoV 90": (vigor, "vigor", 90, vigor_mpp, 6),
+        "vigor": (vigor, "vigor", None, vigor_mpp, {"corr_fwd": 6}),
+        "vigor FoV 90": (vigor, "vigor", 90, vigor_mpp, {"corr_fwd": 6}),
         # the bottleneck correlates twice under the prior: all K bins, and
         # the restricted ones that feed the max (models/cvm.py)
-        "vigor ori prior 45": (cfg_lib.vigor(ori_noise=45.0), "vigor", None, vigor_mpp, 7),
-        "kitti": (kitti, "kitti", None, kitti_data.meter_per_pixel(), 6),
+        "vigor ori prior 45": (cfg_lib.vigor(ori_noise=45.0), "vigor", None, vigor_mpp,
+                               {"corr_fwd": 7}),
+        # B2 at the four fused stages, forward only
+        "vigor fused 256": (dataclasses.replace(vigor, lmu_fused_min_res=256), "vigor", None,
+                            vigor_mpp, {"corr_fwd": 6, "lmu_fwd": 4}),
+        "kitti": (kitti, "kitti", None, kitti_data.meter_per_pixel(), {"corr_fwd": 6}),
         "oxford stream": (oxford, "oxford", None,
-                          oxford_data.METERS_PER_PIXEL / oxford_data.OUT * oxford_data.CROP, 6),
+                          oxford_data.METERS_PER_PIXEL / oxford_data.OUT * oxford_data.CROP,
+                          {"corr_fwd": 6}),
     }
     weights = {}
     out = {}
     launches = {}
+    modes = ("eager", "graphed")
+    rates = ("fps", "aggregate_fps")
     for name, (cfg, split_name, fov, mpp, per_forward) in runs.items():
         split = splits[split_name]
+        is_stream = name == "oxford stream"
         if cfg.name not in weights:
             weights[cfg.name] = random_init_(CVM(cfg).to_empty(device="cpu"),
                                              torch.Generator().manual_seed(17)).state_dict()
+        mem = {"start": reserved_after_gc()}
         model = build_cvm(cfg, dev, state_dict=weights[cfg.name])
         grd = slice_fov(split.grd, fov) if fov else split.grd
         row = dict(n=n, batch=b, grd_width=int(grd.shape[2]))
@@ -1159,83 +1276,137 @@ def run_eval(card, report):
         del g, s
         if not fwd_ok:
             return None
-        recorded = []
-        if name == "oxford stream":
-            step = make_eval_step(model)
-
-            def record(*args):
-                maps = step(*args)
-                recorded.append(pose.decode_pose(*maps))
-                return maps
-
-            def loop(eval_step):
+        if is_stream:
+            def loop(mode):
                 return stream_eval(model, cfg, split, range(n), batch_size=b,
-                                   meters_per_pixel=mpp, num_workers=4, eval_step=eval_step)
+                                   meters_per_pixel=mpp, num_workers=4,
+                                   cuda_graph=mode == "graphed")
         else:
-            step = make_eval_decode_step(model)
+            steps = {mode: make_eval_decode_step(model, cuda_graph=mode == "graphed")
+                     for mode in modes}
 
-            def record(*args):
-                vecs = step(*args)
-                recorded.append(vecs[:3])
-                return vecs
-
-            def loop(decode_step):
+            def loop(mode):
                 loader = ThreadedLoader(split, b, shuffle=False, num_workers=4, drop_last=False)
-                return eval_over_loader(decode_step, loader, mpp, fov=fov, with_prob_at_gt=True)
-        loop(step)          # a warm-up pass (pinned buffers, cuDNN's plans), uncounted
-        torch.cuda.synchronize()
-        corr_cuda.corr_core.launches = 0
-        summary = loop(record)
-        launches[name] = corr_cuda.corr_core.launches
-        n_batches = -(-n // b)
-        decoded = [torch.cat(col).cpu()[:n] for col in zip(*recorded)]
+                return eval_over_loader(steps[mode], loader, mpp, fov=fov, with_prob_at_gt=True)
+        want = {k: per_forward.get(k, 0) * n_batches for k in launch_counts()}
+        summaries, decoded, counted = {}, {}, {}
+        for mode in modes:
+            if mode == "graphed":
+                mem["before_graph"] = reserved_after_gc()
+            else:
+                torch.cuda.reset_peak_memory_stats()
+                allocated = torch.cuda.memory_allocated()
+            loop(mode)      # warm-up (pinned buffers, cuDNN's plans; the graph's capture)
+            if mode == "eager":
+                mem["eager_peak_above"] = torch.cuda.max_memory_allocated() - allocated
+            if mode == "graphed":
+                mem["with_graph"] = reserved_after_gc()
+            recorded = []
+            zero_launch_counts()
+            with recorded_outputs(recorded):
+                summaries[mode] = loop(mode)
+            counted[mode] = launch_counts()
+            decoded[mode] = [np.concatenate(col) for col in zip(*recorded)]
+        captures = (stream_mod._DECODE_STEPS[model].captures if is_stream
+                    else steps["graphed"].captures)
+        same_bits = (len(decoded["eager"]) == len(decoded["graphed"])
+                     and all(np.array_equal(x, y)
+                             for x, y in zip(decoded["eager"], decoded["graphed"]))
+                     and ({k: v for k, v in summaries["eager"].items() if k not in rates}
+                          == {k: v for k, v in summaries["graphed"].items() if k not in rates}))
         # the same inputs through the serving engine
         engine = InferenceEngine(cfg, weights[cfg.name], batch_size=b)
         served = engine.predict(grd, split.sat)
-        same = (decoded[0].tolist() == [p.row for p in served]
-                and decoded[1].tolist() == [p.col for p in served]
-                and decoded[2].tolist() == [p.angle_deg for p in served])
+        rows, cols, angle = decoded["eager"][:3]
+        same = (rows.tolist() == [p.row for p in served]
+                and cols.tolist() == [p.col for p in served]
+                and angle.tolist() == [p.angle_deg for p in served])
+        summary = summaries["graphed"]
         hs, ws = cfg.sat_size
         # no error is longer than the patch's diagonal
         longest = np.hypot(hs, ws) * (max(map(mpp, cities)) if callable(mpp) else mpp)
-        in_range = (summary.get("frames", n) == n and len(recorded) == n_batches
+        in_range = (summary.get("frames", n) == n and len(rows) == n
                     and all(np.isfinite(v) for v in summary.values())
-                    and bool(((decoded[0] >= 0) & (decoded[0] < hs) & (decoded[1] >= 0)
-                              & (decoded[1] < ws)).all())
+                    and bool(((rows >= 0) & (rows < hs) & (cols >= 0) & (cols < ws)).all())
                     and 0.0 <= summary["mean_ori_deg"] <= 180.0
                     and 0.0 <= summary["mean_distance_m"] <= longest)
-        row.update(summary=summary, b1_launches=launches[name], b1_per_forward=per_forward,
-                   same_as_predict=same)
+        row.update(summary=summary, eager_summary=summaries["eager"], launches=counted,
+                   want_launches=want, b1_launches=counted["graphed"]["corr_fwd"],
+                   same_bits_graphed_eager=same_bits, same_as_predict=same, captures=captures)
         out[name] = row
-        log(f"eval {name}: {n} samples in {n_batches} batches (grd width {row['grd_width']}), "
-            f"B1 launches {launches[name]} (want {per_forward} x {n_batches}), decodes equal "
-            f"InferenceEngine.predict's {same}, summary {json.dumps(summary)}")
-        if launches[name] != per_forward * n_batches or not same or not in_range:
-            log(f"FAIL: eval {name}: launches, identity with predict or summary values")
+        log(f"eval {name}: {n} samples in {n_batches} batches (grd width {row['grd_width']}); "
+            f"launches a loop eager {counted['eager']}, graphed {counted['graphed']} (want "
+            f"{want}); graphed decodes, GT pixels and prob@GT the same bits as eager "
+            f"{same_bits}; {captures} capture(s); eager decodes equal "
+            f"InferenceEngine.predict's {same}; summary {json.dumps(summary)}")
+        if (any(c != want for c in counted.values()) or not same_bits or captures != 1
+                or not same or not in_range):
+            log(f"FAIL: eval {name}: launches, graphed against eager bits, captures, identity "
+                "with predict or summary values")
             return None
-        # the loop's rate, from loops of the plain step (the counted loop
-        # records and, for the stream, decodes once more): a smoke reading,
-        # the pipeline's fill and drain included
-        walls = []
-        for _ in range(EVAL_TIMED_LOOPS):
-            t0 = time.perf_counter()
-            loop(step)
-            walls.append(time.perf_counter() - t0)
-        wall = float(np.median(walls))
-        rates = sorted(n / w for w in walls)
-        row.update(loop_s=walls, pairs_per_s=n / wall)
-        unit = "frames/s" if name == "oxford stream" else "pairs/s"
-        log(f"eval {name} batch {b} (f32, TF32 off; {n} samples a loop, fill and drain "
-            f"included): median {n / wall:.2f} {unit} over {EVAL_TIMED_LOOPS} loops (min "
-            f"{rates[0]:.2f}, max {rates[-1]:.2f}), median loop {wall * 1e3:.1f} ms [{card}]")
+        # the loops' rates, in turns (a smoke reading: 20 samples a loop,
+        # the pipeline's fill and drain included)
+        walls = {mode: [] for mode in modes}
+        for i in range(EVAL_TIMED_LOOPS):
+            for mode in (modes if i % 2 == 0 else modes[::-1]):
+                t0 = time.perf_counter()
+                loop(mode)
+                walls[mode].append(time.perf_counter() - t0)
+        unit = "frames/s" if is_stream else "pairs/s"
+        for mode in modes:
+            wall = float(np.median(walls[mode]))
+            spread = sorted(n / w for w in walls[mode])
+            row[mode] = dict(loop_s=walls[mode], pairs_per_s=n / wall)
+            log(f"eval {name} batch {b} {mode} (f32, TF32 off; {n} samples a loop, fill and "
+                f"drain included): median {n / wall:.2f} {unit} over {EVAL_TIMED_LOOPS} loops "
+                f"(min {spread[0]:.2f}, max {spread[-1]:.2f}), median loop {wall * 1e3:.1f} ms "
+                f"[{card}]")
+        row["pairs_per_s"] = row["graphed"]["pairs_per_s"]
+        # the graphed loop's launches held to its trace
+        profiled = ("eager", "graphed") if name == "vigor" else ("graphed",)
+        for mode in profiled:
+            wall = float(np.median(walls[mode]))
+            prof = profile_call(lambda: loop(mode), f"one {name} eval loop, {mode}", card,
+                                wall * 1e3, ours=("corr_fwd_kernel", "lmu_fwd_kernel"))
+            if prof["launches_traced"] != want:
+                log(f"FAIL: eval {name} {mode}: the trace shows {prof['launches_traced']}, "
+                    f"want {want}")
+                return None
+            idle = 1.0 - prof["busy_union_ms"] / prof["wall_ms"]
+            row[mode].update(profile=prof, idle_share=idle, traced_launches=prof["launches_traced"])
+            log(f"eval {name} {mode}: device idle {idle:.1%} of one profiled loop "
+                f"({prof['busy_union_ms']:.2f} ms with a kernel or copy running of "
+                f"{prof['wall_ms']:.2f} ms; kernel times sum to {prof['busy_ms']:.2f} ms) "
+                f"[{card}]")
         if name == "vigor":
-            prof = profile_call(lambda: loop(step), "one VIGOR eval loop", card, wall * 1e3)
-            row["profile"] = prof
-            row["idle_share"] = 1.0 - prof["busy_ms"] / prof["wall_ms"]
-            log(f"eval vigor: device idle {row['idle_share']:.1%} of one profiled loop "
-                f"({prof['busy_ms']:.2f} ms busy of {prof['wall_ms']:.2f} ms) [{card}]")
-        del model, engine
-        torch.cuda.empty_cache()
+            # one batch's device time, eager and replayed, each queued behind
+            # a spin: the profiler's kernel durations differ between eager
+            # and replayed windows, events on either side of queued work do
+            # not depend on them
+            batch = [torch.from_numpy(a[:b]).pin_memory() for a in (
+                grd, split.sat, split.fields["row_offset"], split.fields["col_offset"])]
+            row["queued_device_ms"] = {mode: queued_device_ms(lambda: steps[mode](*batch))
+                                       for mode in modes}
+            log(f"eval {name}: one batch's device time, queued behind a spin: eager "
+                f"{row['queued_device_ms']['eager']:.2f} ms, graphed "
+                f"{row['queued_device_ms']['graphed']:.2f} ms [{card}]")
+        # the graph's pool, then given back with the model and its steps
+        del model, engine, loop
+        if not is_stream:
+            del steps
+        mem["end"] = reserved_after_gc()
+        pool = mem["with_graph"] - mem["before_graph"]
+        freed = mem["end"] <= mem["before_graph"]
+        row["reserved"] = dict(mem, graph_pool=pool, freed=freed)
+        log(f"eval {name}: reserved memory {mem['start'] / 2 ** 20:.0f} MiB before the model, "
+            f"{mem['before_graph'] / 2 ** 20:.0f} MiB before the graph, "
+            f"{mem['with_graph'] / 2 ** 20:.0f} MiB with it (its pool +{pool / 2 ** 20:.0f} "
+            f"MiB; an eager loop's peak allocated {mem['eager_peak_above'] / 2 ** 20:.0f} MiB "
+            f"above the model), {mem['end'] / 2 ** 20:.0f} MiB once the model and its steps are "
+            f"dropped {'ok' if freed else 'FAIL'} [{card}]")
+        if not freed:
+            return None
+        launches[name] = dict(counted=counted["graphed"], traced=row["graphed"]["traced_launches"])
     report["eval"] = out
     return launches
 
@@ -1282,6 +1453,8 @@ def count_calls(fn, calls):
         after = launch_counts()
         calls.append({k: after[k] - before[k] for k in after})
         return out
+    # an eval step that copies its inputs itself is handed them so still
+    counted.takes_host_inputs = getattr(fn, "takes_host_inputs", False)
     return counted
 
 
@@ -1352,14 +1525,25 @@ def run_driver(card, report) -> bool:
             log(f"FAIL: driver: {what}")
         return ok
 
+    eager_checks, eager_launches = [], dict.fromkeys(launch_counts(), 0)
+
     def instrument(trainer):
+        """Count the train and validation steps' launches, record each
+        validation's summary, and hold it to eval_over_loader with an eager
+        step on the same weights (its launches kept apart)."""
         steps, forwards, summaries = [], [], []
         trainer.train_step = count_calls(trainer.train_step, steps)
         trainer.eval_step = count_calls(trainer.eval_step, forwards)
         validate = trainer.validate
 
-        def recorded(*args, **kwargs):
-            summaries.append(validate(*args, **kwargs))
+        def recorded(loaders, meters, epoch):
+            summaries.append(validate(loaders, meters, epoch))
+            before = launch_counts()
+            eager = eval_over_loader(make_eval_decode_step(trainer.state.model, cuda_graph=False),
+                                     val_loaders(epoch), mpp)
+            for k, v in launch_counts().items():
+                eager_launches[k] += v - before[k]
+            eager_checks.append(dict(epoch=epoch, same=summaries[-1] == eager))
             return summaries[-1]
         trainer.validate = recorded
         return steps, forwards, summaries
@@ -1367,14 +1551,28 @@ def run_driver(card, report) -> bool:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
         # the control run, counted
         control = Trainer(cfg, cfg_lib.TrainConfig(**base), workdir=f"{tmp}/control")
-        control_step = control.train_step
+        control_step, control_eval = control.train_step, control.eval_step
         steps, forwards, summaries = instrument(control)
         zero_launch_counts()
         t0 = time.perf_counter()
         control.fit(train_loaders, val_loaders, mpp)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_launches = launch_counts()
+        fit_launches = {k: v - eager_launches[k] for k, v in launch_counts().items()}
+        reserved = dict(now=torch.cuda.memory_reserved(), peak=torch.cuda.max_memory_reserved())
+        out["reserved"] = reserved
+        log(f"driver control: reserved memory with the train step's and the validation step's "
+            f"graphs alive {reserved['now'] / 2 ** 30:.2f} GiB, peak over the run "
+            f"{reserved['peak'] / 2 ** 30:.2f} GiB [{card}]")
+        # the graphed validation after each epoch against an eager step on
+        # the same weights: the graph reads the weights and BN stats the
+        # train step changed in place
+        out["validate_vs_eager"] = list(eager_checks)
+        check(len(eager_checks) == 2 and all(c["same"] for c in eager_checks),
+              f"graphed validation against an eager step {eager_checks}")
+        log(f"driver control: Trainer.validate (graphed) equals eval_over_loader with an eager "
+            f"step on the same weights to the bit after epochs "
+            f"{[c['epoch'] + 1 for c in eager_checks if c['same']]} of 2")
         out.update(fit_s=fit_s, fit_launches=fit_launches, step_launches=steps,
                    val_forward_launches=forwards)
         log(f"driver control: Trainer.fit, {control.state.step} steps and {len(summaries)} "
@@ -1403,7 +1601,8 @@ def run_driver(card, report) -> bool:
         model = control.state.model
         buffers = {k: v.clone() for k, v in model.named_buffers()}
         via_trainer = control.validate(val_loaders(0), mpp, epoch=2)
-        direct = eval_over_loader(make_eval_decode_step(model), val_loaders(0), mpp)
+        direct = eval_over_loader(make_eval_decode_step(model, cuda_graph=False), val_loaders(0),
+                                  mpp)
         changed = [k for k, v in model.named_buffers() if not torch.equal(v, buffers[k])]
         check(via_trainer == direct, f"Trainer.validate {via_trainer} != eval_over_loader {direct}")
         check(not changed and model.training, f"validation moved buffers {changed[:5]} or the mode")
@@ -1437,7 +1636,7 @@ def run_driver(card, report) -> bool:
         resumed.ckpt.restore_latest(resumed.state)       # the same file again, timed alone
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
-        resumed_step = resumed.train_step
+        resumed_step, resumed_eval = resumed.train_step, resumed.eval_step
         _, _, resumed_summaries = instrument(resumed)
         resumed.fit(train_loaders, val_loaders, mpp)
         torch.cuda.synchronize()
@@ -1459,12 +1658,21 @@ def run_driver(card, report) -> bool:
             f"({got_rows == want_rows}) equal the control run's to the bit")
 
         # the Trainer's step is a CUDA graph: the control run captured once,
-        # and the resumed Trainer's restored state captured anew
-        captures = dict(control=control_step.captures, resumed=resumed_step.captures)
+        # and the resumed Trainer's restored state captured anew; each
+        # Trainer's validation step captured once (its second batch) and
+        # replayed that graph in every later validation
+        captures = dict(control=control_step.captures, resumed=resumed_step.captures,
+                        control_eval=control_eval.captures, resumed_eval=resumed_eval.captures)
         out["captures"] = captures
-        check(captures == {"control": 1, "resumed": 1}, f"graph captures {captures}")
-        log(f"driver graphs: the control Trainer's step captured {captures['control']} graph; "
-            f"the resumed Trainer's captured {captures['resumed']} anew, on its restored state")
+        check(captures == {"control": 1, "resumed": 1, "control_eval": 1, "resumed_eval": 1},
+              f"graph captures {captures}")
+        check(resumed.state.step == 6 and len(eager_checks) == 4 and eager_checks[-1]["same"],
+              f"the resumed run's graphed validation against an eager step {eager_checks[-1:]}")
+        log(f"driver graphs: the control Trainer's step captured {captures['control']} graph, "
+            f"its validation step {captures['control_eval']}; the resumed Trainer's step "
+            f"captured {captures['resumed']} anew, on its restored state, its validation step "
+            f"{captures['resumed_eval']}; the resumed run's graphed validation equals an eager "
+            f"step's {eager_checks[-1]['same']}")
 
         sizes = [t["bytes"] for t in timings]
         copy_s = [t["copy_s"] for t in timings]
@@ -1631,22 +1839,29 @@ def check_bf16_corr(card, out) -> bool:
 
     keys = ("ms", "r_ms", "plain_ms", "r_plain_ms", "f32_ms", "f32_r_ms", "matmul2_ms",
             "bound_ms", "r_bound_ms", "f32_bound_ms", "f32_r_bound_ms", "bytes", "f32_bytes",
-            "ops_ms", "f32_ops_ms")
+            "ops_ms", "f32_ops_ms", "event_ms", "r_event_ms")
     tot, timing = dict.fromkeys(keys, 0.0), []
     for name, bb, n, d, length, shift, bins, center in cases[:5]:
         s32, g_mat, m_mat = corr_inputs(bb, n, d, length, shift, bins, center, gen)
         s, k, rnd = s32.bfloat16(), len(bins), d < BF16_ROUND_MAX_D
         row = dict(name=name, n=n, d=d, k=k, round_sq=rnd)
-        row["ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, round_sq=rnd))
-        row["f32_ms"] = time_ms(lambda: corr_core(s32, g_mat, m_mat))
+        # each from the trace's kernel durations (trace_ms), as phase 4 times
+        # the float32 kernel: events around a call count the op's host time,
+        # which at these sizes is as long as the kernel; the kernel also from
+        # those events, beside them
+        row["ms"] = trace_ms(lambda: corr_core(s, g_mat, m_mat, round_sq=rnd))
+        row["f32_ms"] = trace_ms(lambda: corr_core(s32, g_mat, m_mat))
         # the two-matmul yardstick (phase 4's) on bf16 operands: num and den^2
         g16, m16, s16sq = g_mat.transpose(1, 2).bfloat16(), m_mat.t().bfloat16(), s * s
-        row["matmul2_ms"] = time_ms(lambda: (torch.bmm(s, g16), torch.matmul(s16sq, m16)))
-        row["plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, round_sq=rnd))
-        row["r_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True, round_sq=rnd))
-        row["f32_r_ms"] = time_ms(lambda: corr_core(s32, g_mat, m_mat, need_r=True))
-        row["r_plain_ms"] = time_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True,
-                                                            round_sq=rnd))
+        row["matmul2_ms"] = trace_ms(lambda: (torch.bmm(s, g16), torch.matmul(s16sq, m16)))
+        row["plain_ms"] = trace_ms(lambda: corr_core_plain(s, g_mat, m_mat, round_sq=rnd))
+        row["r_ms"] = trace_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True, round_sq=rnd))
+        row["f32_r_ms"] = trace_ms(lambda: corr_core(s32, g_mat, m_mat, need_r=True))
+        row["r_plain_ms"] = trace_ms(lambda: corr_core_plain(s, g_mat, m_mat, need_r=True,
+                                                             round_sq=rnd))
+        row["event_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, round_sq=rnd))
+        row["r_event_ms"] = time_ms(lambda: corr_core(s, g_mat, m_mat, need_r=True,
+                                                      round_sq=rnd))
         (row["bound_ms"], row["bound_by"], row["bytes"], _,
          row["ops_ms"]) = corr_bound(bb, n, d, k, False, 2, rnd)
         row["r_bound_ms"] = corr_bound(bb, n, d, k, True, 2, rnd)[0]
@@ -1660,7 +1875,8 @@ def check_bf16_corr(card, out) -> bool:
             f"TF32 products {row['ops_ms']:.4f}; float32 S {row['f32_bound_ms']:.4f} / "
             f"{row['f32_bytes'] / 1e6:.1f} MB / products {row['f32_ops_ms']:.4f}); with r: "
             f"kernel {row['r_ms']:.4f} (float32 S {row['f32_r_ms']:.4f}), plain "
-            f"{row['r_plain_ms']:.4f}, bound {row['r_bound_ms']:.4f} [{card}]")
+            f"{row['r_plain_ms']:.4f}, bound {row['r_bound_ms']:.4f} (from the trace); events "
+            f"around the call {row['event_ms']:.4f}, with r {row['r_event_ms']:.4f} [{card}]")
         timing.append(row)
         for key in keys:
             tot[key] += row[key]
@@ -1673,7 +1889,8 @@ def check_bf16_corr(card, out) -> bool:
         f"{tot['ops_ms']:.4f}; float32 S {tot['f32_bound_ms']:.4f}, "
         f"{tot['f32_bytes'] / 1e6:.1f} MB); with r: kernel {tot['r_ms']:.4f} (float32 S "
         f"{tot['f32_r_ms']:.4f}), plain {tot['r_plain_ms']:.4f}, bound {tot['r_bound_ms']:.4f} "
-        f"[{card}]")
+        f"(from the trace); events around the calls {tot['event_ms']:.4f}, with r "
+        f"{tot['r_event_ms']:.4f} [{card}]")
     out["bf16_timing"], out["bf16_timing_total"] = timing, tot
     return True
 
@@ -1998,20 +2215,25 @@ def time_lmu_bf16(shape, gen):
     out = chain()
     leaves = [xc] + ([sc] if sc is not None else []) + params
     row = dict(name=shape[0])
-    row["fwd_ms"] = time_ms(lambda: fused_stage(x16, s16, *ws))
-    row["fwd_f32_ms"] = time_ms(lambda: fused_stage(x32, s32, *ws))
-    row["fwd_plain_ms"] = time_ms(lambda: fused_stage_plain(x16, s16, *ws))
+    # each from the trace's kernel durations (trace_ms), the kernels also
+    # from events around the call (event_ms), as phase 4 times B1
+    row["fwd_ms"] = trace_ms(lambda: fused_stage(x16, s16, *ws))
+    row["fwd_f32_ms"] = trace_ms(lambda: fused_stage(x32, s32, *ws))
+    row["fwd_plain_ms"] = trace_ms(lambda: fused_stage_plain(x16, s16, *ws))
     with torch.no_grad():
-        row["fwd_chain_ms"] = time_ms(chain)
-    row["bwd_ms"] = time_ms(lambda: fused_stage_bwd(x16, s16, dy16, *ws))
-    row["bwd_f32_ms"] = time_ms(lambda: fused_stage_bwd(x32, s32, dy, *ws))
-    row["bwd_plain_ms"] = time_ms(lambda: fused_stage_bwd_plain(x16, s16, dy16, *ws))
+        row["fwd_chain_ms"] = trace_ms(chain)
+    row["bwd_ms"] = trace_ms(lambda: fused_stage_bwd(x16, s16, dy16, *ws))
+    row["bwd_f32_ms"] = trace_ms(lambda: fused_stage_bwd(x32, s32, dy, *ws))
+    row["bwd_plain_ms"] = trace_ms(lambda: fused_stage_bwd_plain(x16, s16, dy16, *ws))
     dyc = dy16.permute(0, 3, 1, 2)
-    row["bwd_chain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dyc, retain_graph=True))
+    row["bwd_chain_ms"] = trace_ms(lambda: torch.autograd.grad(out, leaves, dyc,
+                                                               retain_graph=True))
+    row["fwd_event_ms"] = time_ms(lambda: fused_stage(x16, s16, *ws))
+    row["bwd_event_ms"] = time_ms(lambda: fused_stage_bwd(x16, s16, dy16, *ws))
     # the wrapper's passes that pad x's channels to a multiple of 8 (in each
     # of the two kernels' times above) and an odd Cout of dy to even (B3's)
-    row["x_pad_ms"] = time_ms(lambda: pad_channels(x16)) if x16.shape[-1] % 8 else 0.0
-    row["dy_pad_ms"] = time_ms(lambda: pad_channels(dy16, 2)) if dy16.shape[-1] % 2 else 0.0
+    row["x_pad_ms"] = trace_ms(lambda: pad_channels(x16)) if x16.shape[-1] % 8 else 0.0
+    row["dy_pad_ms"] = trace_ms(lambda: pad_channels(dy16, 2)) if dy16.shape[-1] % 2 else 0.0
     for key, bwd in (("fwd", False), ("bwd", True)):
         row.update({f"{key}_{k}": v for k, v in lmu_bound(shape, bwd, act_bytes=2).items()})
     return row
@@ -2081,13 +2303,15 @@ def run_lmu_bf16(card, out) -> bool:
                 f"{row[f'{key}_flops'] / 1e9:.1f} GFLOP at 989 TFLOP/s "
                 f"{row[f'{key}_ops_ms']:.3f}); the wrapper's channel pads: x "
                 f"{row['x_pad_ms']:.4f}" + (f", dy {row['dy_pad_ms']:.4f}" if key == "bwd" else "")
-                + f" [{card}]")
+                + f" (from the trace); events around the kernel's call "
+                f"{row[f'{key}_event_ms']:.3f} [{card}]")
     for key in ("fwd", "bwd"):
         t_b = tot[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
         tot[f"{key}_bound_by"] = "bytes" if t_b >= tot[f"{key}_ops_ms"] else "operations"
         log(f"time lmu bf16 {key} per step (4 launches): kernel {tot[f'{key}_ms']:.3f} ms, "
             f"float32 kernel {tot[f'{key}_f32_ms']:.3f}, plain {tot[f'{key}_plain_ms']:.3f}, "
             f"bf16 cuDNN chain {tot[f'{key}_chain_ms']:.3f}, bound {tot[f'{key}_bound_ms']:.3f} "
+            f"(from the trace); events around the kernel's calls {tot[f'{key}_event_ms']:.3f} "
             f"[{card}]")
     out["lmu_bf16_timing_total"] = tot
     # B3 on bf16 by phase, from the timed bf16 library
@@ -2170,7 +2394,8 @@ def compare_option(card, out, sd, name, over) -> bool:
     g, s = device_normalize(batch.grd), device_normalize(batch.sat)
     fwd, fwd_ms, steps, step_ms = {}, {}, {}, {}
     for key, cfg in cfgs.items():
-        step = make_eval_step(build_cvm(cfg, "cuda", state_dict=sd))
+        # eager, as this phase has timed the forward since it was added
+        step = make_eval_step(build_cvm(cfg, "cuda", state_dict=sd), cuda_graph=False)
         with deterministic():
             fwd[key] = [t.float() for t in step(g, s)]
         times = []                  # timed as the entry points run, not deterministic
@@ -2714,6 +2939,7 @@ def scale_eval(cfg, sd) -> dict:
     from ccvpe_tpu_torch.models.cvm import build_cvm
     from ccvpe_tpu_torch.train.evaluate import eval_over_loader
     from ccvpe_tpu_torch.train.step import make_eval_decode_step
+    from ccvpe_tpu_torch.train.stream import decode_step as stream_decode_step
     from ccvpe_tpu_torch.train.stream import stream_eval
     model = build_cvm(cfg, "cuda", state_dict=sd)
     split = InMemorySplit(vigor_data.VigorSample, cfg, SCALE_EVAL_N,
@@ -2726,17 +2952,20 @@ def scale_eval(cfg, sd) -> dict:
         pooled.append(np.asarray(out, np.float64))
         return out
 
+    # graphed, the default: the data axis puts no collective into an
+    # eval-mode forward, so gloo ranks capture as one process does
+    step = make_eval_decode_step(model)
     with mock.patch.object(mesh, "all_hosts_concat", record):
         loader = ThreadedLoader(split, 1, shuffle=False, num_workers=2, drop_last=False,
                                 shard_id=r, num_shards=n)
-        summary = eval_over_loader(make_eval_decode_step(model), loader, 0.1,
-                                   with_prob_at_gt=True, device="cuda")
+        summary = eval_over_loader(step, loader, 0.1, with_prob_at_gt=True, device="cuda")
         eval_pooled = list(pooled)
         pooled.clear()
         stream = stream_eval(model, cfg, split, range(SCALE_EVAL_N), batch_size=1,
                              meters_per_pixel=0.1, num_workers=2, shard_id=r, num_shards=n,
                              device="cuda")
-    return dict(summary=summary, pooled=eval_pooled, stream=stream, stream_pooled=list(pooled))
+    return dict(summary=summary, pooled=eval_pooled, stream=stream, stream_pooled=list(pooled),
+                captures=[step.captures, stream_decode_step(model).captures])
 
 
 def scale_setup():
@@ -2983,10 +3212,20 @@ def run_scale_gloo(card, out, cfg, sd) -> bool:
     ev["stream_eval"].update(fps=[s["fps"] for s in streams],
                              aggregate_fps=[s["aggregate_fps"] for s in streams],
                              rates_ok=rates_ok)
-    eval_ok = rates_ok and all(ev[w]["same_multisets"] and ev[w]["summary_ok"] for w in ev)
+    # eval_over_loader's and stream_eval's steps graphed in every process:
+    # captured once each where a process has more than one batch
+    captures = [r["eval"]["captures"] for r in [one] + ranks]
+    ev["captures"] = captures
+    graphed = all(c == [1, 1] for c in captures)
+    eval_ok = (rates_ok and graphed
+               and all(ev[w]["same_multisets"] and ev[w]["summary_ok"]
+                       for w in ("eval_over_loader", "stream_eval")))
     ok = ok and eval_ok
     log(f"scale-out pooled evaluation over 2 shards against one ({SCALE_EVAL_N} samples, one a "
-        f"batch): per-sample errors the same multisets {ev['eval_over_loader']['same_multisets']}"
+        f"batch), the eval steps graphed in every process (cuda_graph=True under gloo: the data "
+        f"axis puts no collective in an eval forward; captures [eval_over_loader, stream_eval] "
+        f"one process {captures[0]}, ranks {captures[1:]}): per-sample errors the same "
+        f"multisets {ev['eval_over_loader']['same_multisets']}"
         f" and {ev['stream_eval']['same_multisets']}; summaries rel "
         f"{ev['eval_over_loader']['summary_rel']:.3g} and {ev['stream_eval']['summary_rel']:.3g}"
         f" (rtol {SUMMARY_RTOL}); stream_eval frames {[s['frames'] for s in streams]}, fps "
@@ -3451,10 +3690,14 @@ def main() -> int:
     last = [time.perf_counter()]
 
     def phase_done(n):
-        """Wall seconds of phase n, into the report."""
+        """Wall seconds of phase n, into the report, which goes to disk
+        after every phase (a later failure keeps the earlier phases')."""
         now = time.perf_counter()
         report["phase_s"][n] = now - last[0]
         last[0] = now
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
 
     # 1. the card
     card = card_line()
@@ -4005,7 +4248,9 @@ def main() -> int:
         "yardstick_ms": tot["matmul2_ms"], "r_ms": tot["r_ms"], "r_plain_ms": tot["r_plain_ms"],
         "event_ms": tot["event_ms"], "host_us": tot["host_us"],
         "r_bound_ms": tot["r_bound_ms"], "train_launches": train_launches["corr_fwd"],
-        "eval_launches": eval_launches, "driver_launches": driver["fit_launches"]["corr_fwd"],
+        "eval_launches": {k: v["counted"]["corr_fwd"] for k, v in eval_launches.items()},
+        "eval_traced_launches": {k: v["traced"]["corr_fwd"] for k, v in eval_launches.items()},
+        "driver_launches": driver["fit_launches"]["corr_fwd"],
         "bench_launches": bench8["launches"]["corr_fwd"],
         "graph_step_launches": graph_f32["corr_fwd"],
         "graph_serve_launches": serve_g["traced_launches"]["corr_fwd"],
@@ -4022,6 +4267,7 @@ def main() -> int:
         "r_plain_ms": bt["r_plain_ms"], "r_bound_ms": bt["r_bound_ms"], "ops_ms": bt["ops_ms"],
         "f32_ms": bt["f32_ms"],
         "f32_r_ms": bt["f32_r_ms"], "f32_bound_ms": bt["f32_bound_ms"],
+        "event_ms": bt["event_ms"],
         "eval_launches": bench["predict"]["launches"]["corr_fwd_bf16"],
         "graph_step_launches": graph_bench["corr_fwd_bf16"],
     }, {
@@ -4033,6 +4279,10 @@ def main() -> int:
         "library_ms": lmu_tot["fwd_chain_ms"], "tc_bound_ms": lmu_tot["fwd_tc_bound_ms"],
         "fma_bound_ms": lmu_tot["fwd_f32_bound_ms"],
         "driver_launches": driver["fit_launches"]["lmu_fwd"],
+        "eval_launches": {k: v["counted"]["lmu_fwd"] for k, v in eval_launches.items()
+                          if v["counted"]["lmu_fwd"]},
+        "eval_traced_launches": {k: v["traced"]["lmu_fwd"] for k, v in eval_launches.items()
+                                 if v["traced"]["lmu_fwd"]},
         "graph_step_launches": graph_f32["lmu_fwd"], "export_nodes": nodes["lmu_fwd"],
     }, {
         "name": "lmu_bwd", "route": "cuda", "source": "ccvpe_tpu_torch/csrc/lmu.cu",
@@ -4055,6 +4305,7 @@ def main() -> int:
         "ms": bft[f"{key}_ms"], "plain_ms": bft[f"{key}_plain_ms"],
         "bound_ms": bft[f"{key}_bound_ms"], "bound_by": bft[f"{key}_bound_by"],
         "library_ms": bft[f"{key}_chain_ms"], "f32_ms": bft[f"{key}_f32_ms"],
+        "event_ms": bft[f"{key}_event_ms"],
         "eval_launches": opts["fused_bf16"]["predict"]["launches"][f"lmu_{key}_bf16"],
         "graph_step_launches": fused8["traced_launches"][f"lmu_{key}_bf16"],
     } for key, line in (("fwd", 264), ("bwd", 404))]
