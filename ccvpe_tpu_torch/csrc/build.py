@@ -5,7 +5,8 @@ compiled into its own shared library under `csrc/_build/`, named by a hash
 of the source, of every header `csrc/*.cuh` (the sources include them) and
 of the flags, at first use; `ops/*_cuda.py` load it with ctypes. A build
 may add preprocessor defines (`build("lmu", ("X",))` compiles with -DX):
-they are part of the hash, so each define set is a library of its own.
+they are part of the hash, so each define set is a library of its own. A
+library's link flags (LINK_FLAGS: -lnvjpeg for io) are part of its hash too.
 Nothing is compiled when this module is imported. A failed build raises
 with nvcc's output.
 
@@ -25,8 +26,11 @@ from typing import List, Sequence
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "_build"
-# corr: B1; lmu: B2 and B3 on float32 activations; lmu_bf16: on bf16 ones
-KERNELS = ("corr", "lmu", "lmu_bf16")
+# corr: B1; lmu: B2 and B3 on float32 activations; lmu_bf16: on bf16 ones;
+# io: the image ingest (nvJPEG's decode, the resize kernels)
+KERNELS = ("corr", "lmu", "lmu_bf16", "io")
+# the libraries each source links against
+LINK_FLAGS = {"io": ("-lnvjpeg",)}
 # every library the port loads
 LIBRARIES = tuple((name, ()) for name in KERNELS)
 # B3's per-phase timed builds (ops/lmu_cuda.py::bwd_phase_cycles), on no path
@@ -58,8 +62,10 @@ def _define_flags(defines: Sequence[str]) -> List[str]:
     return [f"-D{d}" for d in defines]
 
 
-def nvcc_command(sources: Sequence[Path], output: Path, defines: Sequence[str] = ()) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(output), *map(str, sources)]
+def nvcc_command(sources: Sequence[Path], output: Path, defines: Sequence[str] = (),
+                 link: Sequence[str] = ()) -> List[str]:
+    return [nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(output), *map(str, sources),
+            *link]
 
 
 def headers() -> List[Path]:
@@ -69,11 +75,12 @@ def headers() -> List[Path]:
 
 def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """The library of csrc/<name>.cu: named by a hash of the source, then
-    each header's name and bytes, then the flags."""
+    each header's name and bytes, then the flags (its link flags last)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for h in headers():
         digest.update(h.name.encode() + h.read_bytes())
-    digest.update(" ".join([*NVCC_FLAGS, *_define_flags(defines)]).encode())
+    digest.update(" ".join([*NVCC_FLAGS, *_define_flags(defines),
+                            *LINK_FLAGS.get(name, ())]).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -85,7 +92,7 @@ def build(name: str, defines: Sequence[str] = ()) -> Built:
         return Built(out, "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command([CSRC / f"{name}.cu"], tmp, defines)
+    cmd = nvcc_command([CSRC / f"{name}.cu"], tmp, defines, LINK_FLAGS.get(name, ()))
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start

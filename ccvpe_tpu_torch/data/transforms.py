@@ -1,16 +1,19 @@
 """Host-side image transforms: decode, resize, ImageNet-normalize -> NHWC
-numpy (the port of ccvpe_tpu/data/transforms.py, PIL only).
+numpy (the port of ccvpe_tpu/data/transforms.py).
 
 Matches the reference preprocessing (train_VIGOR.py:57-70): torchvision
 Resize (PIL bilinear) + ToTensor + Normalize(ImageNet mean/std). GT maps are
 not rendered here: the steps render them on the device from scalars
 (ops/gt.py). PIL is imported inside the functions, so the module imports
-where PIL is missing.
+where PIL is missing. `load_image(decode_device=...)` decodes and resizes
+through data/native_io.py on that device instead (on the card: nvJPEG and
+csrc/io.cu's kernels), as the JAX package's load_image takes native/io.cc.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Tuple
 
 import numpy as np
@@ -58,8 +61,20 @@ def finalize(img, dtype: str = "float32") -> np.ndarray:
 
 
 def load_image(path: str, size_hw: Tuple[int, int], fallback_hw=None,
-               dtype: str = "float32") -> np.ndarray:
+               dtype: str = "float32", decode_device=None) -> np.ndarray:
     """Open -> RGB -> resize -> uint8 or normalized float32. An unreadable
-    file gives a blank image of `fallback_hw` (default `size_hw`)."""
+    file gives a blank image of `fallback_hw` (default `size_hw`).
+
+    decode_device None reads with PIL. A device (the card, or "cpu" for the
+    plain version) takes data/native_io.py there, unless CCVPE_NATIVE_IO=0
+    (the JAX package's switch); where it returns None (a file io.cc refuses
+    too), PIL's path gives its blank image and warning."""
+    if decode_device is not None and os.environ.get("CCVPE_NATIVE_IO", "1") != "0":
+        from ccvpe_tpu_torch.data import native_io
+        load = (native_io.load_image_raw_native if dtype == "uint8"
+                else native_io.load_image_native)
+        out = load(path, size_hw, decode_device)
+        if out is not None:
+            return out
     h, w = fallback_hw or size_hw
     return finalize(resize_pil(open_rgb(path, (w, h)), size_hw), dtype)

@@ -58,6 +58,7 @@ class VIGORDataset:
         grd_size: Tuple[int, int] = (320, 640),
         sat_size: Tuple[int, int] = (512, 512),
         image_dtype: str = "float32",
+        decode_device=None,
     ):
         self.root = root
         self.split = split
@@ -69,6 +70,13 @@ class VIGORDataset:
         self.sat_size = sat_size
         # "uint8": resized pixels, normalized on the device
         self.image_dtype = image_dtype
+        # where the panoramas decode (transforms.load_image): None PIL, else
+        # data/native_io.py on that device (a card's index fixed here, on
+        # the constructing thread)
+        if decode_device is not None:
+            from ccvpe_tpu_torch.data.native_io import resolve
+            decode_device = resolve(decode_device)
+        self.decode_device = decode_device
 
         if split == "samearea":
             cities = CITIES_SAME
@@ -118,7 +126,8 @@ class VIGORDataset:
 
     def __getitem__(self, idx: int, rng: Optional[random.Random] = None) -> VigorSample:
         rng = rng or random
-        grd = load_image(self.grd_list[idx], self.grd_size, dtype=self.image_dtype)
+        grd = load_image(self.grd_list[idx], self.grd_size, dtype=self.image_dtype,
+                         decode_device=self.decode_device)
 
         # orientation: a random panorama roll (datasets.py:109-118)
         if self.random_orientation is None:

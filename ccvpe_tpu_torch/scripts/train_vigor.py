@@ -34,6 +34,7 @@ def main(argv=None):
     circular = args.FoV == 360
 
     if args.training == "True":
+        from ccvpe_tpu_torch.core import mesh
         from ccvpe_tpu_torch.data.loader import ThreadedLoader
         from ccvpe_tpu_torch.data.vigor import VIGORDataset
         from ccvpe_tpu_torch.train.trainer import Trainer
@@ -42,7 +43,8 @@ def main(argv=None):
         dataset = VIGORDataset(args.root, split=args.area, train=True,
                                pos_only=args.pos_only == "True", ori_noise=ori_noise,
                                image_dtype=args.image_dtype, grd_size=model_cfg.grd_size,
-                               sat_size=model_cfg.sat_size)
+                               sat_size=model_cfg.sat_size,
+                               decode_device=mesh.process_device(args.device))
         # 80/20 split with the reference's exact RNG stream
         # (train_VIGOR.py:21 np.random.seed(0); :83-91 shuffle)
         idx = np.arange(len(dataset))

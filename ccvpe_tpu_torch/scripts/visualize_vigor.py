@@ -44,11 +44,12 @@ def main(argv=None) -> str:
     from ccvpe_tpu_torch.utils.viz import render_qualitative
 
     ori_noise = 18.0 * (args.ori_noise // 18.0)
-    dataset = VIGORDataset(args.root, split=args.area, train=False, ori_noise=ori_noise)
+    device = resolve_device(args.device)
+    dataset = VIGORDataset(args.root, split=args.area, train=False, ori_noise=ori_noise,
+                           decode_device=device)
     sample = dataset.__getitem__(args.index, rng=random.Random(0))
 
     model_cfg = cfg_lib.vigor(ori_noise=ori_noise if ori_noise < 180 else None)
-    device = resolve_device(args.device)
     model = load_model(model_cfg, args.checkpoint, device)
     heatmap, ori = make_eval_step(model)(torch.from_numpy(sample.grd[None]).to(device),
                                          torch.from_numpy(sample.sat[None]).to(device))

@@ -237,7 +237,7 @@ def evaluate_vigor(args, ori_noise: float, circular: bool, device=None) -> Dict[
         from ccvpe_tpu_torch.data.fixtures import load_orientation_fixture
         random_orientation = load_orientation_fixture(args.area)
     dataset = VIGORDataset(args.root, split=args.area, train=False, ori_noise=ori_noise,
-                           random_orientation=random_orientation)
+                           random_orientation=random_orientation, decode_device=device)
     model_cfg = cfg_lib.vigor(ori_noise=ori_noise if ori_noise < 180 else None,
                               circular=circular)
     model = load_model(model_cfg, args.checkpoint, device)

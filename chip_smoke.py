@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     whether PIL imports and libjpeg's and libpng's headers exist;
+     whether PIL imports and libjpeg's and libpng's headers exist, where
+     the toolkit's nvjpeg.h and libnvjpeg are (csrc/io.cu links them);
   2. build every hand-written kernel from csrc/ with nvcc (sm_90a), and
      lmu.cu and lmu_bf16.cu again with B3's per-phase timer, one nvcc per
      library, all started together, timed, with ptxas' report, and each LMU
@@ -15,6 +16,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      8 more than before its da, dh|dskip and dx took the tensor cores; the
      bf16 ones m16n8k16 bf16 ones and no TF32 one; the main path's
      libraries no clock read; the correlation kernel (B1) TF32 ones too;
+     which nvJPEG backends the card's machine creates (csrc/io.cu);
   3. the correlation kernel against its plain PyTorch version at the main
      path's shapes (VIGOR batch 8), at Oxford, KITTI (s1 and s6) and
      ori-prior shapes, and at one shape with ragged N and D edges and the
@@ -155,8 +157,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      same bits, and the forward's and step's p50 of both;
  14. the compiled executables at full width, in a fourth child process
      (python3 chip_smoke.py --graphs <json>, phase 12's environment):
-     serve.py's export_program -> bytes -> load_program at vigor() batch 1
-     and 8 and vigor(lmu_fused_min_res=256) batch 8: the graph's B1 (6) and
+     serve.py's export_program -> bytes -> load_program at vigor() batch 8
+     and vigor(lmu_fused_min_res=256) batch 8: the graph's B1 (6) and
      B2 (0 or 4) nodes, one run's launches, its rows and cols equal to the
      eager forward's, the angle within EXPORT_ANGLE_ATOL, the heatmap's
      largest difference and whether it is the same bits, export seconds
@@ -209,6 +211,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      processes as (2, 2): one forward and one step with both axes at a
      global batch of 4 against one process, the same checks; each rank's
      p50 and peak allocated memory beside one process's (readings);
+ 18. the image ingest, after phase 17, in a seventh child process
+     (python3 chip_smoke.py --ingest <json>): PIL-written files in a
+     temporary directory. The resize kernels (csrc/io.cu) against
+     resize_plain on one input each: VIGOR panoramas as nvJPEG decoded them
+     (a batch of 8, and one), noise at a non-integer downscale, an upscale,
+     a row past the default shared memory and a row of no multiple of 4
+     bytes, uint8 and normalized, twice for the same bits; each test file
+     (VIGOR's panorama as JPEG 4:2:0, 4:4:4, progressive and gray, noise
+     JPEGs, PNG RGB, RGBA and palette) decoded and resized on the card
+     against the plain version (PIL's decode, resize_plain) within
+     INGEST_GATE_*, with the backend that decoded it; INGEST_THREADS
+     threads decoding at once against one, load_batch_native against
+     load_image_native, for the same bits; each pass's time from the trace
+     at the eval path's call (one panorama, normalized) and at a batch of 8,
+     beside resize_plain's passes, the bound and interpolate(bilinear,
+     antialias); decode plus resize a panorama on the card alone and in
+     batches of 8 and 32 against PIL on the host in one thread and in 8;
+     eval_over_loader (graphed) over an on-disk VIGOR split of 20
+     2048 x 1024 JPEGs with 640 x 640 PNG patches, decoded on the card
+     beside PIL: the card step's capture held open until a loader thread
+     has decoded a panorama on the card, one capture each, the launches of
+     a counted loop (B1 18, each resize pass 20), pairs/s and the device's
+     idle share, the resize kernels in a profiled loop's trace against the
+     counters; details in chiprun_out/chip_smoke_ingest.json;
  15. a {"kernels": [...], "probes": [...]} line (probes: the primitive
      alone, launched on no path; B1's entry carries eval_launches, its
      launches in each graphed eval loop, and eval_traced_launches, those in
@@ -224,7 +250,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      export_nodes the exported fused program's nodes; nccl_step_launches
      those in the trace of one replayed step in phase 16's nccl group;
      model_axis_launches those of a step on rank 0 of phase 17's (1, 2)
-     mesh with ori_axis and the fused stages),
+     mesh with ori_axis and the fused stages; resize_v and resize_h are the
+     ingest's two passes, which replace no TPU kernel, their launches from
+     phase 18's counted on-disk eval loop, their times at its call),
      then
      the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -234,7 +262,8 @@ chiprun_out/chip_smoke_bench.json, phase 13's to
 chiprun_out/chip_smoke_options.json, phase 14's to
 chiprun_out/chip_smoke_graphs.json, phase 16's to
 chiprun_out/chip_smoke_scale.json, phase 17's to
-chiprun_out/chip_smoke_model.json). InferenceEngine, make_train_step and
+chiprun_out/chip_smoke_model.json, phase 18's to
+chiprun_out/chip_smoke_ingest.json). InferenceEngine, make_train_step and
 the eval steps capture CUDA graphs by default, so phases 8-13 run graphed
 after each shape's first, eager call. A replay runs none of the wrappers that count
 launches (core/graphs.py adds the capture's count at each replay), so every
@@ -252,6 +281,8 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
+import glob
 import json
 import os
 import subprocess
@@ -358,12 +389,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 FLUSH_KERNEL = "FillFunctor<unsigned char>"
 
 
-def trace_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def trace_ms(fn, reps: int = 20, warmup: int = 3, parts=None):
     """Median device time of fn() from the torch.profiler trace: the sum of
     the durations of the kernels each call ran, the calls told apart by the
     L2 flush (a uint8 fill) before each. Unlike events around the call, the
     host's time between launches (dispatch, planning, the ctypes launch) is
-    not counted: a call of a 20-us kernel is the kernel's time."""
+    not counted: a call of a 20-us kernel is the kernel's time. With
+    `parts` ({name: predicate of a kernel's name}), each part's median over
+    the calls instead, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -387,14 +420,17 @@ def trace_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         calls = []
         for e in events:
             if FLUSH_KERNEL in e.name:
-                calls.append(0.0)
+                calls.append({})
             elif calls:
-                calls[-1] += e.time_range.elapsed_us() / 1e3
-        if len(calls) >= reps * 3 // 4 and all(c > 0 for c in calls):
+                key = next((k for k, match in (parts or {}).items() if match(e.name)), "")
+                calls[-1][key] = calls[-1].get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+        if len(calls) >= reps * 3 // 4 and all(calls):
             if len(calls) < reps:
                 log(f"trace_ms: {len(calls)} flushes for {reps} calls in the trace; the median "
                     f"of {len(calls)}")
-            return float(np.median(calls))
+            if parts is None:
+                return float(np.median([sum(c.values()) for c in calls]))
+            return {k: float(np.median([c.get(k, 0.0) for c in calls])) for k in parts}
         log(f"trace_ms: {len(calls)} flushes for {reps} calls in the trace; profiling again")
     raise RuntimeError(f"trace_ms: {len(calls)} flushes for {reps} calls; kernels "
                        f"{sorted({e.name[:80] for e in events})[:8]}")
@@ -2489,7 +2525,7 @@ EXPORT_ANGLE_ATOL = 1e-3
 # (name, ModelConfig options, batch, B1 nodes, B2 nodes): a forward
 # correlates at six scales; with the fused stages from 256 px, B2 takes
 # both decoders' two finest stages
-EXPORT_CASES = (("vigor batch 1", {}, 1, 6, 0), ("vigor batch 8", {}, 8, 6, 0),
+EXPORT_CASES = (("vigor batch 8", {}, 8, 6, 0),
                 ("vigor fused batch 8", dict(lmu_fused_min_res=256), 8, 6, 4))
 SERVE_REQUESTS, SERVE_TIMED = 20, 10
 GRAPH_STEPS, GRAPH_TIMED_STEPS = 3, 8    # steps held bitwise, then timed
@@ -3645,6 +3681,571 @@ def model_main(out_path: str) -> int:
     return 0 if ok else 1
 
 
+# --- phase 18: the image ingest (nvJPEG and the resize kernels), in a child process ---
+
+INGEST_TIMEOUT_S = 300
+# the on-disk VIGOR split: panoramas (2048 x 1024 JPEG) and 640 x 640 PNG patches
+INGEST_N, INGEST_PATCHES = 20, 8
+INGEST_PANO_HW, INGEST_OUT_HW = (1024, 2048), (320, 640)
+INGEST_BATCHES = (8, 32)           # load_batch_native's batches timed
+INGEST_THREADS = 4                 # threads decoding at once, against one
+INGEST_TIMED_LOOPS = 3             # each eval loop's timed repetitions, in turns
+# the resize kernels against resize_plain on one decoded input: the same
+# arithmetic, each product and add rounded, so the bits agree; the bound
+# allows one rounding step
+INGEST_RESIZE_U8_ATOL, INGEST_RESIZE_F32_ATOL = 1, 1e-5
+# decode plus resize on the card against the plain version (PIL's libjpeg
+# decode, resize_plain): nvJPEG's IDCT, colour conversion and (even with
+# interpolated upsampling) chroma are not libjpeg's. The largest and the
+# mean difference in uint8 LSB after the resize, per JPEG, and the largest
+# normalized one (that many LSB over 255 * the smallest std): twice the
+# worst of this script's first run on an NVIDIA H100 80GB HBM3 at 700 W
+# (max 4 LSB and mean 0.581, the noise upscale; PERF.md, PR 19). A PNG
+# (PIL's decode on both sides) takes the resize's bounds above.
+INGEST_GATE_MAX_LSB, INGEST_GATE_MEAN_LSB = 8, 1.2
+INGEST_GATE_F32 = INGEST_GATE_MAX_LSB / (255 * 0.224)
+INGEST_KERNELS = {"resize_v": lambda n: "resize_v_kernel" in n,
+                  "resize_h": lambda n: "resize_h_kernel" in n}
+
+
+def ingest_counts() -> dict:
+    from ccvpe_tpu_torch.ops import resize_cuda
+    return {"resize_v": resize_cuda.resize.launches, "resize_h": resize_cuda.resize.h_launches}
+
+
+def zero_ingest_counts() -> None:
+    from ccvpe_tpu_torch.ops import resize_cuda
+    resize_cuda.resize.launches = resize_cuda.resize.h_launches = 0
+
+
+def ingest_pixels(seed, h, w, noise=6.0):
+    """uint8 [h, w, 3] of numpy seed `seed`: colour waves at a seeded phase
+    under Gaussian noise of `noise` levels (noise=None: uniform noise)."""
+    rng = np.random.default_rng(seed)
+    if noise is None:
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(xx / 97 + yy / 211 + ph[0]),
+                    128 + 90 * np.cos(xx / 53 + ph[1]) * np.sin(yy / 71),
+                    128 + 80 * np.sin(yy / 37 + xx / 301 + ph[2])], -1)
+    img += rng.normal(0, noise, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=1)
+def ingest_panorama():
+    """The split's panorama, 2048 x 1024 (numpy seed 0); each file rolls it."""
+    return ingest_pixels(0, *INGEST_PANO_HW)
+
+
+def write_vigor_split(root, n, patches):
+    """A VIGOR samearea test split on disk: n panoramas (2048 x 1024 JPEG,
+    quality 90, baseline 4:2:0, as VIGOR's are; the panorama rolled by 97
+    columns a file) over the four cities,
+    `patches` 640 x 640 PNG aerial patches of uniform noise, each panorama
+    with 4 references at pixel deltas inside the patch. Returns the
+    panoramas' paths in the dataset's order."""
+    import PIL.Image
+    cities = ("NewYork", "Seattle", "SanFrancisco", "Chicago")
+    rng = np.random.default_rng(18)
+    paths = []
+    for c, city in enumerate(cities):
+        split_dir = os.path.join(root, "splits_new", city)
+        for sub in ("satellite", "panorama"):
+            os.makedirs(os.path.join(root, city, sub), exist_ok=True)
+        os.makedirs(split_dir, exist_ok=True)
+        sats = [f"sat_{city}_{i}.png" for i in range(patches // len(cities))]
+        for i, name in enumerate(sats):
+            PIL.Image.fromarray(ingest_pixels(100 * c + i, 640, 640, None)).save(
+                os.path.join(root, city, "satellite", name))
+        with open(os.path.join(split_dir, "satellite_list.txt"), "w") as f:
+            f.write("\n".join(sats) + "\n")
+        lines = []
+        for i in range(c, n, len(cities)):
+            name = f"pano_{i:03d}.jpg"
+            path = os.path.join(root, city, "panorama", name)
+            PIL.Image.fromarray(np.roll(ingest_panorama(), 97 * i, axis=1)).save(path, quality=90)
+            paths.append(path)
+            fields = [name]
+            for j in range(4):
+                r, col = rng.uniform(-200, 200, 2)
+                fields += [sats[(i + j) % len(sats)], f"{r:.3f}", f"{col:.3f}"]
+            lines.append(" ".join(fields))
+        with open(os.path.join(split_dir, "same_area_balanced_test.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return paths
+
+
+def write_ingest_files(root, pano):
+    """{name: (path, output (h, w))}: VIGOR's panorama as JPEG 4:2:0 (the
+    split's own), 4:4:4, progressive and grayscale; uniform noise as JPEG
+    4:2:0 (a non-integer downscale), 4:4:4 (to (37, 91)) and an upscale;
+    PNG as RGB, RGBA and palette at the aerial size."""
+    import PIL.Image
+    img = PIL.Image.fromarray(ingest_panorama())
+    noise = {hw: PIL.Image.fromarray(ingest_pixels(7 + hw[0], *hw, None))
+             for hw in ((512, 1024), (96, 160), (40, 56), (640, 640))}
+    alpha = PIL.Image.fromarray(ingest_pixels(3, 640, 640, None)[..., 0])
+    out = {"pano 4:2:0": (pano, INGEST_OUT_HW)}
+    for name, image, kw, hw, ext in (
+            ("pano 4:4:4", img, dict(quality=90, subsampling=0), INGEST_OUT_HW, "jpg"),
+            ("pano progressive", img, dict(quality=90, progressive=True), INGEST_OUT_HW, "jpg"),
+            ("pano gray", img.convert("L"), dict(quality=90), INGEST_OUT_HW, "jpg"),
+            ("noise 4:2:0", noise[512, 1024], dict(quality=90), INGEST_OUT_HW, "jpg"),
+            ("noise 4:4:4", noise[96, 160], dict(quality=90, subsampling=0), (37, 91), "jpg"),
+            ("noise upscale", noise[40, 56], dict(quality=90), (75, 130), "jpg"),
+            ("png rgb", noise[640, 640], {}, (512, 512), "png"),
+            ("png rgba", PIL.Image.merge("RGBA", (*noise[640, 640].split(), alpha)), {},
+             (512, 512), "png"),
+            ("png palette", noise[640, 640].quantize(64), {}, (512, 512), "png")):
+        path = os.path.join(root, name.replace(" ", "_").replace(":", "") + "." + ext)
+        image.save(path, **kw)
+        out[name] = (path, hw)
+    return out
+
+
+def resize_bound(n, in_hw, out_hw, normalized):
+    """Each resize pass's least time, in ms: the bytes it must move
+    (resize_cuda.resize_bytes) at HBM_BYTES_PER_S, or its float32
+    operations (a multiply and an add a tap, the normalize's subtract and
+    multiply) at FP32_FLOPS_PER_S, the larger; with what bounds it. Under
+    "function", the same for the whole resize (io.cc::resize_normalize):
+    the uint8 input read once, the output written once, both passes'
+    operations; the float rows between the passes are the two-pass
+    design's, not the function's."""
+    from ccvpe_tpu_torch.ops import resize_cuda
+    (in_h, in_w), (out_h, out_w) = in_hw, out_hw
+    nbytes = resize_cuda.resize_bytes(n, in_h, in_w, out_h, out_w, normalized)
+    taps_v = int(resize_cuda.contributions(in_h, out_h)[1].sum())
+    taps_h = int(resize_cuda.contributions(in_w, out_w)[1].sum())
+    ops = (2 * n * in_w * 3 * taps_v, 2 * n * out_h * 3 * taps_h + 2 * n * out_h * out_w * 3)
+    function_bytes = n * in_h * in_w * 3 + (4 if normalized else 1) * n * out_h * out_w * 3
+    out = {}
+    for key, b, o in zip(("resize_v", "resize_h", "function"), (*nbytes, function_bytes),
+                         (*ops, sum(ops))):
+        t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / FP32_FLOPS_PER_S * 1e3
+        out[key] = dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                        bytes=b, flops=o)
+    return out
+
+
+def check_resize_kernels(card, out, decoded, gen) -> bool:
+    """The two kernels against resize_plain on the card, on one input each:
+    VIGOR's panoramas as nvJPEG decoded them (a batch of 8, and one, the
+    eval path's call), uniform noise at a non-integer downscale and an
+    upscale, a row too wide for the default shared memory (the opt-in
+    route), and a row of a width that is no multiple of 4 bytes (the
+    vertical pass's scalar route); uint8 and normalized, each twice for the
+    same bits."""
+    from ccvpe_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from ccvpe_tpu_torch.ops import resize_cuda
+
+    def noise(*shape):
+        return torch.randint(0, 256, shape, device="cuda", generator=gen, dtype=torch.uint8)
+
+    x8 = torch.from_numpy(np.stack(decoded[:8])).cuda()
+    cases = [("vigor batch 8", x8, INGEST_OUT_HW), ("vigor one", x8[:1], INGEST_OUT_HW),
+             ("noise non-integer", noise(3, 96, 160, 3), (37, 91)),
+             ("noise upscale", noise(2, 40, 56, 3), (75, 130)),
+             ("wide row (shared memory opt-in)", noise(1, 24, 5000, 3), (10, 1250)),
+             ("odd row (scalar vertical pass)", noise(2, 33, 77, 3), (10, 20))]
+    rows = out["resize_checks"] = []
+    for name, x, hw in cases:
+        for mode, (mean, std) in (("uint8", (None, None)),
+                                  ("normalized", (IMAGENET_MEAN, IMAGENET_STD))):
+            a, b = resize_cuda.resize(x, hw, mean, std), resize_cuda.resize(x, hw, mean, std)
+            want = resize_cuda.resize_plain(x, hw, mean, std)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            err = float((a.double() - want.double()).abs().max())
+            atol = INGEST_RESIZE_U8_ATOL if mode == "uint8" else INGEST_RESIZE_F32_ATOL
+            ok = same and err <= atol and a.shape == want.shape and a.dtype == want.dtype
+            rows.append(dict(name=name, mode=mode, shape=list(x.shape), out=list(hw),
+                             max_abs=err, plain_same_bits=torch.equal(a, want),
+                             same_bits_twice=same, ok=ok))
+            log(f"check resize {name:32s} {mode:10s} {tuple(x.shape)} -> {hw}: max abs "
+                f"{err:.3g} against resize_plain (atol {atol}), plain's bits "
+                f"{torch.equal(a, want)}, same bits twice {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                return False
+    return True
+
+
+def check_ingest_files(card, out, files, dev) -> bool:
+    """Each test file decoded and resized on the card against the plain
+    version (device "cpu": PIL's decode, resize_plain), uint8 and
+    normalized, with the backend that decoded it: a JPEG within the gate, a
+    PNG (PIL's decode on both sides) within the resize's bounds."""
+    from ccvpe_tpu_torch.data import native_io
+    from ccvpe_tpu_torch.ops import resize_cuda
+    rows = out["decode_checks"] = []
+    for name, (path, hw) in files.items():
+        before = resize_cuda.backend_counts()
+        card_u8 = native_io.load_image_raw_native(path, hw, dev)
+        card_f32 = native_io.load_image_native(path, hw, dev)
+        after = resize_cuda.backend_counts()
+        plain_u8 = native_io.load_image_raw_native(path, hw, "cpu")
+        plain_f32 = native_io.load_image_native(path, hw, "cpu")
+        backend = [k for k in after if after[k] != before[k]]
+        d = np.abs(card_u8.astype(np.int32) - plain_u8.astype(np.int32))
+        f32_err = float(np.abs(card_f32.astype(np.float64) - plain_f32).max())
+        png = path.endswith(".png")
+        ok = (card_u8.shape == plain_u8.shape == (*hw, 3) and card_f32.dtype == np.float32
+              and len(backend) == 1 and (backend == ["host"]) == png
+              and (d.max() <= INGEST_RESIZE_U8_ATOL and f32_err <= INGEST_RESIZE_F32_ATOL
+                   if png else d.max() <= INGEST_GATE_MAX_LSB
+                   and d.mean() <= INGEST_GATE_MEAN_LSB and f32_err <= INGEST_GATE_F32))
+        rows.append(dict(name=name, out=list(hw), backend=backend, max_lsb=int(d.max()),
+                         mean_lsb=float(d.mean()), share_off=float((d > 0).mean()),
+                         f32_max_abs=f32_err, ok=ok))
+        gate = (f"atol {INGEST_RESIZE_U8_ATOL} LSB, {INGEST_RESIZE_F32_ATOL}" if png else
+                f"gate max {INGEST_GATE_MAX_LSB} LSB, mean {INGEST_GATE_MEAN_LSB}, "
+                f"{INGEST_GATE_F32:.3g}")
+        log(f"check ingest {name:17s} -> {hw}: {backend}; card against plain uint8 max "
+            f"{int(d.max())} LSB, mean {d.mean():.3f}, {(d > 0).mean():.1%} of values off; "
+            f"normalized max {f32_err:.3g} ({gate}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+    return True
+
+
+def sof1_jpeg(data: bytes) -> bytes:
+    """A baseline JPEG relabelled extended sequential (its SOF0 marker made
+    SOF1): the same Huffman-coded 8-bit data, which libjpeg decodes alike."""
+    i = 2
+    while data[i] == 0xFF and data[i + 1] != 0xC0:
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    if data[i:i + 2] != b"\xff\xc0":
+        raise ValueError("no SOF0 marker before the image data")
+    return data[:i + 1] + b"\xc1" + data[i + 2:]
+
+
+def check_ingest_broken(card, out, root, pano, dev) -> bool:
+    """Files off the common path, on the card against the plain version:
+    a file that is no image and a JPEG whose bytes after its SOI are noise
+    give None on both, raising nothing; the panorama cut at half its bytes
+    raises nothing on the card (libjpeg, io.cc's decoder, fills a cut
+    file; PIL refuses it); the panorama relabelled SOF1 (extended
+    sequential) holds the gate, decoded by nvJPEG or refused by it and
+    decoded by PIL (backend "refused"), whichever happens."""
+    from ccvpe_tpu_torch.data import native_io
+    from ccvpe_tpu_torch.ops import resize_cuda
+    with open(pano, "rb") as f:
+        data = f.read()
+    rng = np.random.default_rng(19)
+    cases = {"not an image": b"plain text, no image\n" * 8,
+             "noise after SOI": b"\xff\xd8" + rng.integers(0, 256, 4096, np.uint8).tobytes(),
+             "cut at half": data[:len(data) // 2],
+             "SOF1": sof1_jpeg(data)}
+    rows = out["broken_checks"] = []
+    for name, content in cases.items():
+        path = os.path.join(root, name.replace(" ", "_") + ".jpg")
+        with open(path, "wb") as f:
+            f.write(content)
+        before = resize_cuda.backend_counts()
+        try:
+            card_u8, error = native_io.load_image_raw_native(path, INGEST_OUT_HW, dev), None
+        except Exception as e:  # noqa: BLE001 - any raise fails the check, reported
+            card_u8, error = None, f"{type(e).__name__}: {e}"
+        after = resize_cuda.backend_counts()
+        plain_u8 = native_io.load_image_raw_native(path, INGEST_OUT_HW, "cpu")
+        backend = [k for k in after if after[k] != before[k]]
+        lsb = (None if card_u8 is None or plain_u8 is None else
+               int(np.abs(card_u8.astype(np.int32) - plain_u8.astype(np.int32)).max()))
+        if name in ("not an image", "noise after SOI"):
+            ok = error is None and card_u8 is None and plain_u8 is None
+        elif name == "cut at half":
+            ok = error is None
+        else:
+            ok = error is None and lsb is not None and lsb <= INGEST_GATE_MAX_LSB
+        rows.append(dict(name=name, card=None if card_u8 is None else list(card_u8.shape),
+                         plain=None if plain_u8 is None else list(plain_u8.shape),
+                         backend=backend, max_lsb=lsb, error=error, ok=ok))
+        log(f"check ingest {name:17s}: card {'None' if card_u8 is None else card_u8.shape} "
+            f"({backend}), plain {'None' if plain_u8 is None else plain_u8.shape}, max "
+            f"{lsb} LSB{'; raised ' + error if error else ''} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False
+    return True
+
+
+def check_ingest_threads(card, out, paths, dev) -> bool:
+    """INGEST_THREADS threads decoding the split at once give one thread's
+    bits; load_batch_native (INGEST_THREADS threads, one launch a pass)
+    gives load_image_native's."""
+    from ccvpe_tpu_torch.data import native_io
+    one = [native_io.load_image_raw_native(p, INGEST_OUT_HW, dev) for p in paths]
+    with concurrent.futures.ThreadPoolExecutor(INGEST_THREADS) as pool:
+        many = list(pool.map(lambda p: native_io.load_image_raw_native(p, INGEST_OUT_HW, dev),
+                             paths))
+    same = all(np.array_equal(a, b) for a, b in zip(one, many))
+    batch = native_io.load_batch_native(paths[:8], INGEST_OUT_HW, INGEST_THREADS, dev)
+    singles = np.stack([native_io.load_image_native(p, INGEST_OUT_HW, dev) for p in paths[:8]])
+    same_batch = batch is not None and np.array_equal(batch, singles)
+    out["threads"] = dict(threads=INGEST_THREADS, files=len(paths), same_bits=same,
+                          batch_same_bits=same_batch)
+    log(f"check ingest threads: {INGEST_THREADS} threads decoding {len(paths)} panoramas at "
+        f"once give one thread's bits {same}; load_batch_native of 8 ({INGEST_THREADS} "
+        f"threads) gives load_image_native's {same_batch} "
+        f"{'ok' if same and same_batch else 'FAIL'}")
+    return same and same_batch
+
+
+def time_resize_kernels(card, out, decoded):
+    """The two kernels at the eval path's call (one panorama, normalized)
+    and at a batch of 8, from the trace (each pass apart, L2 flushed before
+    each call), beside their bounds; at the eval path's call also each pass
+    of resize_plain and torch.nn.functional.interpolate(mode='bilinear',
+    antialias=True) on the same values as float NCHW (the vertical pass: to
+    (out_h, in_w); the horizontal: the float rows to (out_h, out_w))."""
+    import torch.nn.functional as F
+
+    from ccvpe_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from ccvpe_tpu_torch.ops import resize_cuda
+    rows = out["resize_timing"] = {}
+    out_h, out_w = INGEST_OUT_HW
+
+    def kernels_ms(x):
+        return trace_ms(lambda: resize_cuda.resize(x, INGEST_OUT_HW, IMAGENET_MEAN, IMAGENET_STD),
+                        parts=INGEST_KERNELS)
+
+    x = torch.from_numpy(decoded[0][None]).cuda()
+    tmp = resize_cuda.resize_plain_v(x, out_h)
+    xf = x.permute(0, 3, 1, 2).float().contiguous()
+    tf = tmp.permute(0, 3, 1, 2).contiguous()
+    ms, bound = kernels_ms(x), resize_bound(1, x.shape[1:3], INGEST_OUT_HW, True)
+    plain = {"resize_v": trace_ms(lambda: resize_cuda.resize_plain_v(x, out_h)),
+             "resize_h": trace_ms(lambda: resize_cuda.resize_plain_h(
+                 tmp, out_w, IMAGENET_MEAN, IMAGENET_STD))}
+    library = {"resize_v": trace_ms(lambda: F.interpolate(
+                   xf, size=(out_h, xf.shape[3]), mode="bilinear", antialias=True)),
+               "resize_h": trace_ms(lambda: F.interpolate(
+                   tf, size=INGEST_OUT_HW, mode="bilinear", antialias=True))}
+    rows["one panorama"] = {k: dict(ms=ms[k], plain_ms=plain[k], library_ms=library[k],
+                                    **bound[k]) for k in INGEST_KERNELS}
+    rows["function bound"] = {"one panorama": bound["function"]}
+    for k, r in rows["one panorama"].items():
+        log(f"time {k} one panorama ({tuple(x.shape[1:3])} -> {INGEST_OUT_HW}, normalized): "
+            f"kernel {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, interpolate "
+            f"(bilinear, antialias) {r['library_ms'] * 1e3:.1f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB at "
+            f"3.35 TB/s), from the trace [{card}]")
+    whole = bound["function"]
+    log(f"time resize one panorama: both passes {sum(ms.values()) * 1e3:.1f} us against the "
+        f"function's bound {whole['bound_ms'] * 1e3:.2f} us ({whole['bound_by']}, "
+        f"{whole['bytes'] / 1e6:.1f} MB: the input read once, the output written once) [{card}]")
+    x8 = torch.from_numpy(np.stack(decoded[:8])).cuda()
+    ms, bound = kernels_ms(x8), resize_bound(8, x8.shape[1:3], INGEST_OUT_HW, True)
+    rows["batch 8"] = {k: dict(ms=ms[k], **bound[k]) for k in INGEST_KERNELS}
+    rows["function bound"]["batch 8"] = bound["function"]
+    log("time resize batch 8 (normalized): " + ", ".join(
+        f"{k} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f} us, {r['bytes'] / 1e6:.1f} "
+        f"MB)" for k, r in rows["batch 8"].items()) + f"; the function's bound "
+        f"{bound['function']['bound_ms'] * 1e3:.2f} us, from the trace [{card}]")
+
+
+def time_ingest(card, out, paths, dev):
+    """Decode plus resize a panorama (2048 x 1024 JPEG -> 320 x 640,
+    normalized float32), host wall clock, files in the page cache (warm):
+    on the card alone (load_image_native; nvJPEG's decode alone too) and in
+    batches (load_batch_native, 8 threads), against PIL on the host
+    (transforms.load_image) in one thread and in 8."""
+    from ccvpe_tpu_torch.data import native_io, transforms
+    from ccvpe_tpu_torch.ops import resize_cuda
+    res = out["ingest_timing"] = {}
+    with open(paths[0], "rb") as f:
+        data = f.read()
+
+    def median_ms(fn, reps):
+        fn()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)) * 1e3
+
+    res["card decode only"] = median_ms(lambda: resize_cuda.decode(data, dev), 10)
+    res["card one"] = median_ms(lambda: native_io.load_image_native(paths[0], INGEST_OUT_HW, dev),
+                                10)
+    cycled = [paths[i % len(paths)] for i in range(max(INGEST_BATCHES))]
+    for b in INGEST_BATCHES:
+        res[f"card batch {b}"] = median_ms(lambda: native_io.load_batch_native(
+            cycled[:b], INGEST_OUT_HW, 8, dev), 3) / b
+    n = len(cycled)
+    res["pil 1 thread"] = median_ms(lambda: [transforms.load_image(p, INGEST_OUT_HW)
+                                             for p in cycled], 1) / n
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        res["pil 8 threads"] = median_ms(lambda: list(pool.map(
+            lambda p: transforms.load_image(p, INGEST_OUT_HW), cycled)), 2) / n
+    log("time ingest per panorama (2048 x 1024 JPEG -> 320 x 640 float32, warm files): "
+        + ", ".join(f"{k} {v:.2f} ms ({1e3 / v:.0f}/s)" for k, v in res.items()) + f" [{card}]")
+
+
+def run_ingest_eval(card, out, root, dev) -> bool:
+    """eval_over_loader over the on-disk split with the graphed decode step,
+    the panoramas decoded on the card (VIGORDataset(decode_device=card))
+    beside PIL (decode_device=None): the first loop of the card's step
+    captures its graph while a loader thread decodes on the card (the
+    capture waits, inside, for one panorama decoded after it began); then
+    one counted loop (B1 18, each resize pass 20), INGEST_TIMED_LOOPS timed
+    loops of each in turns (pairs/s) and one profiled loop of each (device
+    idle share; the resize kernels in the trace against the counters)."""
+    import threading
+
+    from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core import graphs
+    from ccvpe_tpu_torch.data.loader import ThreadedLoader
+    from ccvpe_tpu_torch.data.vigor import VIGORDataset
+    from ccvpe_tpu_torch.models.cvm import CVM, build_cvm, random_init_
+    from ccvpe_tpu_torch.train.evaluate import eval_over_loader
+    from ccvpe_tpu_torch.train.step import make_eval_decode_step
+    vigor = cfg_lib.vigor()
+    b = 8
+    sd = random_init_(CVM(vigor).to_empty(device="cpu"),
+                      torch.Generator().manual_seed(17)).state_dict()
+    model = build_cvm(vigor, dev, state_dict=sd)
+    orient = np.linspace(0.0, 359.0, INGEST_N)
+    data = {k: VIGORDataset(root, split="samearea", train=False, random_orientation=orient,
+                            decode_device=d) for k, d in (("card", dev), ("pil", None))}
+    steps = {k: make_eval_decode_step(model) for k in data}
+
+    def loop(k):
+        loader = ThreadedLoader(data[k], b, shuffle=False, num_workers=4, drop_last=False)
+        return eval_over_loader(steps[k], loader, data[k].meters_per_pixel, with_prob_at_gt=True,
+                                device=dev)
+
+    # the card's first loop: the capture (its second batch) waits inside for
+    # a panorama of the third batch, which waits for the capture to begin
+    capturing, decoded = threading.Event(), threading.Event()
+    inside = []
+    ds = data["card"]
+    real_get, real_capture = ds.__getitem__, graphs.Graph.capture
+
+    def gated(i, rng=None):
+        if i >= 2 * b:
+            capturing.wait(60)
+        sample = real_get(i, rng=rng)
+        if capturing.is_set():
+            inside.append(i)
+            decoded.set()
+        return sample
+
+    def capture(self, fn, generators=()):
+        def held():
+            capturing.set()
+            decoded.wait(60)
+            return fn()
+        try:
+            return real_capture(self, held, generators)
+        finally:
+            capturing.clear()
+
+    ds.__getitem__ = gated
+    graphs.Graph.capture = capture
+    try:
+        loop("card")
+    finally:
+        graphs.Graph.capture = real_capture
+        del ds.__getitem__
+    loop("pil")
+    zero_launch_counts()
+    zero_ingest_counts()
+    summary = loop("card")
+    counted = dict(launch_counts(), **ingest_counts())
+    want = {"corr_fwd": 18, "resize_v": INGEST_N, "resize_h": INGEST_N}
+    captured = {k: s.captures for k, s in steps.items()}
+    ok = (bool(inside) and captured == {"card": 1, "pil": 1}
+          and all(counted[k] == v for k, v in want.items())
+          and all(np.isfinite(v) for v in summary.values()))
+    out["eval"] = dict(n=INGEST_N, batch=b, decoded_inside_capture=inside, captures=captured,
+                       launches=counted, summary=summary, ok=ok)
+    log(f"ingest eval: the card step's capture held while the loader decoded panoramas "
+        f"{inside} on the card; captures {captured}; a counted loop launches {counted} (want "
+        f"{want}); summary {json.dumps(summary)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        return False
+    walls = {k: [] for k in data}
+    for i in range(INGEST_TIMED_LOOPS):
+        for k in (("card", "pil") if i % 2 == 0 else ("pil", "card")):
+            t0 = time.perf_counter()
+            loop(k)
+            walls[k].append(time.perf_counter() - t0)
+    for k in data:
+        wall = float(np.median(walls[k]))
+        before = ingest_counts()
+        prof = profile_call(lambda: loop(k), f"one on-disk VIGOR eval loop, {k} decode", card,
+                            wall * 1e3, ours=("corr_fwd_kernel", "resize_v_kernel",
+                                              "resize_h_kernel"))
+        launched = {n: v - before[n] for n, v in ingest_counts().items()}
+        traced = {n: sum(c for name, c in prof["names"].items() if match(name))
+                  for n, match in INGEST_KERNELS.items()}
+        idle = 1.0 - prof["busy_union_ms"] / prof["wall_ms"]
+        out["eval"][k] = dict(loop_s=walls[k], pairs_per_s=INGEST_N / wall, idle_share=idle,
+                              resize_traced=traced, resize_counted=launched,
+                              busy_union_ms=prof["busy_union_ms"], wall_ms=prof["wall_ms"])
+        log(f"ingest eval {k} decode: median {INGEST_N / wall:.2f} pairs/s over "
+            f"{INGEST_TIMED_LOOPS} loops (min {INGEST_N / max(walls[k]):.2f}, max "
+            f"{INGEST_N / min(walls[k]):.2f}); device idle {idle:.1%} of one profiled loop; "
+            f"resize kernels in the trace {traced}, counted {launched} "
+            f"{'ok' if traced == launched else 'FAIL'} [{card}]")
+        if traced != launched:
+            return False
+    out["eval"]["launches"] = counted
+    return True
+
+
+def ingest_main(out_path: str) -> int:
+    """Phase 18 in its own process: the kernels were built by the parent;
+    loading finds them. Files go to a temporary directory, removed after."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --ingest: no CUDA device", file=sys.stderr)
+        return 2
+    import tempfile
+
+    from ccvpe_tpu_torch.ops import corr_cuda, resize_cuda
+    corr_cuda.load_library()
+    resize_cuda.load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = {"part_s": {}, "backends_created": list(resize_cuda.init(0))}
+    ok = False
+    with tempfile.TemporaryDirectory(prefix="ccvpe_ingest_") as tmp:
+        t = time.perf_counter()
+        paths = write_vigor_split(os.path.join(tmp, "vigor"), INGEST_N, INGEST_PATCHES)
+        files = write_ingest_files(tmp, paths[0])
+        out["part_s"]["files"] = time.perf_counter() - t
+        decoded = [resize_cuda.decode(open(p, "rb").read(), dev)[0] for p in paths[:8]]
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        t = time.perf_counter()
+        ok = (check_resize_kernels(card, out, decoded, gen)
+              and check_ingest_files(card, out, files, dev)
+              and check_ingest_broken(card, out, tmp, paths[0], dev)
+              and check_ingest_threads(card, out, paths, dev))
+        out["part_s"]["checks"] = time.perf_counter() - t
+        if ok:
+            t = time.perf_counter()
+            time_resize_kernels(card, out, decoded)
+            time_ingest(card, out, paths, dev)
+            out["part_s"]["timing"] = time.perf_counter() - t
+            t = time.perf_counter()
+            ok = run_ingest_eval(card, out, os.path.join(tmp, "vigor"), dev)
+            out["part_s"]["eval"] = time.perf_counter() - t
+    out["backend_counts"] = resize_cuda.backend_counts()
+    log(f"ingest: files decoded by each backend {json.dumps(out['backend_counts'])} "
+        f"(backends created: {out['backends_created']})")
+    out["max_abs_err"] = max((r["max_abs"] for r in out.get("resize_checks", [])), default=None)
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = ok
+    with open(out_path, "w") as f:
+        json.dump({"ingest": out}, f, indent=1, default=str)
+    return 0 if ok else 1
+
+
 def run_child(flag: str, name: str, timeout_s: int):
     """`python3 chip_smoke.py <flag> chiprun_out/<name>` as a child process
     with CUBLAS_WORKSPACE_CONFIG=:4096:8; returns its wall time and JSON, or
@@ -3681,7 +4282,7 @@ def main() -> int:
     from ccvpe_tpu_torch.core import config as cfg_lib
     from ccvpe_tpu_torch.csrc.build import KERNELS, build
     from ccvpe_tpu_torch.models.cvm import CVM, random_init_
-    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
+    from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda, resize_cuda
     from ccvpe_tpu_torch.ops.corr_cuda import corr_core, corr_core_plain
     from ccvpe_tpu_torch.serve import InferenceEngine
     from ccvpe_tpu_torch.train.step import device_normalize, make_eval_decode_step
@@ -3706,16 +4307,25 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"ccvpe_tpu_torch {ccvpe_tpu_torch.__version__} device {kind}")
     report["card"] = card
-    # the data layer reads images with PIL; a C decoder would need libjpeg's
-    # and libpng's headers
+    # the ingest decodes JPEGs with the toolkit's nvJPEG (csrc/io.cu) and
+    # PNGs with PIL; libjpeg's and libpng's headers, which native/io.cc
+    # needs, are looked for too
     try:
         import PIL
         pil = f"PIL {PIL.__version__} importable"
     except ImportError:
         pil = "PIL not importable"
+    from ccvpe_tpu_torch.ops.resize_cuda import nvjpeg_paths, toolkit_roots
+    roots = [str(r) for r in toolkit_roots()]
     headers = {h: os.path.exists(os.path.join("/usr/include", h)) for h in ("jpeglib.h", "png.h")}
-    log(f"{pil}; headers in /usr/include: {json.dumps(headers)}")
+    nvjpeg_h = sorted({os.path.realpath(h) for r in roots
+                       for h in glob.glob(os.path.join(r, "include", "nvjpeg.h"))
+                       + glob.glob(os.path.join(r, "targets", "*", "include", "nvjpeg.h"))})
+    nvjpeg_libs = [str(p) for p in nvjpeg_paths()]
+    log(f"{pil}; headers in /usr/include: {json.dumps(headers)}; toolkit {roots}: nvjpeg.h "
+        f"{nvjpeg_h}, libnvjpeg {nvjpeg_libs}")
     report["pil"], report["image_headers"] = pil, headers
+    report["nvjpeg"] = dict(toolkit=roots, header=nvjpeg_h, libraries=nvjpeg_libs)
 
     phase_done(1)
     # 2. build every kernel, and lmu.cu and lmu_bf16.cu with B3's phase
@@ -3735,6 +4345,9 @@ def main() -> int:
     lmu_cuda.load_timed_library()
     lmu_cuda.load_bf16_library()
     lmu_cuda.load_timed_bf16_library()
+    report["nvjpeg"]["created"] = list(resize_cuda.init(0))
+    log(f"nvJPEG on the card: created {report['nvjpeg']['created']} (the hardware backend "
+        f"{'created' if 'hardware' in report['nvjpeg']['created'] else 'refused'})")
     report["build_s"] = build_s
     report["build_seconds"] = {name: b.seconds for name, b in built.items()}
     scan = sass_scan(built["corr"].path)
@@ -4356,9 +4969,36 @@ def main() -> int:
             # launches a step on rank 0 of the (1, 2) mesh, ori_axis with the
             # fused stages: B1 on the rank's bin block, B2 and B3 whole
             k["model_axis_launches"] = fused_case[k["name"]]
+    phase_done(17)
+    # 18. the image ingest: nvJPEG's decode and the resize kernels, on an
+    #     on-disk VIGOR split, in a child
+    res = run_child("--ingest", "chip_smoke_ingest.json", INGEST_TIMEOUT_S)
+    if res is None:
+        return 1
+    ingest = report["ingest"] = res[1]["ingest"]
+    ingest["child_wall_s"] = res[0]
+    log(f"ingest: child process wall {res[0]:.2f} s, {ingest['seconds']:.2f} s of checks and "
+        f"runs ({', '.join(f'{k} {v:.1f} s' for k, v in ingest['part_s'].items())}); files "
+        f"decoded by each backend {json.dumps(ingest['backend_counts'])} [{card}]")
+    main_call = ingest["resize_timing"]["one panorama"]
+    for key, what in (("resize_v", "vertical"), ("resize_h", "horizontal")):
+        t = main_call[key]
+        kernels.append({
+            # no TPU kernel: the JAX package resizes on the host (native/io.cc);
+            # launches from the on-disk eval loop decoding on the card
+            "name": key, "route": "cuda", "source": "ccvpe_tpu_torch/csrc/io.cu",
+            "replaces": "native/io.cc:179", "tpu_kernel": None, "pass": what,
+            "launches": ingest["eval"]["launches"][key], "max_abs_err": ingest["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "batch8_ms": ingest["resize_timing"]["batch 8"][key]["ms"],
+            # both passes together against the one-pass bound of io.cc's function
+            "function_bound_ms": ingest["resize_timing"]["function bound"]["one panorama"][
+                "bound_ms"],
+        })
     report["kernels"] = kernels
     report["probes"] = probes
-    phase_done(17)
+    phase_done(18)
     log("phase wall seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in report["phase_s"].items()))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -4385,6 +5025,8 @@ if __name__ == "__main__":
         sys.exit(scale_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     if len(sys.argv) == 3 and sys.argv[1] == "--model-axis":
         sys.exit(model_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ingest":
+        sys.exit(ingest_main(sys.argv[2]))
     if len(sys.argv) == 6 and sys.argv[1] == "--model-axis-rank":
         sys.exit(model_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -1,7 +1,8 @@
 """csrc/build.py's library names: a hash of the source, of every header
 csrc/*.cuh (the sources include them) and of the flags, the preprocessor
-defines among them, so that each define set is a library of its own and a
-changed header builds anew. Nothing is compiled here."""
+defines and the library's link flags among them, so that each define set is
+a library of its own and a changed header builds anew. Nothing is compiled
+here."""
 
 import hashlib
 
@@ -16,7 +17,7 @@ def test_defines_give_their_own_library_and_keep_the_default(name):
     digest = hashlib.sha256((build.CSRC / f"{name}.cu").read_bytes())
     for h in sorted(build.CSRC.glob("*.cuh")):
         digest.update(h.name.encode() + h.read_bytes())
-    digest.update(" ".join(build.NVCC_FLAGS).encode())
+    digest.update(" ".join([*build.NVCC_FLAGS, *build.LINK_FLAGS.get(name, ())]).encode())
     assert build.library_path(name) == build.BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     assert build.library_path(name, ()) == build.library_path(name)
     paths = {build.library_path(name), build.library_path(name, ("A",)),
@@ -32,6 +33,28 @@ def test_nvcc_command_passes_the_defines():
     assert not any(f.startswith("-D") for f in plain)
     assert f"-D{lmu_cuda.PHASE_TIMER}" in timed
     assert [f for f in timed if not f.startswith("-D")] == plain
+
+
+def test_io_links_nvjpeg_and_the_others_nothing():
+    """csrc/io.cu links the toolkit's nvJPEG; no other library links
+    anything."""
+    assert build.LINK_FLAGS == {"io": ("-lnvjpeg",)}
+    for name in build.KERNELS:
+        cmd = build.nvcc_command([build.CSRC / f"{name}.cu"], build.BUILD_DIR / "x.so",
+                                 (), build.LINK_FLAGS.get(name, ()))
+        assert [f for f in cmd if f.startswith("-l")] == (["-lnvjpeg"] if name == "io" else [])
+    assert build.nvcc_command([build.CSRC / "io.cu"], build.BUILD_DIR / "x.so")[-1].endswith("io.cu")
+
+
+def test_link_flags_are_part_of_the_hash(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "k.cu").write_text("// k\n")
+    plain = build.library_path("k")
+    monkeypatch.setattr(build, "LINK_FLAGS", {"k": ("-lnvjpeg",)})
+    linked = build.library_path("k")
+    monkeypatch.setattr(build, "LINK_FLAGS", {"k": ("-lnvjpeg", "-lm")})
+    assert len({plain, linked, build.library_path("k")}) == 3
 
 
 def test_headers_are_part_of_the_hash(tmp_path, monkeypatch):
@@ -56,6 +79,10 @@ def test_headers_are_part_of_the_hash(tmp_path, monkeypatch):
 
 
 def test_the_kernels_share_one_header():
+    """The model's kernels (B1, B2, B3) include the shared tensor-core
+    header; the ingest's io.cu includes none of csrc's headers."""
     for name in build.KERNELS:
-        assert '#include "tf32_mma.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert ('#include "tf32_mma.cuh"' in text) == (name != "io")
+    assert '.cuh"' not in (build.CSRC / "io.cu").read_text()
     assert build.headers() == [build.CSRC / "tf32_mma.cuh"]
