@@ -27,7 +27,7 @@ from typing import List, Sequence
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC / "_build"
 # corr: B1; lmu: B2 and B3 on float32 activations; lmu_bf16: on bf16 ones;
-# io: the image ingest (nvJPEG's decode, the resize kernels)
+# io: the image ingest (nvJPEG's decode, the resize kernel)
 KERNELS = ("corr", "lmu", "lmu_bf16", "io")
 # the libraries each source links against
 LINK_FLAGS = {"io": ("-lnvjpeg",)}

@@ -1,37 +1,48 @@
 // Image ingest on Hopper (sm_90a): JPEG decode by nvJPEG, then Pillow's
-// triangle resize and the ImageNet normalize (or the uint8 round) in two
-// hand-written kernels.
+// triangle resize and the ImageNet normalize (or the uint8 round) in one
+// hand-written kernel.
 //
 // The port of native/io.cc (the JAX package's host library: libjpeg and
 // libpng decode, build_contribs :147, resize_normalize :179, resize_u8 :231,
 // the C API :278-335). It replaces no TPU kernel: the JAX package decodes
 // and resizes on the host. On the card the JPEG decode is nvJPEG's (the
 // toolkit's decoder, not a kernel of this repository) and the resize is
-// these kernels; a PNG is decoded by PIL on the host and uploaded, since the
+// resize_kernel; a PNG is decoded by PIL on the host and uploaded, since the
 // card's machine has no libpng (ops/resize_cuda.py::rgb_resize).
 //
 // The resize computes what io.cc computes: contributions from
-// build_contribs in float64, cast to float; a vertical pass from uint8 rows
-// into float rows [out_h, in_w * 3], then a horizontal gather into
-// (v - 255 mean) * ((1/255) / std) or int(v + 0.5) clipped to uint8. Each
-// sum runs tap by tap from the first in float, one rounded product and one
-// rounded add a tap (__fmul_rn, __fadd_rn: no contraction into an FMA), so
-// the plain version (ops/resize_cuda.py::resize_plain) gives the same bits
-// on the same decoded pixels.
+// build_contribs in float64, cast to float; vertical sums from uint8 rows
+// into float rows, then a horizontal gather into (v - 255 mean) * ((1/255) /
+// std) or int(v + 0.5) clipped to uint8. Each sum runs tap by tap from the
+// first in float, one rounded product and one rounded add a tap (__fmul_rn,
+// __fadd_rn: no contraction into an FMA), so the plain version
+// (ops/resize_cuda.py::resize_plain) gives the same bits on the same decoded
+// pixels.
 //
-// What bounds it on an H100: bytes. A 2048 x 1024 panorama resized to
-// 640 x 320 reads 6.3 MB of pixels and writes 7.9 MB of float rows in the
-// vertical pass, then reads those rows and writes 0.6 MB (uint8) or 2.5 MB
-// (float32): about 22 MB, 7 us at 3.35 TB/s. What the design does about it:
-// - The vertical pass reads each input row as 4-byte vectors and writes
-//   16-byte float vectors, one thread a 4-byte column of one output row,
-//   neighbouring threads on neighbouring bytes; the input rows an output
-//   row shares with the next stay in L2.
-// - The horizontal pass stages one float row in shared memory with
-//   coalesced loads (24 KB at 2048 columns; rows wider than the card's
-//   shared memory read device memory), then one thread an output pixel
-//   gathers its taps from there.
-// - One launch a pass takes a batch of images of one size (grid z or y).
+// What bounds it on an H100: the function, bytes. A 2048 x 1024 panorama
+// resized to 640 x 320 reads 6.3 MB of pixels and writes 2.5 MB of
+// normalized floats (0.6 MB of uint8): 2.6 us at 3.35 TB/s. The kernel, its
+// instructions: a rounded product and a rounded add a byte a tap, where an
+// FMA would change the bits, and each byte's conversion to float. What the
+// design does about both: one block owns a tile of output rows and columns
+// of one image and stages the tile's band of input (its rows' taps, its
+// columns' taps, times 3 bytes) in shared memory with 16-byte cp.async
+// copies, each row from the 16-byte-aligned byte at or below the band's
+// first, in chunks of rows, double buffered; the vertical sums of a chunk go
+// into a float tile in shared memory, where the next chunk continues them
+// in tap order; after the last chunk the horizontal taps are gathered from
+// that tile and a warp stores neighbouring output pixels. So the float rows
+// never reach device memory: the input is read about once (the halo the
+// neighbouring tiles share is read again, mostly from L2) and the output
+// written once. A halo column two blocks both sum gets the same bits in
+// each. The tile's weights ride in the first chunk's copies, so no tap waits
+// on device memory; a byte becomes a float by a byte permute and an exact
+// add; where every row starts at one offset from 16-byte alignment, a
+// thread reads 8 aligned bytes a tap. The tile is planned from the largest
+// bands that get_contribs computes once a size pair (make_plan): 8 rows x
+// 64 columns, halved while the band does not fit the default shared memory,
+// so a steep downscale takes a narrower tile and more chunks. One launch
+// takes a batch of images of one size (grid z).
 //
 // Decoding. Per file, in plain code: nvJPEG's hardware backend (the H100's
 // JPEG engines), where it was created and nvjpegDecodeBatchedSupported
@@ -48,10 +59,10 @@
 // from). Each call leases a decoder state of its own from a pool kept for
 // the process: a non-blocking stream (never the legacy default stream), the
 // hardware and hybrid decoders' states with their pinned and device
-// buffers, and the lease's device and pinned buffers for the decoded,
-// intermediate and resized images, grown to the largest image seen and
-// never shrunk. So concurrent callers decode at once, and a loader's
-// threads that come and go allocate nothing once the pool is warm. Each
+// buffers, and the lease's device and pinned buffers for the decoded and
+// resized images, grown to the largest image seen and never shrunk. So
+// concurrent callers decode at once, and a loader's threads that come and
+// go allocate nothing once the pool is warm. Each
 // entry of the ingest path runs in CUDA's relaxed stream-capture mode
 // (cudaThreadExchangeStreamCaptureMode): a CUDA graph that another thread
 // captures in global mode meanwhile is not invalidated by this thread's
@@ -68,7 +79,8 @@
 //   ccvpe_io_rgb_resize(rgb, in_h, in_w, out, out_h, out_w, mode, mean, std, device, backend)
 //   ccvpe_io_load_batch(datas, lens, n, out, out_h, out_w, mode, mean, std, threads, device,
 //                       status, backend, groups)
-//   ccvpe_io_resize(src, n, in_h, in_w, tmp, out, out_h, out_w, mode, mean, std, device, stream)
+//   ccvpe_io_resize(src, n, in_h, in_w, out, out_h, out_w, mode, mean, std, device, stream)
+//   ccvpe_io_resize_plan(in_h, in_w, out_h, out_w, device, plan)
 //   ccvpe_io_backend_counts(counts), ccvpe_io_last_error(buf, size)
 // mode 0 writes uint8, 1 normalized float32 (mean and std, 3 floats each).
 
@@ -88,6 +100,8 @@
 #include <utility>
 #include <vector>
 
+#include "tf32_mma.cuh"   // cp.async
+
 namespace {
 
 enum Status { kOk = 0, kUndecodable = 1, kFault = 2, kBadArgs = 3, kUnsupported = 4 };
@@ -101,7 +115,21 @@ enum Backend { kHardware = 0, kGpuHybrid = 1, kHybrid = 2, kHost = 3, kRefused =
 constexpr unsigned kHandleFlags = NVJPEG_FLAGS_UPSAMPLING_WITH_INTERPOLATION;
 
 constexpr int kThreads = 256;
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kDefaultSmem = 48 * 1024;   // a block's without opt-in
+
+// The resize's tiles: kTileSizes candidate sizes an axis, index i a tile of
+// kTileMax >> i outputs; a block starts from kTileRows x kTileCols and the
+// plan halves the columns, then the rows, until the staged band (kStages
+// buffers of kChunkRows rows), the float tile and the tile's weights fit
+// kDefaultSmem (five blocks an SM); failing that, the card's opt-in maximum
+// with fewer rows a chunk (ccvpe_io_resize_plan reports the plan).
+constexpr int kTileMax = 64, kTileSizes = 7;
+constexpr int kTileRows = 8, kTileCols = 64;
+constexpr int kChunkRows = 16, kStages = 2;
+// a staged row's bytes past the band's: the 16-byte-aligned start (up to
+// 15 bytes below it) and the reads past the band's last byte (the second
+// word of its 4-byte group, or the rest of its 8 aligned bytes)
+constexpr int kPitchSlack = 23;
 
 thread_local std::string g_error;   // the calling thread's last fault
 std::atomic<long long> g_counts[kBackends];
@@ -209,12 +237,15 @@ HostContribs build_contribs(int in_size, int out_size) {
   return c;
 }
 
-// One axis's weights on the card: [first (out ints)][taps (out ints)][w (out * ksize floats)].
+// One axis's weights on the card: [first (out ints)][taps (out ints)][w (out * ksize floats)];
+// and the largest band of inputs a tile of kTileMax >> i outputs reads
+// (its last output's first + taps - its first output's first).
 struct DevContribs {
   const int* first = nullptr;
   const int* taps = nullptr;
   const float* w = nullptr;
   int ksize = 0;
+  int band[kTileSizes] = {};
 };
 
 std::mutex g_contribs_mu;
@@ -233,6 +264,12 @@ int get_contribs(int device, int in_size, int out_size, cudaStream_t stream, Dev
   const HostContribs h = build_contribs(in_size, out_size);
   for (int n : h.taps)
     if (n < 1) return fail(kBadArgs, "a resize row with no taps");
+  // a tile's band runs from its first output's first tap to its last
+  // output's last: first and first + taps never fall from one output to
+  // the next (Pillow's window slides with the centre)
+  for (int i = 1; i < out_size; ++i)
+    if (h.first[i] < h.first[i - 1] || h.first[i] + h.taps[i] < h.first[i - 1] + h.taps[i - 1])
+      return fail(kBadArgs, "a resize window that moves back");
   const size_t ints = size_t(out_size) * sizeof(int);
   std::vector<char> blob(2 * ints + h.w.size() * sizeof(float));
   std::memcpy(blob.data(), h.first.data(), ints);
@@ -247,48 +284,72 @@ int get_contribs(int device, int in_size, int out_size, cudaStream_t stream, Dev
   d.taps = reinterpret_cast<const int*>(dev + ints);
   d.w = reinterpret_cast<const float*>(dev + 2 * ints);
   d.ksize = h.ksize;
+  for (int i = 0; i < kTileSizes; ++i) {
+    const int t = kTileMax >> i;
+    for (int o0 = 0; o0 < out_size; o0 += t) {
+      const int o1 = std::min(o0 + t, out_size) - 1;
+      d.band[i] = std::max(d.band[i], h.first[o1] + h.taps[o1] - h.first[o0]);
+    }
+  }
   g_contribs.emplace(key, d);
   *out = d;
   return kOk;
 }
 
-// ---------------- the two resize kernels ----------------
+// ---------------- the resize kernel ----------------
 
-// Vertical pass: tmp[img, y, i] = sum_k w[y, k] * src[img, first[y] + k, i]
-// over a row of `row` = in_w * 3 bytes; VEC bytes a thread (4: uchar4 in,
-// float4 out). grid (columns / VEC / kThreads, out_h, n).
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-resize_v_kernel(const uint8_t* __restrict__ src, float* __restrict__ tmp,
-                const int* __restrict__ first, const int* __restrict__ taps,
-                const float* __restrict__ w, int ksize, int in_h, int row, int out_h) {
-  const int y = blockIdx.y;
-  const int img = blockIdx.z;
-  const int i = (blockIdx.x * kThreads + threadIdx.x) * VEC;
-  if (i >= row) return;
-  const int n = taps[y];
-  const float* wy = w + size_t(y) * ksize;
-  const uint8_t* s = src + (size_t(img) * in_h + first[y]) * row + i;
-  float* t = tmp + (size_t(img) * out_h + y) * row + i;
-  if constexpr (VEC == 4) {
-    uchar4 v = *reinterpret_cast<const uchar4*>(s);
-    const float w0 = wy[0];
-    float4 a = make_float4(__fmul_rn(w0, float(v.x)), __fmul_rn(w0, float(v.y)),
-                           __fmul_rn(w0, float(v.z)), __fmul_rn(w0, float(v.w)));
-    for (int k = 1; k < n; ++k) {
-      v = *reinterpret_cast<const uchar4*>(s + size_t(k) * row);
-      const float wk = wy[k];
-      a.x = __fadd_rn(a.x, __fmul_rn(wk, float(v.x)));
-      a.y = __fadd_rn(a.y, __fmul_rn(wk, float(v.y)));
-      a.z = __fadd_rn(a.z, __fmul_rn(wk, float(v.z)));
-      a.w = __fadd_rn(a.w, __fmul_rn(wk, float(v.w)));
+// A block's tile and staging for one size pair (make_plan).
+struct Plan {
+  int tr = 0, tc = 0;   // the tile's output rows and columns at most
+  int chunk = 0;        // band rows a copy group, in each of kStages buffers
+  int pitch = 0;        // a staged row's bytes: the band's, kPitchSlack, to 16
+  int twp = 0;          // a float row of the tile: the band's bytes and 15 (staged columns), to 8
+  size_t smem = 0;      // kStages * chunk * pitch bytes; floats and ints: smem_words
+};
+
+// The shared memory besides the staging buffers, in 4-byte words: the
+// float tile, the tile's weights (tr x ky, tc x kx) and each output row's
+// and column's first tap and tap count.
+size_t smem_words(int tr, int tc, size_t twp, int ky, int kx) {
+  return size_t(tr) * (twp + ky + 2) + size_t(tc) * (kx + 2);
+}
+
+int tile_index(int tile) {
+  int i = 0;
+  while ((kTileMax >> i) > tile) ++i;
+  return i;
+}
+
+// From kTileRows x kTileCols, the columns halved first, then the rows,
+// until the plan fits kDefaultSmem with a full chunk; else the opt-in
+// maximum with the chunk that fits. Fails where one output's band does not
+// fit at all.
+int make_plan(const DevContribs& cy, const DevContribs& cx, int out_h, int out_w, int optin,
+              Plan* p) {
+  for (const size_t limit : {kDefaultSmem, std::max(kDefaultSmem, size_t(optin))}) {
+    for (int ir = tile_index(kTileRows); ir < kTileSizes; ++ir) {
+      for (int ic = tile_index(kTileCols); ic < kTileSizes; ++ic) {
+        const size_t rows = size_t(cy.band[ir]), bytes = 3 * size_t(cx.band[ic]);
+        const size_t pitch = (bytes + kPitchSlack + 15) & ~size_t(15);
+        const size_t twp = (bytes + 15 + 7) & ~size_t(7);
+        Plan q;
+        q.tr = std::min(kTileMax >> ir, out_h);
+        q.tc = std::min(kTileMax >> ic, out_w);
+        const size_t tile = smem_words(q.tr, q.tc, twp, cy.ksize, cx.ksize) * sizeof(float);
+        const size_t room = limit > tile ? (limit - tile) / (kStages * pitch) : 0;
+        const size_t full = std::min(rows, size_t(kChunkRows));
+        const size_t chunk = std::min(full, room);
+        if (chunk < (limit == kDefaultSmem ? full : size_t(1))) continue;
+        q.chunk = int(chunk);
+        q.pitch = int(pitch);
+        q.twp = int(twp);
+        q.smem = tile + kStages * chunk * pitch;
+        *p = q;
+        return kOk;
+      }
     }
-    *reinterpret_cast<float4*>(t) = a;
-  } else {
-    float a = __fmul_rn(wy[0], float(s[0]));
-    for (int k = 1; k < n; ++k) a = __fadd_rn(a, __fmul_rn(wy[k], float(s[size_t(k) * row])));
-    *t = a;
   }
+  return fail(kBadArgs, "resize: one output's band of input does not fit in shared memory");
 }
 
 __device__ __forceinline__ uint8_t clip8(float v) {
@@ -296,35 +357,194 @@ __device__ __forceinline__ uint8_t clip8(float v) {
   return uint8_t(i < 0 ? 0 : (i > 255 ? 255 : i));
 }
 
-// Horizontal pass: out[img, y, x, c] from tmp's row (img, y): the taps of
-// column x summed from 0, then the round (U8) or the normalize. SMEM: the
-// row staged in shared memory first. grid (out_h, n).
-template <bool U8, bool SMEM>
-__global__ void __launch_bounds__(kThreads)
-resize_h_kernel(const float* __restrict__ tmp, void* __restrict__ out,
-                const int* __restrict__ first, const int* __restrict__ taps,
-                const float* __restrict__ w, int ksize, int in_w, int out_w, int out_h,
-                float3 bias, float3 inv) {
-  extern __shared__ float srow[];
-  const size_t r = size_t(blockIdx.y) * out_h + blockIdx.x;
-  const float* row = tmp + r * in_w * 3;
-  if constexpr (SMEM) {
-    for (int i = threadIdx.x; i < in_w * 3; i += kThreads) srow[i] = row[i];
-    __syncthreads();
-    row = srow;
+// Position of a loop over `count` columns a row, advanced by kThreads:
+// (row, column) kept without a division a step.
+struct Walk {
+  int row, col, step_rows, step_cols, count;
+  __device__ Walk(int count_) : count(count_) {
+    row = threadIdx.x / count;
+    col = threadIdx.x - row * count;
+    step_rows = kThreads / count;
+    step_cols = kThreads - step_rows * count;
   }
-  for (int x = threadIdx.x; x < out_w; x += kThreads) {
-    const int n = taps[x];
-    const float* wx = w + size_t(x) * ksize;
-    const float* p = row + first[x] * 3;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-    for (int k = 0; k < n; ++k, p += 3) {
-      const float wk = wx[k];
-      a0 = __fadd_rn(a0, __fmul_rn(wk, p[0]));
-      a1 = __fadd_rn(a1, __fmul_rn(wk, p[1]));
-      a2 = __fadd_rn(a2, __fmul_rn(wk, p[2]));
+  __device__ void next() {
+    row += step_rows;
+    col += step_cols;
+    if (col >= count) {
+      col -= count;
+      ++row;
     }
-    const size_t o = (r * out_w + x) * 3;
+  }
+};
+
+// Byte I of v as a float, exactly: the byte under the exponent of 2^23,
+// less 2^23 (a byte permute and an add on the full-rate pipes).
+template <int I>
+__device__ __forceinline__ float byte_float(uint32_t v) {
+  return __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540 + I)), 8388608.0f);
+}
+
+__device__ __forceinline__ float4 bytes_float(uint32_t v) {
+  return make_float4(byte_float<0>(v), byte_float<1>(v), byte_float<2>(v), byte_float<3>(v));
+}
+
+// The 4 bytes of a staged row at band byte j (a multiple of 4), as the row
+// starts at byte `off` (0-15) of its first 16-byte copy: the two aligned
+// words that hold them.
+__device__ __forceinline__ float4 quad(const uint8_t* row, int j, int off) {
+  const uint32_t* word = reinterpret_cast<const uint32_t*>(row + j + (off & ~3));
+  return bytes_float(__funnelshift_r(word[0], word[1], 8 * (off & 3)));
+}
+
+// a + w * x, each product and each add rounded (io.cc's float sums)
+__device__ __forceinline__ void tap(float4& a, float w, const float4& x) {
+  a.x = __fadd_rn(a.x, __fmul_rn(w, x.x));
+  a.y = __fadd_rn(a.y, __fmul_rn(w, x.y));
+  a.z = __fadd_rn(a.z, __fmul_rn(w, x.z));
+  a.w = __fadd_rn(a.w, __fmul_rn(w, x.w));
+}
+
+// out[img, y, x, c] for the tile of blockIdx (x: columns, y: rows, z: the
+// image). The band's rows are staged by cp.async in chunks of p.chunk rows
+// through a ring of kStages buffers (the tile's weights and taps with the
+// first chunk); as each chunk lands, its vertical taps are summed into the
+// float tile [tr][twp] (a sum continued from chunk to chunk, in tap order);
+// then each output pixel's horizontal taps are gathered from the tile and
+// rounded (U8) or normalized, a warp on neighbouring pixels. Rows that all
+// start at one offset from 16-byte alignment (in_w * 3 a multiple of 16,
+// VIGOR's panoramas among them) are summed in staged columns, 8 aligned
+// bytes a thread, a band byte's tile column off0 past its own; other rows
+// 4 band bytes a thread, from the two words that hold them (the general
+// loop alone takes a VIGOR panorama 2.6 us longer on an H100, batch 8
+// 16.8 us: tools/resize_variants.py). src uint8
+// [n, in_h, in_w * 3]; shared memory: the ring, the float tile, the
+// weights, the taps.
+template <bool U8>
+__global__ void __launch_bounds__(kThreads)
+resize_kernel(const uint8_t* __restrict__ src, void* __restrict__ out, DevContribs ay,
+              DevContribs ax, int in_h, int in_w, int out_h, int out_w, Plan p, float3 bias,
+              float3 inv) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int img = blockIdx.z;
+  const int y0 = blockIdx.y * p.tr, x0 = blockIdx.x * p.tc;
+  const int tr = min(p.tr, out_h - y0), tc = min(p.tc, out_w - x0);
+  const int by0 = ay.first[y0], bx0 = ax.first[x0];
+  const int rows = ay.first[y0 + tr - 1] + ay.taps[y0 + tr - 1] - by0;
+  const int bytes = (ax.first[x0 + tc - 1] + ax.taps[x0 + tc - 1] - bx0) * 3;
+  const int segs = p.pitch >> 4;
+  const size_t row_bytes = size_t(in_w) * 3;
+  // the band's first byte in its first row, and each row's offset from
+  // 16-byte alignment: (off0 + r * step16) mod 16 in band row r
+  const uint8_t* band = src + (size_t(img) * in_h + by0) * row_bytes + size_t(bx0) * 3;
+  const int off0 = int(reinterpret_cast<uintptr_t>(band) & 15), step16 = int(row_bytes & 15);
+  const bool aligned = step16 == 0;
+  const int shift = aligned ? off0 : 0;   // a band byte's tile column less its own
+  const int stage_bytes = p.chunk * p.pitch;
+  const int ky = ay.ksize, kx = ax.ksize;
+  float* tile = reinterpret_cast<float*>(smem + kStages * stage_bytes);
+  float* wys = tile + p.tr * p.twp;   // [tr][ky]
+  float* wxs = wys + p.tr * ky;       // [tc][kx]
+  int* fys = reinterpret_cast<int*>(wxs + p.tc * kx);   // first taps and tap counts
+  int* nys = fys + p.tr;
+  int* fxs = nys + p.tr;
+  int* nxs = fxs + p.tc;
+
+  // chunk c of the band, rows [c * chunk, +chunk), into its ring slot, each
+  // row from the 16-byte-aligned byte at or below its first: every 16-byte
+  // copy holds a byte of the band; one copy group a chunk
+  auto stage = [&](int c) {
+    const int c0 = c * p.chunk, n = min(p.chunk, rows - c0);
+    uint8_t* buf = smem + (c % kStages) * stage_bytes;
+    for (Walk w(segs); w.row < n; w.next()) {
+      const uint8_t* g = band + size_t(c0 + w.row) * row_bytes;
+      const int off = (off0 + (c0 + w.row) * step16) & 15;
+      if (w.col < (off + bytes + 15) >> 4)
+        cp_async16(reinterpret_cast<float*>(buf + w.row * p.pitch + 16 * w.col),
+                   reinterpret_cast<const float*>(g - off + 16 * w.col));
+    }
+    cp_async_commit();
+  };
+
+  // the tile's weights, first taps and tap counts, in the first chunk's
+  // copy group (read from device memory a tap at a time, each would be a
+  // cache round trip in the sums' chains)
+  auto copy4 = [](void* dst, const void* from) {
+    cp_async4(static_cast<float*>(dst), static_cast<const float*>(from), true);
+  };
+  for (int i = threadIdx.x; i < tr * ky; i += kThreads) copy4(wys + i, ay.w + size_t(y0) * ky + i);
+  for (int i = threadIdx.x; i < tc * kx; i += kThreads) copy4(wxs + i, ax.w + size_t(x0) * kx + i);
+  for (int i = threadIdx.x; i < tr; i += kThreads) {
+    copy4(fys + i, ay.first + y0 + i);
+    copy4(nys + i, ay.taps + y0 + i);
+  }
+  for (int i = threadIdx.x; i < tc; i += kThreads) {
+    copy4(fxs + i, ax.first + x0 + i);
+    copy4(nxs + i, ax.taps + x0 + i);
+  }
+  const int chunks = (rows + p.chunk - 1) / p.chunk;
+  for (int c = 0; c < min(kStages, chunks); ++c) stage(c);
+
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_upto(min(chunks, c + kStages) - c - 1);   // chunk c has landed
+    __syncthreads();
+    const int c0 = c * p.chunk, c1 = min(c0 + p.chunk, rows);
+    const uint8_t* slot = smem + (c % kStages) * stage_bytes;   // band row r at (r - c0) * pitch
+    if (aligned) {
+      for (Walk w((off0 + bytes + 7) >> 3); w.row < tr; w.next()) {
+        const int y = w.row, j = 8 * w.col;
+        const int fy = fys[y] - by0, k0 = max(0, c0 - fy), k1 = min(nys[y], c1 - fy);
+        if (k0 >= k1) continue;   // none of this output row's taps in the chunk
+        float4* acc = reinterpret_cast<float4*>(tile + y * p.twp + j);
+        // 0 + the first product is that product: the plain version's first term
+        float4 a = k0 == 0 ? zero : acc[0], b = k0 == 0 ? zero : acc[1];
+        const float* wk = wys + y * ky + k0;
+        const uint8_t* row = slot + (fy + k0 - c0) * p.pitch + j;
+#pragma unroll 2
+        for (int k = k0; k < k1; ++k, row += p.pitch) {
+          const uint2 v = *reinterpret_cast<const uint2*>(row);
+          const float wt = *wk++;
+          tap(a, wt, bytes_float(v.x));
+          tap(b, wt, bytes_float(v.y));
+        }
+        acc[0] = a;
+        acc[1] = b;
+      }
+    } else {
+      for (Walk w((bytes + 3) >> 2); w.row < tr; w.next()) {
+        const int y = w.row, j = 4 * w.col;
+        const int fy = fys[y] - by0, k0 = max(0, c0 - fy), k1 = min(nys[y], c1 - fy);
+        if (k0 >= k1) continue;
+        float4* acc = reinterpret_cast<float4*>(tile + y * p.twp + j);
+        float4 a = k0 == 0 ? zero : *acc;
+        const float* wk = wys + y * ky + k0;
+        const uint8_t* row = slot + (fy + k0 - c0) * p.pitch;
+        int off = (off0 + (fy + k0) * step16) & 15;
+#pragma unroll 2
+        for (int k = k0; k < k1; ++k, row += p.pitch, off = (off + step16) & 15)
+          tap(a, *wk++, quad(row, j, off));
+        *acc = a;
+      }
+    }
+    __syncthreads();   // the slot is free for chunk c + kStages
+    if (c + kStages < chunks) stage(c + kStages);
+  }
+
+  // the horizontal taps: a thread an output pixel, a warp neighbouring ones
+  for (Walk w(tc); w.row < tr; w.next()) {
+    const int y = w.row, x = w.col;
+    const int nx = nxs[x];
+    const float* wx = wxs + x * kx;
+    const float* t = tile + y * p.twp + (fxs[x] - bx0) * 3 + shift;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < nx; ++k, t += 3) {
+      const float wk = wx[k];
+      a0 = __fadd_rn(a0, __fmul_rn(wk, t[0]));
+      a1 = __fadd_rn(a1, __fmul_rn(wk, t[1]));
+      a2 = __fadd_rn(a2, __fmul_rn(wk, t[2]));
+    }
+    const size_t o = ((size_t(img) * out_h + y0 + y) * out_w + x0 + x) * 3;
     if constexpr (U8) {
       uint8_t* q = static_cast<uint8_t*>(out) + o;
       q[0] = clip8(a0);
@@ -339,30 +559,6 @@ resize_h_kernel(const float* __restrict__ tmp, void* __restrict__ out,
   }
 }
 
-template <bool U8>
-cudaError_t launch_h(const float* tmp, void* out, const DevContribs& cx, int n, int in_w,
-                     int out_w, int out_h, float3 bias, float3 inv, cudaStream_t stream) {
-  const size_t smem = size_t(in_w) * 3 * sizeof(float);
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(out_h, n);
-  if (smem <= size_t(optin)) {
-    const auto kernel = resize_h_kernel<U8, true>;
-    if (smem > kDefaultSmem) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (e != cudaSuccess) return e;
-    }
-    kernel<<<grid, kThreads, smem, stream>>>(tmp, out, cx.first, cx.taps, cx.w, cx.ksize, in_w,
-                                             out_w, out_h, bias, inv);
-  } else {
-    resize_h_kernel<U8, false><<<grid, kThreads, 0, stream>>>(
-        tmp, out, cx.first, cx.taps, cx.w, cx.ksize, in_w, out_w, out_h, bias, inv);
-  }
-  return cudaGetLastError();
-}
-
 bool resize_args_ok(int n, int in_h, int in_w, int out_h, int out_w, int mode, const float* mean,
                     const float* stdv) {
   return n >= 1 && n <= 65535 && in_h >= 1 && in_w >= 1 && out_h >= 1 && out_h <= 65535 &&
@@ -370,36 +566,64 @@ bool resize_args_ok(int n, int in_h, int in_w, int out_h, int out_w, int mode, c
          size_t(in_w) * 3 <= size_t(INT32_MAX);
 }
 
-// Both passes on `stream`: src uint8 [n, in_h, in_w, 3], tmp float
-// [n, out_h, in_w * 3], out [n, out_h, out_w, 3] uint8 (mode 0) or float.
-int launch_resize(int device, const uint8_t* src, int n, int in_h, int in_w, float* tmp, void* out,
-                  int out_h, int out_w, int mode, const float* mean, const float* stdv,
-                  cudaStream_t stream) {
+std::mutex g_optin_mu;
+std::map<int, int> g_optin;   // device -> its opt-in shared memory a block
+
+// The kernel's attributes on `device` (the current one), set once for the
+// process: the full shared-memory carveout (as many blocks an SM as their
+// shared memory takes, not the L1's default share) and the card's opt-in
+// maximum as the dynamic shared memory any launch may ask for, so that no
+// launch changes them while another thread launches. *optin: that maximum.
+int kernel_setup(int device, int* optin) {
+  std::lock_guard<std::mutex> lock(g_optin_mu);
+  const auto it = g_optin.find(device);
+  if (it != g_optin.end()) {
+    *optin = it->second;
+    return kOk;
+  }
+  int bytes = 0;
+  CUDA_TRY(cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  for (const auto kernel : {&resize_kernel<true>, &resize_kernel<false>}) {
+    CUDA_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  cudaSharedmemCarveoutMaxShared));
+    CUDA_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  }
+  g_optin.emplace(device, bytes);
+  *optin = bytes;
+  return kOk;
+}
+
+// The weights and the plan of in_h x in_w -> out_h x out_w on `device`
+// (weights uploaded on `stream` the first time).
+int plan_resize(int device, int in_h, int in_w, int out_h, int out_w, cudaStream_t stream,
+                DevContribs* cy, DevContribs* cx, Plan* p) {
+  STATUS_TRY(get_contribs(device, in_h, out_h, stream, cy));
+  STATUS_TRY(get_contribs(device, in_w, out_w, stream, cx));
+  int optin = 0;
+  STATUS_TRY(kernel_setup(device, &optin));
+  return make_plan(*cy, *cx, out_h, out_w, optin, p);
+}
+
+// The kernel on `stream`: src uint8 [n, in_h, in_w, 3], out [n, out_h,
+// out_w, 3] uint8 (mode 0) or float.
+int launch_resize(int device, const uint8_t* src, int n, int in_h, int in_w, void* out, int out_h,
+                  int out_w, int mode, const float* mean, const float* stdv, cudaStream_t stream) {
   if (!resize_args_ok(n, in_h, in_w, out_h, out_w, mode, mean, stdv))
     return fail(kBadArgs, "resize: bad sizes or mode");
   DevContribs cy, cx;
-  STATUS_TRY(get_contribs(device, in_h, out_h, stream, &cy));
-  STATUS_TRY(get_contribs(device, in_w, out_w, stream, &cx));
-  const int row = in_w * 3;
-  const bool vec = row % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(tmp) & 15) == 0;
-  const int per = vec ? 4 : 1;
-  const dim3 gv((row / per + kThreads - 1) / kThreads, out_h, n);
-  if (vec)
-    resize_v_kernel<4><<<gv, kThreads, 0, stream>>>(src, tmp, cy.first, cy.taps, cy.w, cy.ksize,
-                                                    in_h, row, out_h);
-  else
-    resize_v_kernel<1><<<gv, kThreads, 0, stream>>>(src, tmp, cy.first, cy.taps, cy.w, cy.ksize,
-                                                    in_h, row, out_h);
-  CUDA_TRY(cudaGetLastError());
+  Plan p;
+  STATUS_TRY(plan_resize(device, in_h, in_w, out_h, out_w, stream, &cy, &cx, &p));
   float3 bias = make_float3(0.f, 0.f, 0.f), inv = make_float3(0.f, 0.f, 0.f);
   if (mode == 1) {
     const float s = 1.0f / 255.0f;   // io.cc::resize_normalize's constants
     bias = make_float3(mean[0] * 255.0f, mean[1] * 255.0f, mean[2] * 255.0f);
     inv = make_float3(s / stdv[0], s / stdv[1], s / stdv[2]);
   }
-  CUDA_TRY(mode == 0 ? launch_h<true>(tmp, out, cx, n, in_w, out_w, out_h, bias, inv, stream)
-                     : launch_h<false>(tmp, out, cx, n, in_w, out_w, out_h, bias, inv, stream));
+  const auto kernel = mode == 0 ? &resize_kernel<true> : &resize_kernel<false>;
+  const dim3 grid((out_w + p.tc - 1) / p.tc, (out_h + p.tr - 1) / p.tr, n);
+  kernel<<<grid, kThreads, p.smem, stream>>>(src, out, cy, cx, in_h, in_w, out_h, out_w, p, bias,
+                                             inv);
+  CUDA_TRY(cudaGetLastError());
   return kOk;
 }
 
@@ -439,7 +663,7 @@ struct Lease {
   nvjpegBufferDevice_t devbuf[kDecoders] = {};
   nvjpegJpegStream_t parsed = nullptr;
   nvjpegDecodeParams_t params = nullptr;
-  Buffer rgb, tmp, out, host;                // decoded, vertical pass, resized; pinned copy
+  Buffer rgb, out, host;                     // decoded, resized; pinned copy
 };
 
 struct Codec {
@@ -597,11 +821,10 @@ int resize_to_pinned(Codec* c, Lease* L, const uint8_t* src, int n, int in_h, in
   if (!resize_args_ok(n, in_h, in_w, out_h, out_w, mode, mean, stdv))
     return fail(kBadArgs, "resize: bad sizes or mode");
   const size_t bytes = out_bytes(n, out_h, out_w, mode);
-  STATUS_TRY(grow(L->tmp, size_t(n) * out_h * in_w * 3 * sizeof(float), L->stream, false));
   STATUS_TRY(grow(L->out, bytes, L->stream, false));
   STATUS_TRY(grow(L->host, bytes, L->stream, true));
-  STATUS_TRY(launch_resize(c->device, src, n, in_h, in_w, static_cast<float*>(L->tmp.p), L->out.p,
-                           out_h, out_w, mode, mean, stdv, L->stream));
+  STATUS_TRY(launch_resize(c->device, src, n, in_h, in_w, L->out.p, out_h, out_w, mode, mean,
+                           stdv, L->stream));
   CUDA_TRY(cudaMemcpyAsync(L->host.p, L->out.p, bytes, cudaMemcpyDeviceToHost, L->stream));
   CUDA_TRY(cudaStreamSynchronize(L->stream));
   return kOk;
@@ -690,7 +913,7 @@ int ccvpe_io_decode_resize(const unsigned char* data, size_t len, void* out, int
   return kOk;
 }
 
-// Host uint8 RGB [in_h, in_w, 3] through the same kernels, counted under
+// Host uint8 RGB [in_h, in_w, 3] through the same kernel, counted under
 // `backend`: kHost for a PNG that PIL decoded, kRefused for a JPEG that
 // nvJPEG does not decode and PIL did.
 int ccvpe_io_rgb_resize(const unsigned char* rgb, int in_h, int in_w, void* out, int out_h,
@@ -715,8 +938,8 @@ int ccvpe_io_rgb_resize(const unsigned char* rgb, int in_h, int in_w, void* out,
 }
 
 // n JPEGs decoded by up to `threads` threads, each on a lease of its own,
-// into one device batch per size group; each group resized in one launch a
-// pass. status[i]: 0 decoded, 1 a broken JPEG, 4 one nvJPEG does not
+// into one device batch per size group; each group resized in one launch.
+// status[i]: 0 decoded, 1 a broken JPEG, 4 one nvJPEG does not
 // decode; backend[i] its backend; *groups the groups resized. Returns 0, or
 // a fault (2) or bad arguments (3).
 int ccvpe_io_load_batch(const unsigned char* const* datas, const size_t* lens, int n, void* out,
@@ -796,19 +1019,40 @@ int ccvpe_io_load_batch(const unsigned char* const* datas, const size_t* lens, i
   return kOk;
 }
 
-// The two kernels on device buffers, on `stream` (a cudaStream_t as a
-// pointer): src uint8 [n, in_h, in_w, 3], tmp float [n, out_h, in_w * 3],
-// out [n, out_h, out_w, 3] uint8 (mode 0) or float32 (mode 1). Allocates
-// nothing but the weights of a size pair it has not seen.
-int ccvpe_io_resize(const void* src, int n, int in_h, int in_w, void* tmp, void* out, int out_h,
-                    int out_w, int mode, const float* mean, const float* stdv, int device,
-                    void* stream) {
+// The kernel on device buffers, on `stream` (a cudaStream_t as a pointer):
+// src uint8 [n, in_h, in_w, 3], out [n, out_h, out_w, 3] uint8 (mode 0) or
+// float32 (mode 1). Allocates nothing but the weights of a size pair it
+// has not seen.
+int ccvpe_io_resize(const void* src, int n, int in_h, int in_w, void* out, int out_h, int out_w,
+                    int mode, const float* mean, const float* stdv, int device, void* stream) {
   g_error.clear();
   DeviceScope scope;
   CUDA_TRY(scope.set(device));
-  return launch_resize(device, static_cast<const uint8_t*>(src), n, in_h, in_w,
-                       static_cast<float*>(tmp), out, out_h, out_w, mode, mean, stdv,
-                       static_cast<cudaStream_t>(stream));
+  return launch_resize(device, static_cast<const uint8_t*>(src), n, in_h, in_w, out, out_h, out_w,
+                       mode, mean, stdv, static_cast<cudaStream_t>(stream));
+}
+
+// The plan resize_kernel takes for in_h x in_w -> out_h x out_w on
+// `device`: plan[0..4] = the tile's output rows and columns, band rows a
+// chunk, a staged row's bytes, the block's dynamic shared memory in bytes.
+// 3 where one output's band does not fit in shared memory.
+int ccvpe_io_resize_plan(int in_h, int in_w, int out_h, int out_w, int device, int* plan) {
+  g_error.clear();
+  if (!resize_args_ok(1, in_h, in_w, out_h, out_w, 0, nullptr, nullptr))
+    return fail(kBadArgs, "resize_plan: bad sizes");
+  RelaxedCapture relaxed;
+  DeviceScope scope;
+  CUDA_TRY(scope.set(device));
+  cudaStream_t stream = nullptr;
+  CUDA_TRY(cudaStreamCreateWithFlags(&stream, cudaStreamNonBlocking));
+  DevContribs cy, cx;
+  Plan p;
+  const int st = plan_resize(device, in_h, in_w, out_h, out_w, stream, &cy, &cx, &p);
+  cudaStreamDestroy(stream);
+  if (st != kOk) return st;
+  const int values[5] = {p.tr, p.tc, p.chunk, p.pitch, int(p.smem)};
+  std::copy(values, values + 5, plan);
+  return kOk;
 }
 
 }  // extern "C"

@@ -9,14 +9,14 @@ PNG (by its magic bytes), or whose bitstream no decoder takes; the caller
 does.
 
 `device=None` means the card, and raises without one. On the card a JPEG is
-decoded by nvJPEG and resized by csrc/io.cu's kernels
+decoded by nvJPEG and resized by csrc/io.cu's resize kernel
 (ops/resize_cuda.py); a PNG is decoded by PIL on the host (the card's
-machine has no libpng) and resized by the same kernels, and so is a JPEG
+machine has no libpng) and resized by the same kernel, and so is a JPEG
 that nvJPEG does not decode (libjpeg may: a warning the first time, each
 such file counted in resize_cuda.backend_counts()["refused"]). A failed
 build or launch, or a CUDA or nvJPEG fault, raises: nothing on the card
 gives way to the host. `device="cpu"` is the plain version: PIL's decode, then
-ops/resize_cuda.py::resize_plain, the kernels' arithmetic in torch. PIL is
+ops/resize_cuda.py::resize_plain, the kernel's arithmetic in torch. PIL is
 imported where an image is read.
 """
 

@@ -7,7 +7,7 @@ not rendered here: the steps render them on the device from scalars
 (ops/gt.py). PIL is imported inside the functions, so the module imports
 where PIL is missing. `load_image(decode_device=...)` decodes and resizes
 through data/native_io.py on that device instead (on the card: nvJPEG and
-csrc/io.cu's kernels), as the JAX package's load_image takes native/io.cc.
+csrc/io.cu's resize kernel), as the JAX package's load_image takes native/io.cc.
 """
 
 from __future__ import annotations

@@ -1,37 +1,40 @@
 """Pillow's triangle resize and the ImageNet normalize on Hopper: the wrapper
-of csrc/io.cu's two resize kernels and of its nvJPEG decode glue, the port
-of native/io.cc (build_contribs :147, resize_normalize :179, resize_u8
-:231; the JAX package binds it in ccvpe_tpu/data/native_io.py). No TPU
-kernel: the JAX package resizes on the host in C++, so these kernels were
-added to keep the panoramas' ingest on the card beside nvJPEG's decode.
+of csrc/io.cu's resize kernel and of its nvJPEG decode glue, the port of
+native/io.cc (build_contribs :147, resize_normalize :179, resize_u8 :231;
+the JAX package binds it in ccvpe_tpu/data/native_io.py). No TPU kernel:
+the JAX package resizes on the host in C++, so the kernel was added to keep
+the panoramas' ingest on the card beside nvJPEG's decode.
 
 `contributions(in_size, out_size)` are Pillow's triangle weights in float64,
 computed as io.cc computes them and cast to float32 as io.cc casts them.
-The resize is two passes, as in io.cc: a vertical one from uint8 rows into
-float rows [out_h, in_w, 3], then a horizontal gather that ends in the
-normalize ((v - 255 mean) * (1/255 / std)) or in the round int(v + 0.5)
-and clip to uint8. Each sum runs over the taps in order from the first,
-one rounded product and one rounded add a tap (no fused multiply-add), so
-`resize_plain`, the same passes in torch, gives the kernels' bits on
-identical input.
+The resize sums the vertical taps from uint8 rows into float rows, then
+gathers the horizontal taps and ends in the normalize ((v - 255 mean) *
+(1/255 / std)) or in the round int(v + 0.5) and clip to uint8, as io.cc
+does. Each sum runs over the taps in order from the first, one rounded
+product and one rounded add a tap (no fused multiply-add), so
+`resize_plain`, the two sums as two passes in torch, gives the kernel's
+bits on identical input. The kernel does both sums in one launch, a block
+a tile of the output with its band of input in shared memory (the tile
+and its chunks of band rows as csrc/io.cu plans them: `resize_plan`);
+`resize_plain_tiled` is its arithmetic tile by tile, for the tests.
 
-`resize` launches the kernels on a CUDA uint8 batch [N, H, W, 3] (one
-launch a pass for the batch) and takes `resize_plain` for a CPU one.
-`decode_resize`, `rgb_resize` and `load_batch` are the ingest path's
-entries: bytes of a JPEG, or host RGB pixels, in; the resized image in a
-numpy array out, decoded and resized on the card. nvJPEG upsamples chroma
-with interpolation, as libjpeg does; a handle it will not make so raises. Each call leases a
-decoder state of its own (a non-blocking stream, nvJPEG's states, pinned and
-device buffers) from a pool kept for the process, so loader threads decode
-at once, and runs in CUDA's relaxed stream-capture mode, so a CUDA graph
-that another thread captures meanwhile stays valid. Every launch of either
-kernel, on either route, adds one to `resize.launches` (the vertical pass)
-or `resize.h_launches` (the horizontal one). A failed build, launch, CUDA
-or nvJPEG call raises (`IngestError`); a broken JPEG gives None, as io.cc
-gives 1 for a file it cannot decode; a JPEG that nvJPEG does not decode
-(JPEG_NOT_SUPPORTED, or no backend takes it) is marked REFUSED, for the
-caller to decode on the host and resize here (`rgb_resize(...,
-backend="refused")`).
+`resize` launches the kernel on a CUDA uint8 batch [N, H, W, 3] (one launch
+for the batch) and takes `resize_plain` for a CPU one. `decode_resize`,
+`rgb_resize` and `load_batch` are the ingest path's entries: bytes of a
+JPEG, or host RGB pixels, in; the resized image in a numpy array out,
+decoded and resized on the card. nvJPEG upsamples chroma with
+interpolation, as libjpeg does; a handle it will not make so raises. Each
+call leases a decoder state of its own (a non-blocking stream, nvJPEG's
+states, pinned and device buffers) from a pool kept for the process, so
+loader threads decode at once, and runs in CUDA's relaxed stream-capture
+mode, so a CUDA graph that another thread captures meanwhile stays valid.
+Every launch of the kernel, on any route, adds one to `resize.launches`. A
+failed build, launch, CUDA or nvJPEG call raises (`IngestError`), and so
+does a size whose one output's band of input does not fit in shared
+memory; a broken JPEG gives None, as io.cc gives 1 for a file it cannot
+decode; a JPEG that nvJPEG does not decode (JPEG_NOT_SUPPORTED, or no
+backend takes it) is marked REFUSED, for the caller to decode on the host
+and resize here (`rgb_resize(..., backend="refused")`).
 Nothing here touches nvcc or the card until a call asks for the card.
 """
 
@@ -149,9 +152,10 @@ def resize_plain_h(tmp: torch.Tensor, out_w: int, mean=None, std=None) -> torch.
 
 def resize_plain(u8_hwc: torch.Tensor, size_hw: Tuple[int, int], mean=None,
                  std=None) -> torch.Tensor:
-    """The kernels' arithmetic in torch: uint8 [H, W, 3] or [N, H, W, 3] ->
+    """The kernel's arithmetic in torch: uint8 [H, W, 3] or [N, H, W, 3] ->
     [.., out_h, out_w, 3] uint8 (mean and std None) or float32 normalized
-    by them; the vertical pass, then the horizontal one."""
+    by them; the vertical sums, then the horizontal ones, each as a pass
+    over the whole image."""
     _check_u8(u8_hwc)
     if (mean is None) != (std is None):
         raise ValueError("pass both mean and std, or neither")
@@ -160,13 +164,61 @@ def resize_plain(u8_hwc: torch.Tensor, size_hw: Tuple[int, int], mean=None,
     return out if u8_hwc.dim() == 4 else out[0]
 
 
-def resize_bytes(n: int, in_h: int, in_w: int, out_h: int, out_w: int,
-                 normalized: bool) -> Tuple[int, int]:
-    """Bytes each kernel must move for n images, each input read once and
-    each output written once: (vertical: uint8 in, float rows out;
-    horizontal: float rows in, uint8 or float32 out)."""
-    rows = 4 * n * out_h * in_w * 3
-    return n * in_h * in_w * 3 + rows, rows + (4 if normalized else 1) * n * out_h * out_w * 3
+def resize_plain_tiled(u8_hwc: torch.Tensor, size_hw: Tuple[int, int],
+                       tile_hw: Tuple[int, int], mean=None, std=None,
+                       chunk_rows: int = 16) -> torch.Tensor:
+    """csrc/io.cu's resize_kernel in torch, block by block: for each tile of
+    tile_hw outputs, the band of input its taps read, the vertical sums
+    into a float tile of the band's columns, `chunk_rows` band rows at a
+    time (each sum continued from chunk to chunk in tap order), then the
+    horizontal taps gathered from that tile, all indices relative to the
+    band. Same contract as resize_plain, whose bits it gives; for the
+    tests."""
+    _check_u8(u8_hwc)
+    if (mean is None) != (std is None):
+        raise ValueError("pass both mean and std, or neither")
+    x = u8_hwc if u8_hwc.dim() == 4 else u8_hwc[None]
+    n, in_h, in_w, _ = x.shape
+    (out_h, out_w), (tr, tc) = size_hw, tile_hw
+    fy, ny, wy = contributions(in_h, out_h)
+    fx, nx, wx = contributions(in_w, out_w)
+    wy, wx = (torch.from_numpy(w.astype(np.float32)) for w in (wy, wx))
+    rows = x.reshape(n, in_h, in_w * 3)
+    out = torch.empty((n, out_h, out_w, 3), dtype=torch.uint8 if mean is None else torch.float32)
+    if mean is not None:
+        bias, inv = (torch.from_numpy(c) for c in normalize_constants(mean, std))
+    for y0 in range(0, out_h, tr):
+        ys = range(y0, min(y0 + tr, out_h))
+        by0, by1 = int(fy[ys[0]]), int(fy[ys[-1]] + ny[ys[-1]])
+        for x0 in range(0, out_w, tc):
+            xs = np.arange(x0, min(x0 + tc, out_w))
+            bx0, bx1 = int(fx[xs[0]]), int(fx[xs[-1]] + nx[xs[-1]])
+            band = rows[:, by0:by1, 3 * bx0:3 * bx1]
+            tile = torch.zeros((n, len(ys), band.shape[2]), dtype=torch.float32)
+            for c0 in range(0, by1 - by0, chunk_rows):
+                chunk = band[:, c0:c0 + chunk_rows].float()
+                for i, y in enumerate(ys):
+                    f = int(fy[y]) - by0
+                    for k in range(max(0, c0 - f), min(int(ny[y]), c0 + chunk.shape[1] - f)):
+                        tile[:, i] = tile[:, i] + wy[y, k] * chunk[:, f + k - c0]
+            # the horizontal taps, zero weights past a column's (adding 0)
+            px = tile.reshape(n, len(ys), bx1 - bx0, 3)
+            acc = torch.zeros((n, len(ys), len(xs), 3), dtype=torch.float32)
+            for k in range(wx.shape[1]):
+                at = torch.from_numpy(np.minimum(fx[xs] - bx0 + k, bx1 - bx0 - 1))
+                acc = acc + wx[xs, k][None, None, :, None] * px[:, :, at]
+            if mean is None:
+                acc = torch.trunc(acc + 0.5).clamp(0, 255).to(torch.uint8)
+            else:
+                acc = (acc - bias) * inv
+            out[:, ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = acc
+    return out if u8_hwc.dim() == 4 else out[0]
+
+
+def resize_bytes(n: int, in_h: int, in_w: int, out_h: int, out_w: int, normalized: bool) -> int:
+    """Bytes the resize must move for n images: the uint8 input read once,
+    the output (uint8, or float32 normalized) written once."""
+    return n * in_h * in_w * 3 + (4 if normalized else 1) * n * out_h * out_w * 3
 
 
 _lock = threading.Lock()
@@ -204,7 +256,8 @@ def bind(path) -> ctypes.CDLL:
             ("ccvpe_io_decode_resize", [p, z, p, i, i, i, p, p, i, ip]),
             ("ccvpe_io_rgb_resize", [p, i, i, p, i, i, i, p, p, i, i]),
             ("ccvpe_io_load_batch", [p, p, i, p, i, i, i, p, p, i, i, ip, ip, ip]),
-            ("ccvpe_io_resize", [p, i, i, i, p, p, i, i, i, p, p, i, p])):
+            ("ccvpe_io_resize", [p, i, i, i, p, i, i, i, p, p, i, p]),
+            ("ccvpe_io_resize_plan", [i, i, i, i, i, ip])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i
     lib.ccvpe_io_backend_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
@@ -280,11 +333,9 @@ def _ptr(a: Optional[np.ndarray]):
 
 
 def _counted(groups: int) -> None:
-    """One launch of each pass for every size group (loader threads count
-    at once)."""
+    """One launch for every size group (loader threads count at once)."""
     with _count_lock:
         resize.launches += groups
-        resize.h_launches += groups
 
 
 def image_size(data: bytes, device) -> Optional[Tuple[int, int]]:
@@ -368,7 +419,7 @@ def rgb_resize(rgb: np.ndarray, size_hw, device, mean=None, std=None,
 def load_batch(datas: Sequence[bytes], size_hw, device, mean=None, std=None,
                num_threads: int = 8) -> Tuple[np.ndarray, np.ndarray, list]:
     """JPEGs decoded by `num_threads` threads at once on the card, each size
-    group resized in one launch a pass: (out [N, H, W, 3], decoded [N] bool,
+    group resized in one launch: (out [N, H, W, 3], decoded [N] bool,
     each file's backend: REFUSED for a JPEG nvJPEG does not decode, None
     for a broken one)."""
     index = _device_index(device)
@@ -395,9 +446,9 @@ def load_batch(datas: Sequence[bytes], size_hw, device, mean=None, std=None,
 
 
 def resize(u8: torch.Tensor, size_hw: Tuple[int, int], mean=None, std=None) -> torch.Tensor:
-    """The two kernels on a CUDA uint8 batch [N, H, W, 3] (or one [H, W, 3]),
-    on the current stream, one launch a pass; `resize_plain` for a CPU
-    tensor. Same contract as resize_plain."""
+    """The kernel on a CUDA uint8 batch [N, H, W, 3] (or one [H, W, 3]), on
+    the current stream, one launch; `resize_plain` for a CPU tensor. Same
+    contract as resize_plain."""
     if u8.device.type != "cuda":
         return resize_plain(u8, size_hw, mean, std)
     _check_u8(u8)
@@ -411,20 +462,32 @@ def resize(u8: torch.Tensor, size_hw: Tuple[int, int], mean=None, std=None) -> t
     dev = x.device
     index = _device_index(dev)
     lib = load_library()
-    tmp = torch.empty((n, out_h, in_w * 3), dtype=torch.float32, device=dev)
     out = torch.empty((n, out_h, out_w, 3), device=dev,
                       dtype=torch.uint8 if mean is None else torch.float32)
     m, s = _consts(mean, std)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ccvpe_io_resize(x.data_ptr(), n, in_h, in_w, tmp.data_ptr(), out.data_ptr(),
-                                 out_h, out_w, U8 if mean is None else NORMALIZED, _ptr(m),
-                                 _ptr(s), index, stream)
+        rc = lib.ccvpe_io_resize(x.data_ptr(), n, in_h, in_w, out.data_ptr(), out_h, out_w,
+                                 U8 if mean is None else NORMALIZED, _ptr(m), _ptr(s), index,
+                                 stream)
     if rc != OK:
         _raise(lib, "ccvpe_io_resize", rc)
     _counted(1)
     return out if u8.dim() == 4 else out[0]
 
 
-resize.launches = 0      # the vertical pass, every route
-resize.h_launches = 0    # the horizontal pass, every route
+resize.launches = 0      # the kernel's launches, every route
+
+
+def resize_plan(in_hw: Tuple[int, int], out_hw: Tuple[int, int], device) -> dict:
+    """The plan csrc/io.cu takes for in_hw -> out_hw on `device`: a block's
+    output rows `tr` and columns `tc`, band rows a copy group `chunk`, a
+    staged row's bytes `pitch`, the block's dynamic shared memory `smem`
+    in bytes. Raises where one output's band does not fit in shared memory."""
+    index = _device_index(device)
+    lib = load_library()
+    plan = (ctypes.c_int * 5)()
+    rc = lib.ccvpe_io_resize_plan(*in_hw, *out_hw, index, plan)
+    if rc != OK:
+        _raise(lib, "ccvpe_io_resize_plan", rc)
+    return dict(zip(("tr", "tc", "chunk", "pitch", "smem"), plan))

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import _torch_data_roots as roots
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 from ccvpe_tpu.data import native_io as jnative
 from ccvpe_tpu.data import transforms as jtransforms
 from ccvpe_tpu.data import vigor as jvigor
@@ -280,11 +281,11 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
 
 def test_launch_counts_lose_no_update_across_threads(monkeypatch):
     """Loader threads count their launches at once: 16 threads (more than
-    the cores) x 2000 counts each, switching every microsecond."""
+    the cores) x 2000 counts each, switching every microsecond; one count
+    a size group, the kernel's only counter."""
     import sys
     import threading
     monkeypatch.setattr(resize_cuda.resize, "launches", 0)
-    monkeypatch.setattr(resize_cuda.resize, "h_launches", 0)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -297,13 +298,14 @@ def test_launch_counts_lose_no_update_across_threads(monkeypatch):
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
-    assert resize_cuda.resize.launches == resize_cuda.resize.h_launches == 16 * 2000
+    assert resize_cuda.resize.launches == 16 * 2000
+    assert not hasattr(resize_cuda.resize, "h_launches")
 
 
 def test_the_ingest_builds_nothing_on_the_cpu(files):
     native_io.load_batch_native([files["jpeg 4:2:0", "noise /4"]], (24, 40), device="cpu")
     assert resize_cuda._lib is None and not build.library_path("io").exists()
-    assert resize_cuda.resize.launches == resize_cuda.resize.h_launches == 0
+    assert resize_cuda.resize.launches == 0
 
 
 @pytest.fixture
@@ -359,3 +361,86 @@ def test_load_batch_decodes_refused_jpegs_on_the_host(files, card_stand_in, monk
     monkeypatch.setattr(resize_cuda, "load_batch", lambda datas, *a: (
         decoded, np.array([True, False]), ["gpu_hybrid", None]))
     assert native_io.load_batch_native(paths, hw, device=torch.device("cuda", 0)) is None
+
+
+# (input batch [N, H, W], output (h, w), tile (rows, columns), band rows a
+# chunk): VIGOR's panorama alone and in a batch on 8 x 64 tiles, two chunks
+# a tile; chip_smoke.py's cases (a non-integer downscale, an upscale, a row
+# too wide for a 64-column tile's band in 48 KB on 8 x 32 tiles, a row of no
+# multiple of 4 bytes); a steep downscale whose band is streamed in 25 row
+# chunks; a steep horizontal downscale on 2 x 2 tiles, one band row a chunk
+# (the kernel's plan past 48 KB)
+TILED = {
+    "vigor one": ((1, *VIGOR_IN), VIGOR_OUT, (8, 64), 16),
+    "vigor batch": ((3, *VIGOR_IN), VIGOR_OUT, (8, 64), 16),
+    "noise non-integer": ((3, 96, 160), (37, 91), (8, 64), 16),
+    "noise upscale": ((2, 40, 56), (75, 130), (8, 64), 16),
+    "wide row": ((1, 24, 5000), (10, 1250), (8, 32), 16),
+    "odd row": ((2, 33, 77), (10, 20), (8, 64), 16),
+    "steep downscale": ((2, 400, 96), (5, 24), (8, 64), 16),
+    "steep horizontal": ((1, 30, 20000), (4, 10), (2, 2), 1),
+}
+
+
+def noise_u8(shape, seed=20):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (*shape, 3),
+                                                                 dtype=np.uint8))
+
+
+def band_rows(in_size, out_size, tile):
+    """The most input rows a tile of `tile` output rows reads."""
+    first, taps, _ = resize_cuda.contributions(in_size, out_size)
+    last = np.minimum(np.arange(0, out_size, tile) + tile, out_size) - 1
+    return int((first[last] + taps[last] - first[::tile]).max())
+
+
+@pytest.mark.parametrize("normalized", [False, True], ids=["uint8", "normalized"])
+@pytest.mark.parametrize("case", list(TILED))
+def test_the_kernels_tiles_give_resize_plains_bits(case, normalized):
+    """resize_plain_tiled at a tile and a chunk of band rows the kernel
+    takes equals resize_plain bit for bit: every tap inside its tile's band,
+    halo columns summed alike by both tiles, chunked sums in tap order."""
+    shape, hw, tile_hw, chunk = TILED[case]
+    x = noise_u8(shape)
+    mean, std = (transforms.IMAGENET_MEAN, transforms.IMAGENET_STD) if normalized else (None,
+                                                                                         None)
+    got = resize_cuda.resize_plain_tiled(x, hw, tile_hw, mean, std, chunk)
+    want = resize_cuda.resize_plain(x, hw, mean, std)
+    assert got.dtype == want.dtype and got.shape == want.shape == (shape[0], *hw, 3)
+    assert torch.equal(got, want)
+    chunks = -(-band_rows(shape[1], hw[0], tile_hw[0]) // chunk)
+    assert chunks == {"vigor one": 2, "vigor batch": 2, "steep downscale": 25,
+                      "steep horizontal": 19}.get(case, chunks)
+
+
+@pytest.mark.parametrize("tile_hw,chunk", [((3, 5), 2), ((1, 1), 1), ((8, 64), 5), ((16, 7), 3)])
+def test_any_tile_and_chunk_give_resize_plains_bits(tile_hw, chunk):
+    """Ragged tiles at the image's edges and chunks that split an output
+    row's taps: the same bits."""
+    x = noise_u8((2, 96, 160), seed=21)
+    for mean, std in ((None, None), (transforms.IMAGENET_MEAN, transforms.IMAGENET_STD)):
+        got = resize_cuda.resize_plain_tiled(x, (37, 91), tile_hw, mean, std, chunk)
+        assert torch.equal(got, resize_cuda.resize_plain(x, (37, 91), mean, std))
+    assert torch.equal(resize_cuda.resize_plain_tiled(x[0], (37, 91), tile_hw, chunk_rows=chunk),
+                       resize_cuda.resize_plain(x[0], (37, 91)))
+
+
+def test_resize_bytes_are_the_functions():
+    """The input read once and the output written once: no float rows."""
+    n, (in_h, in_w), (out_h, out_w) = 8, VIGOR_IN, VIGOR_OUT
+    assert resize_cuda.resize_bytes(n, in_h, in_w, out_h, out_w, True) == 8 * (
+        1024 * 2048 * 3 + 4 * 320 * 640 * 3) == 69992448
+    assert resize_cuda.resize_bytes(1, in_h, in_w, out_h, out_w, False) == 6291456 + 614400
+    assert resize_cuda.resize_bytes(2, 33, 77, 10, 20, True) == 2 * (33 * 77 * 3 + 4 * 600)
+
+
+@pytest.mark.parametrize("in_size,out_size", [(1024, 320), (2048, 640), (56, 130), (5000, 1250),
+                                              (400, 5), (20000, 10)])
+def test_the_resize_window_never_moves_back(in_size, out_size):
+    """From one output to the next, neither the first tap nor the one past
+    the last moves back: a tile's band runs from its first output's first
+    tap to its last output's last (csrc/io.cu's get_contribs refuses a size
+    pair where it would not)."""
+    first, taps, _ = resize_cuda.contributions(in_size, out_size)
+    assert (np.diff(first) >= 0).all() and (np.diff(first + taps) >= 0).all()
+    assert (taps >= 1).all() and first[0] == 0 and first[-1] + taps[-1] == in_size
