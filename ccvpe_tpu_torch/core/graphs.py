@@ -12,7 +12,13 @@ counter's change over the capture, takes it back, and adds it at every
 replay: a replayed step counts the launches an eager one counts. These
 counts are bookkeeping, not observations of a replay: chip_smoke.py holds
 them to the kernels that a torch.profiler trace of a replayed step,
-serving batch and eval loop shows.
+serving batch and eval loop shows. core/profiling.py::counters() reports
+them (`launches.corr` .. `launches.lmu_bwd.bf16`, as the wrappers register
+them), beside the process's counts of captures (`graph.captures`),
+replays (`graph.replays`) and calls that ran eagerly on a graphed path
+(`graph.eager`: a shape's first call, or a stale binding's, counted by the
+callers: here GraphCache, serve.py and train/step.py); chip_smoke.py holds
+the replays to the batches and steps served.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+from ccvpe_tpu_torch.core.profiling import count, span
 
 
 def launch_counters() -> List[Tuple[object, str]]:
@@ -68,12 +76,13 @@ class Graph:
             self.cuda_graph.register_generator_state(gen)
         before = read_counts()
         try:
-            with self._context(self.cuda_graph):
+            with span("graph.capture"), self._context(self.cuda_graph):
                 out = fn()
         finally:
             after = read_counts()
             add_counts(b - a for a, b in zip(after, before))
         self.launches = tuple(a - b for a, b in zip(after, before))
+        count("graph.captures")
         return out
 
     def replay(self) -> None:
@@ -81,6 +90,7 @@ class Graph:
             raise RuntimeError("replay before capture")
         self.cuda_graph.replay()
         add_counts(self.launches)
+        count("graph.replays")
 
 
 class _Entry:
@@ -135,6 +145,7 @@ class GraphCache:
                 torch.cuda.empty_cache()
         if entry is None:
             if key not in self._warmed or self._warmed[key] != binding:
+                count("graph.eager")
                 out = tuple(fn(*(t.to(self.device, non_blocking=True) for t in inputs)))
                 self._warmed[key] = binding
                 return out

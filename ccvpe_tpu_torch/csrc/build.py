@@ -8,7 +8,8 @@ may add preprocessor defines (`build("lmu", ("X",))` compiles with -DX):
 they are part of the hash, so each define set is a library of its own. A
 library's link flags (LINK_FLAGS: -lnvjpeg for io) are part of its hash too.
 Nothing is compiled when this module is imported. A failed build raises
-with nvcc's output.
+with nvcc's output. Traced (core/profiling.py), a build that runs nvcc is
+the span `build`.
 
     python -m ccvpe_tpu_torch.csrc.build      # build every library, print ptxas
 """
@@ -31,8 +32,9 @@ BUILD_DIR = CSRC / "_build"
 KERNELS = ("corr", "lmu", "lmu_bf16", "io")
 # the libraries each source links against
 LINK_FLAGS = {"io": ("-lnvjpeg",)}
-# every library the port loads
-LIBRARIES = tuple((name, ()) for name in KERNELS)
+# every library the port loads: the kernels', and marks, the device layer
+# marks (core/profiling.py::mark)
+LIBRARIES = tuple((name, ()) for name in (*KERNELS, "marks"))
 # B3's per-phase timed builds (ops/lmu_cuda.py::bwd_phase_cycles), on no path
 TIMED_LIBRARIES = (("lmu", ("CCVPE_LMU_PHASE_TIMER",)), ("lmu_bf16", ("CCVPE_LMU_PHASE_TIMER",)))
 NVCC_FLAGS = (
@@ -90,11 +92,13 @@ def build(name: str, defines: Sequence[str] = ()) -> Built:
     out = library_path(name, defines)
     if out.exists():
         return Built(out, "", 0.0)
+    from ccvpe_tpu_torch.core.profiling import span
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = nvcc_command([CSRC / f"{name}.cu"], tmp, defines, LINK_FLAGS.get(name, ()))
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

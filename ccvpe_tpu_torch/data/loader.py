@@ -6,6 +6,9 @@ prefetch queue. Batches come out in order, and each sample draws from its own
 `random.Random(f"{seed}/{epoch}/{index}")`, so the batches do not depend on
 the number of threads, and both packages yield the same batches.
 
+Traced (core/profiling.py), each sample's read is the span `loader.fetch`
+on its worker thread.
+
 Per-host shards: with (shard_id, num_shards) each host reads a disjoint
 block of every global batch of the shared per-epoch shuffle, so the global
 batch, order included, is the single-process one.
@@ -19,6 +22,8 @@ import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from ccvpe_tpu_torch.core.profiling import span
 
 
 class ThreadedLoader:
@@ -105,10 +110,11 @@ class ThreadedLoader:
 
         def fetch(i: int) -> Any:
             rng = random.Random(f"{self.seed}/{self.epoch}/{i}")
-            try:
-                return self.dataset.__getitem__(i, rng=rng)
-            except TypeError:
-                return self.dataset[i]
+            with span("loader.fetch"):
+                try:
+                    return self.dataset.__getitem__(i, rng=rng)
+                except TypeError:
+                    return self.dataset[i]
 
         def worker():
             while not stop.is_set():

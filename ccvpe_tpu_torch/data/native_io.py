@@ -18,6 +18,11 @@ build or launch, or a CUDA or nvJPEG fault, raises: nothing on the card
 gives way to the host. `device="cpu"` is the plain version: PIL's decode, then
 ops/resize_cuda.py::resize_plain, the kernel's arithmetic in torch. PIL is
 imported where an image is read.
+
+Traced (core/profiling.py): the spans `ingest.read` (the file's bytes),
+`ingest.decode` (nvJPEG's decode and resize of a JPEG, or PIL's decode) and
+`ingest.resize` (the resize of what PIL decoded, on the card the
+kernel's launch, ops/resize_cuda.py).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ccvpe_tpu_torch.core.profiling import span
 from ccvpe_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ccvpe_tpu_torch.ops import resize_cuda
 
@@ -75,7 +81,7 @@ def kind(data: bytes) -> Optional[str]:
 
 def _read(path: str) -> Optional[bytes]:
     try:
-        with open(path, "rb") as f:
+        with span("ingest.read"), open(path, "rb") as f:
             return f.read()
     except OSError:
         return None
@@ -105,12 +111,14 @@ def _host_decoded(data: bytes, size_hw, device, mean, std,
         warnings.warn("nvJPEG does not decode a JPEG that PIL may: PIL decodes such files on "
                       "the host and the card resizes them (counted in "
                       "resize_cuda.backend_counts()['refused'])", stacklevel=3)
-    rgb = pil_rgb(data)
+    with span("ingest.decode"):
+        rgb = pil_rgb(data)
     if rgb is None:
         return None
-    if device.type == "cuda":
+    if device.type == "cuda":       # the kernel's launch is the span ingest.resize
         return resize_cuda.rgb_resize(rgb, size_hw, device, mean, std, backend)
-    return resize_cuda.resize_plain(torch.from_numpy(rgb), size_hw, mean, std).numpy()
+    with span("ingest.resize"):
+        return resize_cuda.resize_plain(torch.from_numpy(rgb), size_hw, mean, std).numpy()
 
 
 def _decode_resize(path: str, size_hw, device, normalized: bool) -> Optional[np.ndarray]:
@@ -121,7 +129,8 @@ def _decode_resize(path: str, size_hw, device, normalized: bool) -> Optional[np.
         return None
     mean, std = (IMAGENET_MEAN, IMAGENET_STD) if normalized else (None, None)
     if device.type == "cuda" and what == "jpeg":
-        got = resize_cuda.decode_resize(data, size_hw, device, mean, std)
+        with span("ingest.decode"):
+            got = resize_cuda.decode_resize(data, size_hw, device, mean, std)
         if got is None:
             return None
         img, backend = got
@@ -166,8 +175,10 @@ def load_batch_native(paths: Sequence[str], size_hw: Tuple[int, int], num_thread
     on_host = {i: "host" for i, k in enumerate(kinds) if k == "png"}
     jpegs = [i for i, k in enumerate(kinds) if k == "jpeg"]
     if jpegs:
-        got, ok, backends = resize_cuda.load_batch([datas[i] for i in jpegs], size_hw, device,
-                                                   IMAGENET_MEAN, IMAGENET_STD, num_threads)
+        with span("ingest.decode"):
+            got, ok, backends = resize_cuda.load_batch([datas[i] for i in jpegs], size_hw,
+                                                       device, IMAGENET_MEAN, IMAGENET_STD,
+                                                       num_threads)
         for j, i in enumerate(jpegs):
             if backends[j] == resize_cuda.REFUSED:
                 on_host[i] = resize_cuda.REFUSED

@@ -44,6 +44,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ccvpe_tpu_torch.core import mesh
+from ccvpe_tpu_torch.core.profiling import marked
 from ccvpe_tpu_torch.core.config import (CIRCULAR_IMPLS, COMPUTE_DTYPES, CORR_IMPLS,
                                          DECONV_IMPLS, REMAT_POLICIES, ModelConfig)
 from ccvpe_tpu_torch.nn.decoder import (Deconv2x2, DoubleConv, HeadConv, decoder_stage,
@@ -250,8 +251,9 @@ class CVM(nn.Module):
         self._row_block_params = {}
         grd = grd.permute(0, 3, 1, 2)   # NCHW views of NHWC = channels_last
         sat = sat.permute(0, 3, 1, 2)
-        grd_feat, _ = self.grd_efficientnet(grd, generator)
-        sat_feat, sat_multiscale = self.sat_efficientnet(sat, generator)
+        with marked("encoders"):        # a device mark inside the entry points' marking()
+            grd_feat, _ = self.grd_efficientnet(grd, generator)
+            sat_feat, sat_multiscale = self.sat_efficientnet(sat, generator)
         skip_by_size = {m.shape[2]: m for m in sat_multiscale}
 
         grd_descs = [getattr(self, f"grd_feature_to_descriptor{s + 1}")(grd_feat)

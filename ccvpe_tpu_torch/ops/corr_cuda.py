@@ -42,6 +42,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ccvpe_tpu_torch.core.profiling import register_launches
 from ccvpe_tpu_torch.ops.corr import round_bf16, bf16_rounding, build_roll_matrices
 from ccvpe_tpu_torch.ops.tf32 import split_tf32
 
@@ -208,7 +209,8 @@ def _corr_fwd_fake(s_flat, g_mat, m_mat, need_r, round_sq):
 def _corr_fwd_cuda(s_flat, g_mat, m_mat, need_r, round_sq):
     """The kernel launch: one a call, whether the plan launches one kernel
     or the kernel and the slice reduce; counted in corr_core.launches
-    (float32 S) or corr_core.bf16_launches (bf16 S)."""
+    (float32 S) or corr_core.bf16_launches (bf16 S), which core/profiling.py::
+    counters() reports as `launches.corr` and `launches.corr.bf16`."""
     if s_flat.dim() != 3:
         raise ValueError(f"s_flat must be [B, N, D], got {tuple(s_flat.shape)}")
     b, n, d = s_flat.shape
@@ -259,6 +261,8 @@ def corr_core(s_flat: torch.Tensor, g_mat: torch.Tensor, m_mat: torch.Tensor,
 
 corr_core.launches = 0
 corr_core.bf16_launches = 0
+register_launches("corr", corr_core)
+register_launches("corr.bf16", corr_core, "bf16_launches")
 
 
 def corr_core_bwd(grad_out: torch.Tensor, s_flat: torch.Tensor, g_mat: torch.Tensor,

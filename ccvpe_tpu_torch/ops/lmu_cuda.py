@@ -4,7 +4,9 @@ the Pallas kernels ccvpe_tpu/ops/lmu_pallas.py::_fused_stage_kernel (:264,
 forward) and ::_fused_stage_bwd_kernel (:404, backward).
 
 `fused_stage` and `fused_stage_bwd` launch the kernels on CUDA tensors
-(counting launches, bf16 ones apart in `bf16_launches`) and run the plain
+(counting launches, bf16 ones apart in `bf16_launches`; core/profiling.py::
+counters() reports them as `launches.lmu_fwd[.bf16]` and
+`launches.lmu_bwd[.bf16]`) and run the plain
 versions of ops/lmu.py on CPU tensors. `fused_stage_split_plain` emulates
 the float32 B2's arithmetic (its convs as 3xTF32 products where the kernel
 takes the tensor cores), and `fwd_tile`, `tensor_core_conv`, `conv_tiles`,
@@ -47,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ccvpe_tpu_torch.core.profiling import register_launches
 from ccvpe_tpu_torch.ops.lmu import fused_stage_bwd_plain, fused_stage_plain, round_bf16
 from ccvpe_tpu_torch.ops.tf32 import matmul_3xtf32_plain
 
@@ -778,6 +781,8 @@ def fused_stage(x: torch.Tensor, skip: Optional[torch.Tensor], wd: torch.Tensor,
 
 fused_stage.launches = 0
 fused_stage.bf16_launches = 0
+register_launches("lmu_fwd", fused_stage)
+register_launches("lmu_fwd.bf16", fused_stage, "bf16_launches")
 
 
 def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Tensor,
@@ -803,6 +808,8 @@ def fused_stage_bwd(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Ten
 
 fused_stage_bwd.launches = 0
 fused_stage_bwd.bf16_launches = 0
+register_launches("lmu_bwd", fused_stage_bwd)
+register_launches("lmu_bwd.bf16", fused_stage_bwd, "bf16_launches")
 
 
 def bwd_phase_cycles(x: torch.Tensor, skip: Optional[torch.Tensor], dy: torch.Tensor,

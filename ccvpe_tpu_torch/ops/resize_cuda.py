@@ -28,7 +28,9 @@ call leases a decoder state of its own (a non-blocking stream, nvJPEG's
 states, pinned and device buffers) from a pool kept for the process, so
 loader threads decode at once, and runs in CUDA's relaxed stream-capture
 mode, so a CUDA graph that another thread captures meanwhile stays valid.
-Every launch of the kernel, on any route, adds one to `resize.launches`. A
+Every launch of the kernel, on any route, adds one to `resize.launches`
+(core/profiling.py::counters()' `launches.resize`; no CUDA graph captures
+the resize, so core/graphs.py's replay bookkeeping leaves it out). A
 failed build, launch, CUDA or nvJPEG call raises (`IngestError`), and so
 does a size whose one output's band of input does not fit in shared
 memory; a broken JPEG gives None, as io.cc gives 1 for a file it cannot
@@ -50,6 +52,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ccvpe_tpu_torch.core.profiling import register_launches, span
 
 # csrc/io.cu's statuses: 0 done, 1 a broken JPEG, 4 a JPEG nvJPEG does not
 # decode (2 a CUDA or nvJPEG fault, 3 bad arguments: both raise)
@@ -465,7 +469,7 @@ def resize(u8: torch.Tensor, size_hw: Tuple[int, int], mean=None, std=None) -> t
     out = torch.empty((n, out_h, out_w, 3), device=dev,
                       dtype=torch.uint8 if mean is None else torch.float32)
     m, s = _consts(mean, std)
-    with torch.cuda.device(dev):
+    with span("ingest.resize"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ccvpe_io_resize(x.data_ptr(), n, in_h, in_w, out.data_ptr(), out_h, out_w,
                                  U8 if mean is None else NORMALIZED, _ptr(m), _ptr(s), index,
@@ -477,6 +481,7 @@ def resize(u8: torch.Tensor, size_hw: Tuple[int, int], mean=None, std=None) -> t
 
 
 resize.launches = 0      # the kernel's launches, every route
+register_launches("resize", resize)
 
 
 def resize_plan(in_hw: Tuple[int, int], out_hw: Tuple[int, int], device) -> dict:

@@ -17,6 +17,14 @@ captured into static buffers (core/graphs.py); every later batch is one
 copy into the static inputs from pinned staging, one replay and one copy
 of the four [B] vectors back. `cuda_graph=False` keeps every batch eager.
 
+Traced (core/profiling.py), a request is the span `engine.predict`
+holding, per batch, `engine.pad`, `engine.stage` (numpy into pinned
+staging), `engine.upload` (the copy to the card, enqueued),
+`engine.replay` or `engine.eager`, `engine.fetch` (`.tolist()`, which
+waits for the card), then `engine.results`; the process counts
+`engine.batches`. On the card the marks `encoders` (in the model) and
+`decode` (pose decode and peak) bound those layers inside the replay.
+
     blob = export_program(vigor(), state_dict, batch_size=8)  # bytes
     program = load_program(blob)          # rows, cols, angle, heatmap
 """
@@ -34,6 +42,7 @@ import torch
 from ccvpe_tpu_torch.core.config import ModelConfig
 from ccvpe_tpu_torch.core.graphs import Graph
 from ccvpe_tpu_torch.core.precision import float32_matmuls
+from ccvpe_tpu_torch.core.profiling import count, marked, marking, span
 from ccvpe_tpu_torch.models.cvm import CVM, build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.train.step import device_normalize
@@ -80,10 +89,13 @@ class InferenceEngine:
 
     def _forward(self, grd: torch.Tensor, sat: torch.Tensor) -> torch.Tensor:
         """[4, B] float64 (exact for each): rows, cols, angle, peak."""
-        out = self.model(device_normalize(grd), device_normalize(sat))
-        rows, cols, angle = pose.decode_pose(out.heatmap, out.ori)
-        peak = out.heatmap.reshape(out.heatmap.shape[0], -1).amax(dim=-1)
-        return torch.stack([rows.double(), cols.double(), angle.double(), peak.double()])
+        with marking(self.device):
+            out = self.model(device_normalize(grd), device_normalize(sat))
+            with marked("decode"):
+                rows, cols, angle = pose.decode_pose(out.heatmap, out.ori)
+                peak = out.heatmap.reshape(out.heatmap.shape[0], -1).amax(dim=-1)
+                return torch.stack([rows.double(), cols.double(), angle.double(),
+                                    peak.double()])
 
     def _capture(self, grd: torch.Tensor, sat: torch.Tensor) -> _Captured:
         inputs = [torch.empty(t.shape, dtype=t.dtype, device=self.device) for t in (grd, sat)]
@@ -101,16 +113,26 @@ class InferenceEngine:
         host = (torch.from_numpy(grd), torch.from_numpy(sat))
         key = tuple((a.shape, a.dtype.str) for a in (grd, sat))
         entry = self._graphs.get(key) if self.cuda_graph else None
+        count("engine.batches")
         if entry is None:
-            out = self._forward(*(t.to(self.device) for t in host)).tolist()
+            if self.cuda_graph:
+                count("graph.eager")
+            with span("engine.eager"):
+                out = self._forward(*(t.to(self.device) for t in host))
+            with span("engine.fetch"):
+                out = out.tolist()
             if self.cuda_graph:     # this batch warmed the shape up: capture it
                 self._graphs[key] = self._capture(*host)
             return out
         for pinned, dst, src in zip(entry.staging, entry.inputs, host):
-            pinned.copy_(src)
-            dst.copy_(pinned, non_blocking=True)
-        entry.graph.replay()
-        return entry.output.tolist()
+            with span("engine.stage"):
+                pinned.copy_(src)
+            with span("engine.upload"):
+                dst.copy_(pinned, non_blocking=True)
+        with span("engine.replay"):
+            entry.graph.replay()
+        with span("engine.fetch"):
+            return entry.output.tolist()
 
     def warmup(self, dtype=np.uint8) -> None:
         """One batch of zeros of the dtype the engine will serve (uint8, as
@@ -125,21 +147,25 @@ class InferenceEngine:
     def predict(self, grd: np.ndarray, sat: np.ndarray) -> List[PoseResult]:
         """grd [N,Hg,Wg,3], sat [N,Hs,Ws,3] (any N, uint8 or normalized
         f32): fixed-size chunks, the tail zero-padded."""
-        n = grd.shape[0]
-        results: List[PoseResult] = []
-        for start in range(0, n, self.batch_size):
-            g = grd[start:start + self.batch_size]
-            s = sat[start:start + self.batch_size]
-            valid = g.shape[0]
-            if valid < self.batch_size:
-                pad = self.batch_size - valid
-                g = np.concatenate([g, np.zeros((pad, *g.shape[1:]), g.dtype)])
-                s = np.concatenate([s, np.zeros((pad, *s.shape[1:]), s.dtype)])
-            rows, cols, angle, peak = self._run(np.ascontiguousarray(g),
-                                                np.ascontiguousarray(s))
-            for i in range(valid):
-                results.append(PoseResult(int(rows[i]), int(cols[i]), angle[i], peak[i]))
-        return results
+        with span("engine.predict"):
+            n = grd.shape[0]
+            results: List[PoseResult] = []
+            for start in range(0, n, self.batch_size):
+                with span("engine.pad"):
+                    g = grd[start:start + self.batch_size]
+                    s = sat[start:start + self.batch_size]
+                    valid = g.shape[0]
+                    if valid < self.batch_size:
+                        pad = self.batch_size - valid
+                        g = np.concatenate([g, np.zeros((pad, *g.shape[1:]), g.dtype)])
+                        s = np.concatenate([s, np.zeros((pad, *s.shape[1:]), s.dtype)])
+                    g, s = np.ascontiguousarray(g), np.ascontiguousarray(s)
+                rows, cols, angle, peak = self._run(g, s)
+                with span("engine.results"):
+                    for i in range(valid):
+                        results.append(PoseResult(int(rows[i]), int(cols[i]), angle[i],
+                                                  peak[i]))
+            return results
 
 
 class _Program(torch.nn.Module):

@@ -37,6 +37,7 @@ import torch
 from ccvpe_tpu_torch.core import config as cfg_lib
 from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.checkpoint import latest_model_state
+from ccvpe_tpu_torch.core.profiling import span
 from ccvpe_tpu_torch.data.kitti import KittiDataset
 from ccvpe_tpu_torch.data.loader import ThreadedLoader
 from ccvpe_tpu_torch.data.vigor import VIGORDataset
@@ -118,35 +119,37 @@ def pipelined(step: Callable[..., Sequence[torch.Tensor]], batches: Iterable,
     pending: collections.deque = collections.deque()   # (slot, rows, raw)
 
     def dispatch(slot: _Slot, raw: dict) -> int:
-        slot.wait()
-        arrays = inputs(raw)
-        rows = len(arrays[0])
-        if rows > batch_size:
-            raise ValueError(f"a batch of {rows} rows exceeds the batch size {batch_size}")
-        srcs = [torch.as_tensor(a) for a in arrays]
-        if len(slot.inputs) != len(srcs):
-            slot.inputs = [None] * len(srcs)
-        slot.inputs = [_host_buffer(buf, (batch_size, *src.shape[1:]), src.dtype, pin)
-                       for buf, src in zip(slot.inputs, srcs)]
-        for buf, src in zip(slot.inputs, srcs):
-            buf[:rows].copy_(src)
-            buf[rows:].zero_()
-        outs = step(*(slot.inputs if host_inputs
-                      else [buf.to(device, non_blocking=True) for buf in slot.inputs]))
-        if len(slot.outputs) != len(outs):
-            slot.outputs = [None] * len(outs)
-        slot.outputs = [_host_buffer(h, o.shape, o.dtype, pin)
-                        for h, o in zip(slot.outputs, outs)]
-        for h, o in zip(slot.outputs, outs):
-            h.copy_(o, non_blocking=True)
-        if pin:
-            slot.done = torch.cuda.Event()
-            slot.done.record()
-        return rows
+        with span("eval.dispatch"):
+            slot.wait()
+            arrays = inputs(raw)
+            rows = len(arrays[0])
+            if rows > batch_size:
+                raise ValueError(f"a batch of {rows} rows exceeds the batch size {batch_size}")
+            srcs = [torch.as_tensor(a) for a in arrays]
+            if len(slot.inputs) != len(srcs):
+                slot.inputs = [None] * len(srcs)
+            slot.inputs = [_host_buffer(buf, (batch_size, *src.shape[1:]), src.dtype, pin)
+                           for buf, src in zip(slot.inputs, srcs)]
+            for buf, src in zip(slot.inputs, srcs):
+                buf[:rows].copy_(src)
+                buf[rows:].zero_()
+            outs = step(*(slot.inputs if host_inputs
+                          else [buf.to(device, non_blocking=True) for buf in slot.inputs]))
+            if len(slot.outputs) != len(outs):
+                slot.outputs = [None] * len(outs)
+            slot.outputs = [_host_buffer(h, o.shape, o.dtype, pin)
+                            for h, o in zip(slot.outputs, outs)]
+            for h, o in zip(slot.outputs, outs):
+                h.copy_(o, non_blocking=True)
+            if pin:
+                slot.done = torch.cuda.Event()
+                slot.done.record()
+            return rows
 
     def collect(slot: _Slot, rows: int, raw: dict):
-        slot.wait()
-        return [h[:rows].numpy().copy() for h in slot.outputs], raw
+        with span("eval.collect"):
+            slot.wait()
+            return [h[:rows].numpy().copy() for h in slot.outputs], raw
 
     for i, raw in enumerate(batches):
         slot = ring[i % len(ring)]

@@ -29,6 +29,14 @@ its B / A rows of each.
 The eval steps (make_eval_step, make_eval_decode_step) are, as the JAX
 package's jitted ones, one compiled executable per input shape: one CUDA
 graph on the card (EvalStep, core/graphs.py::GraphCache).
+
+Traced (core/profiling.py), a train step is the span `train.step`
+holding `train.stage` (the batch copied into the graph's inputs),
+`train.replay`, `train.rebind` (the gradients set on the parameters),
+`train.metrics` (the clones), or `train.eager`; the process counts
+`train.steps`. On the card the marks `encoders` (in the model),
+`backward` and `optimizer` bound those layers inside the replay; the eval
+steps' graphs carry the model's.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from ccvpe_tpu_torch.core import mesh
 from ccvpe_tpu_torch.core.config import ModelConfig, TrainConfig
 from ccvpe_tpu_torch.core.graphs import Graph, GraphCache
 from ccvpe_tpu_torch.core.precision import float32_matmuls
+from ccvpe_tpu_torch.core.profiling import count, marked, marking, span
 from ccvpe_tpu_torch.models.cvm import CVM, CVMOutput, build_cvm, resolve_device
 from ccvpe_tpu_torch.ops import pose
 from ccvpe_tpu_torch.ops.gt import (gaussian_heatmap, gaussian_heatmap_window, maxpool_pyramid,
@@ -395,14 +404,17 @@ class TrainStep:
             starts = [(i * data + mesh.data_index()) * m for i in range(accum)]
         else:
             starts = [i * m for i in range(accum)]
-        for start in starts:
-            mb = Batch(*(v[start:start + m] for v in batch))
-            total, metrics = loss_fn(mb, generator)
-            (total / accum if accum > 1 else total).backward()
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + v.detach()
-        mesh.mean_grads(list(state.model.parameters()), state.model.row_block_params())
-        state.optimizer.update()
+        with marking(batch.grd.device):
+            for start in starts:
+                mb = Batch(*(v[start:start + m] for v in batch))
+                total, metrics = loss_fn(mb, generator)
+                with marked("backward"):
+                    (total / accum if accum > 1 else total).backward()
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + v.detach()
+            mesh.mean_grads(list(state.model.parameters()), state.model.row_block_params())
+            with marked("optimizer"):
+                state.optimizer.update()
         return {k: v / accum for k, v in sums.items()}
 
     def _graphed(self, state: TrainState, batch, generator) -> Dict[str, torch.Tensor]:
@@ -425,12 +437,15 @@ class TrainStep:
                 state.optimizer.zero_grad()
                 torch.cuda.empty_cache()
             if self._warmed.get(key) != binding:
-                metrics = self._run(state, to_batch(src, device), generator)
+                count("graph.eager")
+                with span("train.eager"):
+                    metrics = self._run(state, to_batch(src, device), generator)
                 self._warmed[key] = state_binding(state, generator)
                 return metrics
             inputs = Batch(*(torch.empty(v.shape, dtype=v.dtype, device=device) for v in src))
-            for dst, v in zip(inputs, src):
-                dst.copy_(v)
+            with span("train.stage"):
+                for dst, v in zip(inputs, src):
+                    dst.copy_(v)
             graph = Graph()
             metrics = graph.capture(lambda: self._run(state, inputs, generator),
                                     () if generator is None else (generator,))
@@ -439,31 +454,38 @@ class TrainStep:
                                                    generator)
             self.captures += 1
         else:
-            for dst, v in zip(entry.inputs, src):
-                dst.copy_(v, non_blocking=True)
-        entry.graph.replay()
-        for p, g in zip(state.model.parameters(), entry.grads):
-            p.grad = g
-        return {k: v.clone() for k, v in entry.metrics.items()}
+            with span("train.stage"):
+                for dst, v in zip(entry.inputs, src):
+                    dst.copy_(v, non_blocking=True)
+        with span("train.replay"):
+            entry.graph.replay()
+        with span("train.rebind"):
+            for p, g in zip(state.model.parameters(), entry.grads):
+                p.grad = g
+        with span("train.metrics"):
+            return {k: v.clone() for k, v in entry.metrics.items()}
 
     @float32_matmuls()
     def __call__(self, state: TrainState, batch, generator: Optional[torch.Generator] = None):
-        model = state.model
-        model.train()
-        device = next(model.parameters()).device
-        b = batch[0].shape[0]
-        if b % self.accum:
-            data = mesh.data_size()
-            raise ValueError(f"batch {b} does not split into {self.accum} microbatches"
-                             + (f" of a multiple of {data} rows (one block a data index of a "
-                                f"global batch of {b * data})" if data > 1 else ""))
-        if self.cuda_graph and device.type == "cuda":
-            metrics = self._graphed(state, batch, generator)
-        else:
-            metrics = self._run(state, to_batch(batch, device), generator)
-        state.optimizer.advance()
-        state.step += 1
-        return state, metrics
+        with span("train.step"):
+            model = state.model
+            model.train()
+            device = next(model.parameters()).device
+            b = batch[0].shape[0]
+            if b % self.accum:
+                data = mesh.data_size()
+                raise ValueError(f"batch {b} does not split into {self.accum} microbatches"
+                                 + (f" of a multiple of {data} rows (one block a data index of "
+                                    f"a global batch of {b * data})" if data > 1 else ""))
+            count("train.steps")
+            if self.cuda_graph and device.type == "cuda":
+                metrics = self._graphed(state, batch, generator)
+            else:
+                with span("train.eager"):
+                    metrics = self._run(state, to_batch(batch, device), generator)
+            state.optimizer.advance()
+            state.step += 1
+            return state, metrics
 
 
 @contextlib.contextmanager
@@ -548,18 +570,19 @@ class EvalStep:
     @torch.inference_mode()
     @float32_matmuls()
     def __call__(self, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        model = self.model
-        body = functools.partial(self._body, model)
-        if self.graphs is None:
-            return tuple(body(*(t.to(self.device, non_blocking=True) for t in inputs)))
-        if torch.is_anomaly_enabled():
-            raise RuntimeError("NaN checks (autograd anomaly mode) cannot run inside a CUDA "
-                               "graph: make the eval step with cuda_graph=False")
-        if not mesh.capturable() and forward_collectives(model.config):
-            raise RuntimeError(f"the forward's model-axis collectives cannot run inside a CUDA "
-                               f"graph under a {mesh.backend()} process group: make the eval "
-                               "step with cuda_graph=False")
-        return self.graphs(body, (id(model), mesh.current_mesh()), *inputs)
+        with marking(self.device):
+            model = self.model
+            body = functools.partial(self._body, model)
+            if self.graphs is None:
+                return tuple(body(*(t.to(self.device, non_blocking=True) for t in inputs)))
+            if torch.is_anomaly_enabled():
+                raise RuntimeError("NaN checks (autograd anomaly mode) cannot run inside a CUDA "
+                                   "graph: make the eval step with cuda_graph=False")
+            if not mesh.capturable() and forward_collectives(model.config):
+                raise RuntimeError(f"the forward's model-axis collectives cannot run inside a CUDA "
+                                   f"graph under a {mesh.backend()} process group: make the eval "
+                                   "step with cuda_graph=False")
+            return self.graphs(body, (id(model), mesh.current_mesh()), *inputs)
 
 
 def forward_maps(model: CVM, grd, sat) -> Tuple[torch.Tensor, torch.Tensor]:

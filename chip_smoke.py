@@ -165,14 +165,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and MB; InferenceEngine(cuda_graph=True) against cuda_graph=False on
      phase 8's 20 requests: the same PoseResults, 18 B1 launches each, one
      capture (warmup's), each one's p50 batch latency and busy share
-     (torch.profiler), whose trace of one batch must show 6 B1 kernels; in
+     (torch.profiler), whose trace of one batch must show 6 B1 kernels,
+     and the process's counts (core/profiling.py::counters) over the
+     requests: the graphed engine replays each of its 3 batches, the eager
+     one none; in
      deterministic mode, the fused float32 step and bench.py's options at
      batch 8, 3 steps eager and 3 graphed from the same state and
      generator seeds: losses, gradients, parameters, buffers and Adam
      state the same bits, the same launches every step and in the trace of
      one profiled step, each one's p50,
      pairs/s, busy share and peak memory; bench.py's options at batch 96
-     graphed, with the eager first step's peak and the graph's;
+     graphed, with the eager first step's peak and the graph's, its 3 timed
+     steps counted as 3 train.steps and 3 graph.replays;
  16. scale-out, after phase 14, in a fifth child process (python3
      chip_smoke.py --scale-out <json>, phase 12's environment): in
      deterministic mode, the graphed fused float32 step at batch 8, 3 steps
@@ -1482,6 +1486,15 @@ def zero_launch_counts() -> None:
     lmu_cuda.fused_stage_bwd.bf16_launches = 0
 
 
+def count_delta(before: dict, names) -> dict:
+    """The change in core/profiling.py::counters() since `before`, of those
+    of `names` that moved."""
+    from ccvpe_tpu_torch.core.profiling import counters
+    now = counters()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in names
+            if now.get(k, 0) != before.get(k, 0)}
+
+
 def count_calls(fn, calls):
     """fn, recording the kernel launches of each call into `calls` (the
     counters are bumped on the host where each kernel is launched)."""
@@ -2612,8 +2625,12 @@ def run_graph_serving(card, out, sd) -> bool:
     (vigor(), SERVE_REQUESTS uint8 requests of numpy seed 17, batch 8, the
     last batch padded): the same PoseResults and B1 launches, each one's p50
     batch latency over SERVE_TIMED batches (host copies included), and the
-    device's busy share over one batch under torch.profiler."""
+    device's busy share over one batch under torch.profiler. The process's
+    counts (core/profiling.py::counters) over the requests: the graphed
+    engine replays every batch (graph.replays = engine.batches, nothing
+    eager or captured), the eager one replays none."""
     from ccvpe_tpu_torch.core import config as cfg_lib
+    from ccvpe_tpu_torch.core.profiling import counters
     from ccvpe_tpu_torch.serve import InferenceEngine
     vigor = cfg_lib.vigor()
     rng = np.random.default_rng(17)
@@ -2626,8 +2643,11 @@ def run_graph_serving(card, out, sd) -> bool:
         engine.warmup()
         torch.cuda.synchronize()
         zero_launch_counts()
+        before = counters()
         results[name] = engine.predict(grd, sat)
         launches = launch_counts()
+        counts = count_delta(before, ("engine.batches", "graph.replays", "graph.eager",
+                                      "graph.captures"))
         lat = []
         for _ in range(SERVE_TIMED):
             t0 = time.perf_counter()
@@ -2639,23 +2659,30 @@ def run_graph_serving(card, out, sd) -> bool:
         res[name] = dict(launches=launches, p50_batch_ms=p50 * 1e3, pairs_per_s=8 / p50,
                          batch_ms=[t * 1e3 for t in lat], busy_share=prof["busy_ms"] / prof["wall_ms"],
                          busy_ms=prof["busy_ms"], captures=engine.captures,
-                         traced_launches=prof["launches_traced"])
+                         traced_launches=prof["launches_traced"], counts=counts)
         log(f"serving {name} vigor batch 8: {SERVE_REQUESTS} requests launch B1 "
             f"{launches['corr_fwd']}; p50 batch latency {p50 * 1e3:.2f} ms, {8 / p50:.2f} pairs/s, "
             f"device busy {prof['busy_ms']:.2f} ms of a profiled batch "
-            f"({res[name]['busy_share']:.1%}); graphs captured {engine.captures} [{card}]")
+            f"({res[name]['busy_share']:.1%}); graphs captured {engine.captures}; counts over "
+            f"the requests {counts} [{card}]")
         del engine
         torch.cuda.empty_cache()
     same = results["eager"] == results["graphed"]
     want = 6 * -(-SERVE_REQUESTS // 8)
     traced = [res[n]["traced_launches"]["corr_fwd"] for n in ("eager", "graphed")]
+    batches = want // 6
+    counts_ok = (res["eager"]["counts"] == {"engine.batches": batches}
+                 and res["graphed"]["counts"] == {"engine.batches": batches,
+                                                  "graph.replays": batches})
     ok = (same and res["eager"]["launches"]["corr_fwd"] == want
           and res["graphed"]["launches"]["corr_fwd"] == want and traced == [6, 6]
-          and res["graphed"]["captures"] == 1)
+          and res["graphed"]["captures"] == 1 and counts_ok)
     res["same_results"] = same
     log(f"serving graphed vs eager: the same {SERVE_REQUESTS} PoseResults {same}; B1 launches "
         f"{want} each; in the trace of one batch (eager, replayed) {traced}, want 6; graphs "
-        f"captured {res['graphed']['captures']}, want 1 (warmup's) {'ok' if ok else 'FAIL'}")
+        f"captured {res['graphed']['captures']}, want 1 (warmup's); counts over the requests: "
+        f"{batches} batches, replayed {batches} graphed and 0 eager {counts_ok} "
+        f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -2703,9 +2730,12 @@ def run_graph_steps(card, out, sd) -> bool:
     every step as the Trainer does: the same losses, gradients, parameters,
     buffers and Adam state to the bit, the same launches in every step; then
     each one's p50, pairs/s and peak memory over GRAPH_TIMED_STEPS steps and
-    its busy share over one step under torch.profiler."""
+    its busy share over one step under torch.profiler. At batch 96 the
+    process's counts over the timed steps (core/profiling.py::counters):
+    every step a replay (graph.replays = train.steps)."""
     from ccvpe_tpu_torch.core import config as cfg_lib
     from ccvpe_tpu_torch.core.debug import deterministic
+    from ccvpe_tpu_torch.core.profiling import counters
     from ccvpe_tpu_torch.train.step import create_train_state, make_train_step
     vigor = cfg_lib.vigor()
     tc = cfg_lib.TrainConfig()
@@ -2795,23 +2825,29 @@ def run_graph_steps(card, out, sd) -> bool:
     eager_reserved = torch.cuda.max_memory_reserved()
     step(state, batch, gen)                            # captured, then replayed
     times, losses = [], []
+    before = counters()
     for _ in range(3):
         t0 = time.perf_counter()
         _, m = step(state, batch, gen)
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    # the process's counts over the timed steps: every one a replay
+    counts = count_delta(before, ("train.steps", "graph.replays", "graph.eager",
+                                  "graph.captures"))
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     p50 = float(np.median(times))
-    ok = step.captures == 1 and bool(np.isfinite(losses).all())
+    ok = (step.captures == 1 and bool(np.isfinite(losses).all())
+          and counts == {"train.steps": 3, "graph.replays": 3})
     res["bench.py options batch 96"] = dict(
         p50_step_ms=p50 * 1e3, pairs_per_s=96 / p50, step_ms=[t * 1e3 for t in times],
         eager_peak_bytes=eager_peak, eager_reserved_bytes=eager_reserved, peak_bytes=peak,
-        reserved_bytes=reserved, losses=losses, ok=ok)
+        reserved_bytes=reserved, losses=losses, counts=counts, ok=ok)
     log(f"train graphed bench.py options batch 96: p50 step {p50 * 1e3:.2f} ms, "
         f"{96 / p50:.2f} pairs/s; peak memory after the eager first step "
         f"{eager_peak / 2 ** 30:.2f} GiB allocated ({eager_reserved / 2 ** 30:.2f} reserved), "
-        f"with the graph {peak / 2 ** 30:.2f} GiB allocated ({reserved / 2 ** 30:.2f} reserved) "
+        f"with the graph {peak / 2 ** 30:.2f} GiB allocated ({reserved / 2 ** 30:.2f} reserved); "
+        f"counts over the 3 timed steps {counts}, want 3 steps, 3 replays "
         f"{'ok' if ok else 'FAIL'} [{card}]")
     return ok
 

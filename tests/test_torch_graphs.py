@@ -4,7 +4,9 @@ serving and train steps to eager ones there, to the bit):
 
 - core/graphs.py::Graph with a stand-in graph: a capture counts no launch
   and each replay adds the capture's; a failed capture raises and leaves
-  the counters as they were;
+  the counters as they were; core/profiling.py's graph.captures,
+  graph.replays and graph.eager move as Graph and GraphCache capture,
+  replay and run eagerly;
 - cuda_graph=True on a CPU InferenceEngine and train step gives today's
   eager results to the bit (the CPU path stays eager);
 - the optimizer's tensor learning rate follows the float schedule, a
@@ -26,7 +28,8 @@ import torch
 from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 from ccvpe_tpu_torch.core import config as tcfg
 from ccvpe_tpu_torch.core.checkpoint import CheckpointManager, load_payload, step_file
-from ccvpe_tpu_torch.core.graphs import Graph, launch_counters, read_counts
+from ccvpe_tpu_torch.core.graphs import Graph, GraphCache, launch_counters, read_counts
+from ccvpe_tpu_torch.core.profiling import counters
 from ccvpe_tpu_torch.models.cvm import CVM, random_init_
 from ccvpe_tpu_torch.ops import corr_cuda, lmu_cuda
 from ccvpe_tpu_torch.serve import InferenceEngine
@@ -94,6 +97,36 @@ def test_failed_capture_raises_and_restores_the_counters():
     assert read_counts() == before
     with pytest.raises(RuntimeError, match="replay before capture"):
         graph.replay()
+
+
+def graph_counts(before=None):
+    now = {k: v for k, v in counters().items() if k.startswith("graph.")}
+    return now if before is None else {k: v - before.get(k, 0) for k, v in now.items()
+                                       if v != before.get(k, 0)}
+
+
+def test_graph_counts_its_captures_and_replays():
+    graph = stand_in_graph()
+    before = graph_counts()
+    graph.capture(lambda: "out")
+    assert graph_counts(before) == {"graph.captures": 1}
+    for _ in range(3):
+        graph.replay()
+    assert graph_counts(before) == {"graph.captures": 1, "graph.replays": 3}
+
+
+def test_graph_cache_counts_eager_calls_captures_and_replays():
+    cache = GraphCache("cpu", make_graph=stand_in_graph)
+    x = torch.ones(2, 3)
+    before = graph_counts()
+    # eager, then a capture and its replay, then a replay
+    for want in ({"graph.eager": 1}, {"graph.captures": 1, "graph.replays": 1},
+                 {"graph.replays": 1}):
+        at = graph_counts()
+        cache(lambda t: (t * 2,), "binding", x)
+        assert graph_counts(at) == want
+    cache(lambda t: (t * 2,), "another binding", x)     # a stale graph: eager again
+    assert graph_counts(before) == {"graph.eager": 2, "graph.captures": 1, "graph.replays": 2}
 
 
 @pytest.fixture(scope="module")

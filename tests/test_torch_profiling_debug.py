@@ -1,43 +1,17 @@
 """The port's profiling and debug helpers (core/profiling.py, core/debug.py):
-StepTimer's rate and rolling window (as tests/test_profiling.py), flop_cost
-on a matmul, trace writing a Chrome trace, the value-fetch barriers, and
-deterministic() and nan_checks() restoring the caller's flags."""
+trace writing a Chrome trace, and deterministic() and nan_checks()
+restoring the caller's flags. The spans, counts and marks of
+core/profiling.py: tests/test_torch_tracing.py."""
 
 import glob
 import json
 import os
-import time
 
 import pytest
 import torch
 
 from ccvpe_tpu_torch.core import debug
-from ccvpe_tpu_torch.core.profiling import StepTimer, flop_cost, sync, sync_element, trace
-
-
-def test_step_timer_rate():
-    t = StepTimer(window=10)
-    assert t.items_per_s == 0.0
-    t.tick(8)
-    time.sleep(0.05)
-    t.tick(8, block_on={"loss": torch.ones(3)})
-    time.sleep(0.05)
-    t.tick(8)
-    # 16 items over ~0.1 s
-    assert 50 < t.items_per_s < 400
-
-
-def test_step_timer_window_rolls():
-    t = StepTimer(window=3)
-    for _ in range(10):
-        t.tick(1)
-    assert len(t._times) <= 4
-
-
-def test_flop_cost_counts_matmul_flops():
-    a = torch.ones(128, 256)
-    b = torch.ones(256, 64)
-    assert flop_cost(lambda a, b: a @ b, a, b)["flops"] == 2 * 128 * 256 * 64
+from ccvpe_tpu_torch.core.profiling import trace
 
 
 def test_trace_writes_chrome_trace(tmp_path):
@@ -49,13 +23,6 @@ def test_trace_writes_chrome_trace(tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
-
-
-def test_sync_fetches_values():
-    tree = {"a": torch.arange(3.0), "b": [torch.ones(2), 5]}
-    got = sync(tree)
-    assert torch.equal(got["a"], tree["a"]) and got["b"][1] == 5
-    assert sync_element((torch.tensor([2.5, 1.0]),)) == 2.5
 
 
 def _flags():
